@@ -28,3 +28,18 @@ def from_jax_params(params_np: dict, cfg: CaduceusConfig) -> Caduceus:
     params = {k: conv(v) for k, v in params_np.items() if k != "blocks"}
     params["blocks"] = {k: conv(params_np["blocks"][k]) for k in LAYER_KEYS}
     return Caduceus(cfg, params)
+
+
+def to_jax_params(model: Caduceus) -> dict:
+    """The inverse of :func:`from_jax_params`: the model's weights as the JAX
+    pytree of float32 numpy arrays (block leaves stacked on n_layer)."""
+    def conv(t):
+        return t.detach().float().cpu().numpy().copy()
+
+    params = {"embedding": conv(model.embedding),
+              "blocks": {k: np.stack([conv(getattr(layer, k)) for layer in model.layers])
+                         for k in LAYER_KEYS},
+              "norm_f_weight": conv(model.norm_f_weight)}
+    if model.lm_head is not None:
+        params["lm_head"] = conv(model.lm_head)
+    return params

@@ -2,10 +2,14 @@
 //
 // Replaces plantcaduceus_tpu/ops/pallas_mixer.py::_mixer_kernel (launched
 // at pallas_mixer.py:345 through mixer_scan_fused / bimamba_mixer_fused[_x]),
-// forward only, with the x-projection given (no fuse_in, no emit_res):
-//   xg    = silu(depthwise conv K taps (causal, or anticausal) + bias)
+// with the x-projection given (no fuse_in):
+//   xg    = silu(acc), acc = depthwise conv K taps (causal, or anticausal) + bias
 //   dt_lr | B | C = xg @ [W_dt | W_B | W_C]
 //   y     = K1's scan of xg with dt = dt_lr @ W_dt, plus Dskip * xg.
+// The training variant (emit_res, pallas_mixer.py:61-66, 118-119, 131-135)
+// also writes the pre-SiLU `acc` in xi's dtype and the scan's chunk-entry
+// states `hb`; the fp32 dt_lr | B | C rows are the `dbc` scratch itself,
+// which the wrapper returns instead of dropping.
 //
 // The TPU kernel walks time chunks in order and carries the conv halo and
 // the x_proj sums in scratch. GPU blocks run in no order, so the work is two
@@ -43,12 +47,13 @@ inline size_t mix_smem_bytes(int J) {
   return sizeof(float) * ((kTL + kMaxK - 1) * kDC + kTL * kDC + kDC * J);
 }
 
-template <typename T>
+// RES: the training variant, which also writes the pre-SiLU acc.
+template <typename T, bool RES>
 __global__ void __launch_bounds__(kMixThreads) conv_xproj_kernel(
     const T* __restrict__ xi, const float* __restrict__ conv_w,
     const float* __restrict__ conv_b, const float* __restrict__ wx,
-    float* __restrict__ xg, float* __restrict__ dbc, int L, int D, int K, int J,
-    int reverse) {
+    float* __restrict__ xg, float* __restrict__ dbc, T* __restrict__ acc_out, int L,
+    int D, int K, int J, int reverse) {
   extern __shared__ float smem[];
   float* sx = smem;                            // [kTL+K-1][kDC] xi window
   float* sxg = sx + (kTL + kMaxK - 1) * kDC;   // [kTL][kDC]
@@ -88,6 +93,7 @@ __global__ void __launch_bounds__(kMixThreads) conv_xproj_kernel(
           s = fmaf(sx[(tt + k) * kDC + ch], w[reverse ? K - 1 - k : k], s);
         v = s / (1.f + expf(-s));  // silu
         xgrow[(long long)t * D + c] = v;
+        if constexpr (RES) acc_out[(b * L + t) * D + c] = from_f<T>(s);  // pre-SiLU
       }
       sxg[i] = v;
     }
@@ -117,17 +123,20 @@ template <typename T>
 cudaError_t launch_mixer(const void* xi, const float* conv_w, const float* conv_b,
                          const float* wx, const float* wdt, const float* dt_bias,
                          const float* A, const float* Dskip, float* xg, float* dbc,
-                         void* y, int Bn, int L, int D, int N, int R, int K,
-                         int reverse, cudaStream_t s) {
+                         void* y, void* acc, float* hb, int Bn, int L, int D, int N,
+                         int R, int K, int reverse, int hbc, cudaStream_t s) {
   const int J = R + 2 * N;
   dim3 grid((L + kTL - 1) / kTL, Bn);
-  conv_xproj_kernel<T><<<grid, kMixThreads, mix_smem_bytes(J), s>>>(
-      static_cast<const T*>(xi), conv_w, conv_b, wx, xg, dbc, L, D, K, J, reverse);
+  auto conv = acc ? conv_xproj_kernel<T, true> : conv_xproj_kernel<T, false>;
+  conv<<<grid, kMixThreads, mix_smem_bytes(J), s>>>(
+      static_cast<const T*>(xi), conv_w, conv_b, wx, xg, dbc, static_cast<T*>(acc), L, D,
+      K, J, reverse);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   ScanArgs a;
   a.x = xg; a.dt = dbc; a.B = dbc + R; a.C = dbc + R + N;
   a.A = A; a.Dskip = Dskip; a.dt_bias = dt_bias; a.wdt = wdt; a.y = y;
+  a.hb = hb; a.hbc = hbc > 0 ? hbc : 1;
   a.L = L; a.D = D; a.R = R; a.reverse = reverse;
   a.dt_step = J; a.dt_row = (long long)L * J;
   a.bc_step = J; a.bc_row = (long long)L * J;
@@ -136,16 +145,17 @@ cudaError_t launch_mixer(const void* xi, const float* conv_w, const float* conv_
 
 }  // namespace pc
 
+// acc and hb are both null (inference) or both given (training residuals).
 extern "C" int pc_mixer_fwd(const void* xi, const float* conv_w, const float* conv_b,
                             const float* wx, const float* wdt, const float* dt_bias,
                             const float* A, const float* Dskip, float* xg, float* dbc,
-                            void* y, int Bn, int L, int D, int N, int R, int K,
-                            int reverse, int bf16, void* stream) {
+                            void* y, void* acc, float* hb, int Bn, int L, int D, int N,
+                            int R, int K, int reverse, int bf16, int hbc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return pc::launch_mixer<__nv_bfloat16>(xi, conv_w, conv_b, wx, wdt, dt_bias, A,
-                                           Dskip, xg, dbc, y, Bn, L, D, N, R, K,
-                                           reverse, s);
+                                           Dskip, xg, dbc, y, acc, hb, Bn, L, D, N, R,
+                                           K, reverse, hbc, s);
   return pc::launch_mixer<float>(xi, conv_w, conv_b, wx, wdt, dt_bias, A, Dskip, xg,
-                                 dbc, y, Bn, L, D, N, R, K, reverse, s);
+                                 dbc, y, acc, hb, Bn, L, D, N, R, K, reverse, hbc, s);
 }

@@ -14,6 +14,11 @@
 // tensor exists. B, C (and dt_lr) rows of each time chunk are shared by
 // every channel, so the block stages them in shared memory once per chunk;
 // the W_dt tile sits in shared memory for the whole run.
+//
+// Training variant (hb != nullptr): before processing step p (counted in
+// processing order) with p % hbc == 0, the thread stores its N states to
+// hb[row][p / hbc][d][:], as pallas_scan.py's emit_hb (hb [rows, L/chunk,
+// D, N], processing order). K3 (scan_bwd.cu) recomputes each chunk from it.
 
 #pragma once
 
@@ -40,6 +45,52 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // jax.nn.softplus to float32 rounding.
 __device__ __forceinline__ float softplus(float x) { return x > 20.f ? x : log1pf(expf(x)); }
 
+// Fused dt: the dt_lr row of one step (shared) against this channel's
+// column of the W_dt tile (shared, row stride `wstride`). Forward and
+// backward call this one function, so the backward's recomputed states are
+// bit-identical to the forward's.
+__device__ __forceinline__ float fused_dt(const float* sdt_row, const float* sW,
+                                          int R, int wstride, int tid) {
+  float v = 0.f;
+  for (int r = 0; r < R; ++r) v = fmaf(sdt_row[r], sW[r * wstride + tid], v);
+  return v;
+}
+
+// One step of the recurrence for one channel: h = exp2(dt'*log2e*A) * h +
+// B*dt'*x. With Y, also returns the readout sum_n C[n]*h[n], in the same
+// loop (the forward); without, returns 0 (K3's recompute).
+template <int N, bool Y>
+__device__ __forceinline__ float scan_step(float (&h)[N], const float (&A)[N],
+                                           const float* sBrow, const float* sCrow,
+                                           float dtp, float xv) {
+  const float dtl = dtp * kLog2e;
+  const float dtx = dtp * xv;
+  float acc = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    h[n] = fmaf(exp2f(dtl * A[n]), h[n], sBrow[n] * dtx);
+    if constexpr (Y) acc = fmaf(sCrow[n], h[n], acc);
+  }
+  return acc;
+}
+
+// N fp32 states to / from hb (N % 4 == 0; each thread's N floats are 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void store_state(float* dst, const float (&h)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4)
+    reinterpret_cast<float4*>(dst)[n / 4] = make_float4(h[n], h[n + 1], h[n + 2], h[n + 3]);
+}
+
+template <int N>
+__device__ __forceinline__ void load_state(float (&h)[N], const float* src) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4) {
+    const float4 v = reinterpret_cast<const float4*>(src)[n / 4];
+    h[n] = v.x; h[n + 1] = v.y; h[n + 2] = v.z; h[n + 3] = v.w;
+  }
+}
+
 struct ScanArgs {
   const void* x;      // [rows, L, D]
   const void* dt;     // dt [rows, L, D], or dt_lr with R columns when FUSE
@@ -50,7 +101,8 @@ struct ScanArgs {
   const float* dt_bias;  // [D]
   const float* wdt;   // [R, D] when FUSE
   void* y;            // [rows, L, D]
-  int L, D, R, reverse;
+  float* hb;          // [rows, ceil(L/hbc), D, N] chunk-entry states, or nullptr
+  int L, D, R, reverse, hbc;
   long long dt_row, dt_step, bc_row, bc_step;  // element strides
 };
 
@@ -59,7 +111,9 @@ inline size_t scan_smem_bytes(int N, int R, bool fuse) {
          (2 * kScanChunk * N + (fuse ? kScanChunk * R + R * kScanThreads : 0));
 }
 
-template <typename Tx, typename Tb, typename Ty, int N, bool FUSE>
+// HB: the training variant, chosen at launch from a.hb, so the inference
+// kernel carries no per-step test for it.
+template <typename Tx, typename Tb, typename Ty, int N, bool FUSE, bool HB>
 __global__ void __launch_bounds__(kScanThreads) scan_kernel(ScanArgs a) {
   extern __shared__ float smem[];
   float* sB = smem;                   // [kScanChunk][N]
@@ -92,6 +146,7 @@ __global__ void __launch_bounds__(kScanThreads) scan_kernel(ScanArgs a) {
   }
   const float bias = live ? a.dt_bias[d] : 0.f;
   const float dsk = live ? a.Dskip[d] : 0.f;
+  float* hb = HB ? a.hb + row * (long long)((a.L + a.hbc - 1) / a.hbc) * a.D * N : nullptr;
 
   const int nchunks = (a.L + kScanChunk - 1) / kScanChunk;
   for (int ci = 0; ci < nchunks; ++ci) {
@@ -113,23 +168,14 @@ __global__ void __launch_bounds__(kScanThreads) scan_kernel(ScanArgs a) {
       const int tt = a.reverse ? tn - 1 - k : k;
       const long long t = t0 + tt;
       const float xv = to_f(x[t * a.D + d]);
-      float dtv;
-      if (FUSE) {
-        dtv = 0.f;
-        for (int r = 0; r < a.R; ++r)
-          dtv = fmaf(sdt[tt * a.R + r], sW[r * kScanThreads + tid], dtv);
-      } else {
-        dtv = to_f(dt[t * a.dt_step + d]);
+      const float dtv = FUSE ? fused_dt(sdt + tt * a.R, sW, a.R, kScanThreads, tid)
+                             : to_f(dt[t * a.dt_step + d]);
+      if constexpr (HB) {
+        const int p = a.reverse ? a.L - 1 - (int)t : (int)t;
+        if (p % a.hbc == 0) store_state<N>(hb + ((long long)(p / a.hbc) * a.D + d) * N, h);
       }
-      const float dtp = softplus(dtv + bias);
-      const float dtl = dtp * kLog2e;
-      const float dtx = dtp * xv;
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = fmaf(exp2f(dtl * A[n]), h[n], sB[tt * N + n] * dtx);
-        acc = fmaf(sC[tt * N + n], h[n], acc);
-      }
+      const float acc =
+          scan_step<N, true>(h, A, sB + tt * N, sC + tt * N, softplus(dtv + bias), xv);
       y[t * a.D + d] = from_f<Ty>(fmaf(xv, dsk, acc));
     }
   }
@@ -138,7 +184,8 @@ __global__ void __launch_bounds__(kScanThreads) scan_kernel(ScanArgs a) {
 template <typename Tx, typename Tb, typename Ty, int N, bool FUSE>
 cudaError_t launch_scan_t(const ScanArgs& a, int rows, cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(N, a.R, FUSE);
-  auto kern = scan_kernel<Tx, Tb, Ty, N, FUSE>;
+  auto kern = a.hb ? scan_kernel<Tx, Tb, Ty, N, FUSE, true>
+                   : scan_kernel<Tx, Tb, Ty, N, FUSE, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,7 +1,7 @@
 """Caduceus (Mamba-1, bidirectional, RC-equivariant) masked LM in PyTorch.
 
 Counterpart of ``plantcaduceus_tpu.models.caduceus`` for the Mamba-1
-family, forward only. The same flattened formulation:
+family. The same flattened formulation:
 
 * **RC stream folding.** The residual stream is ``[2B, L, d]``; rows ``B:``
   hold the network state of the reverse-complemented input in its working
@@ -22,7 +22,14 @@ Mixer paths:
   direction, with dt projected inside the kernel when G=2 and outside when
   G=1, as the JAX package does.
 
-On CPU tensors the kernel wrappers run their plain versions.
+Under training (grad enabled, and the input or a weight requiring it) the
+same paths go through autograd Functions: ``BimambaMixerFn`` (K2's residual
+variant, K3 in the backward) and ``SelectiveScanFn`` (K1 with chunk-entry
+states, K3).
+Under ``no_grad``/``inference_mode`` the inference kernels run. Weights are
+float32 master copies; compute runs in the forward's ``dtype`` with a
+float32 residual stream, as in the JAX package. On CPU tensors the kernel
+wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -33,11 +40,12 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.ops.conv import causal_conv1d
-from plantcaduceus_tpu_torch.ops.cuda_mixer import bimamba_mixer_fused
-from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd, scan_fwd_plain
+from plantcaduceus_tpu_torch.ops.cuda_mixer import bimamba_mixer, bimamba_mixer_fused
+from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd, scan_fwd_plain, selective_scan
 from plantcaduceus_tpu_torch.ops.norms import layer_norm, rms_norm
 
 LAYER_KEYS = ("norm_weight", "in_proj_x", "in_proj_z", "out_proj", "conv_w",
@@ -114,7 +122,7 @@ def init_params(cfg: CaduceusConfig, generator: Optional[torch.Generator] = None
 # ---------------------------------------------------------------------------
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
+def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t.detach().float().clone().contiguous(), requires_grad=False)
 
 
@@ -124,7 +132,7 @@ class CaduceusLayer(nn.Module):
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         super().__init__()
         for k in LAYER_KEYS:
-            setattr(self, k, _frozen(tensors[k]))
+            setattr(self, k, _param(tensors[k]))
 
     def params(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in LAYER_KEYS}
@@ -132,16 +140,17 @@ class CaduceusLayer(nn.Module):
 
 class Caduceus(nn.Module):
     """Mamba-1 Caduceus masked LM. Weights are kept in float32; each forward
-    casts them to its compute ``dtype`` where the JAX package does."""
+    casts them to its compute ``dtype`` where the JAX package does. They are
+    built frozen for scoring; ``requires_grad_()`` makes them train."""
 
     def __init__(self, cfg: CaduceusConfig, params: dict):
         super().__init__()
         if cfg.ssm_variant != "mamba1":
             raise NotImplementedError("the PyTorch port covers Mamba-1 models only")
         self.cfg = cfg
-        self.embedding = _frozen(params["embedding"])
-        self.norm_f_weight = _frozen(params["norm_f_weight"])
-        self.lm_head = _frozen(params["lm_head"]) if "lm_head" in params else None
+        self.embedding = _param(params["embedding"])
+        self.norm_f_weight = _param(params["norm_f_weight"])
+        self.lm_head = _param(params["lm_head"]) if "lm_head" in params else None
         blocks = params["blocks"]
         self.layers = nn.ModuleList(
             CaduceusLayer({k: blocks[k][i] for k in LAYER_KEYS})
@@ -151,10 +160,11 @@ class Caduceus(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, dtype=torch.bfloat16,
                 output_hidden_states: bool = False, all_hidden_states: bool = False,
-                use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+                use_kernels: bool = True, remat: bool = False) -> Dict[str, torch.Tensor]:
         return forward(self, input_ids, dtype=dtype,
                        output_hidden_states=output_hidden_states,
-                       all_hidden_states=all_hidden_states, use_kernels=use_kernels)
+                       all_hidden_states=all_hidden_states, use_kernels=use_kernels,
+                       remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -173,27 +183,36 @@ def _norm(x, w, cfg):
     return layer_norm(x, w, None, cfg.norm_epsilon)
 
 
+def _training(p: Dict[str, torch.Tensor], x: torch.Tensor) -> bool:
+    """Whether the mixer's output needs a gradient: through the input (frozen
+    layers above trained ones) or through one of its own weights."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.values()))
+
+
 def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
                 use_kernels: bool = True) -> torch.Tensor:
     """One (Bi)Mamba mixer over ``x: [rows, L, d]``. ``p`` holds one layer's
-    weights. ``use_kernels=False`` runs the kernels' plain versions on any
-    device."""
+    weights. Under training (grad enabled, and ``x`` or a weight requiring
+    it) the kernels run through their autograd Functions. ``use_kernels=False`` runs the
+    kernels' plain versions on any device, differentiated by autograd."""
     G = cfg.n_directions
     cdtype = x.dtype
     Gio = p["in_proj_x"].shape[0]
     A = -torch.exp(p["A_log"].float())                          # [G, D, N]
+    train = use_kernels and _training(p, x)
 
     if G == 2 and Gio == 1 and cfg.bidirectional_strategy == "add":
-        # Released-model path: K2 once per direction.
+        # Released-model path: K2 once per direction (K2-res and K3 under training).
         xi = x @ p["in_proj_x"][0].to(cdtype)
         z = x @ p["in_proj_z"][0].to(cdtype)
-        y_gated = bimamba_mixer_fused(
-            xi, z, p["conv_w"], p["conv_b"], p["x_proj_dt"], p["x_proj_B"],
-            p["x_proj_C"], p["dt_proj_w"], p["dt_proj_b"], A, p["D"],
-            use_kernels=use_kernels)
+        args = (xi, z, p["conv_w"], p["conv_b"], p["x_proj_dt"], p["x_proj_B"],
+                p["x_proj_C"], p["dt_proj_w"], p["dt_proj_b"], A, p["D"])
+        y_gated = (bimamba_mixer(*args) if train
+                   else bimamba_mixer_fused(*args, use_kernels=use_kernels))
         return y_gated @ p["out_proj"][0].to(cdtype)
 
-    scan = scan_fwd if use_kernels else scan_fwd_plain
+    scan = selective_scan if train else (scan_fwd if use_kernels else scan_fwd_plain)
     xi = torch.einsum("bld,gdi->gbli", x, p["in_proj_x"].to(cdtype))
     z = torch.einsum("bld,gdi->gbli", x, p["in_proj_z"].to(cdtype))
     conv_w, conv_b = p["conv_w"].to(cdtype), p["conv_b"].to(cdtype)
@@ -228,15 +247,26 @@ def embed_residual(model: Caduceus, input_ids: torch.Tensor,
     ids = input_ids
     if cfg.rcps:
         ids = torch.cat([input_ids, rc_ids(input_ids, model.cmap)], dim=0)
-    hidden = model.embedding.to(dtype)[ids]
+    table = model.embedding.to(dtype)
+    if torch.is_grad_enabled() and model.embedding.requires_grad:
+        # One-hot product: the same rows exactly (one nonzero term per sum),
+        # and a gradient that is a matrix product, not a scatter-add, so it
+        # is the same run to run on the card.
+        hidden = F.one_hot(ids, table.shape[0]).to(dtype) @ table
+    else:
+        hidden = table[ids]
     return hidden.float() if cfg.residual_in_fp32 else hidden
 
 
 def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
-             collect_layers: bool = False, use_kernels: bool = True):
+             collect_layers: bool = False, use_kernels: bool = True,
+             remat: bool = False):
     """Embedding, n_layer blocks, final norm. Returns the working-frame
     hidden states ``[S*B, L, d]``; with ``collect_layers`` also the list of
-    each block's residual-stream input (in ``dtype``)."""
+    each block's residual-stream input (in ``dtype``). ``remat=True``
+    recomputes each block in the backward pass (``torch.utils.checkpoint``,
+    as JAX ``make_block_fn``'s ``jax.checkpoint``): activation memory of
+    O(L * d) per layer instead of every block's intermediates."""
     cfg = model.cfg
     residual = embed_residual(model, input_ids, dtype)
     per_layer = []
@@ -244,9 +274,14 @@ def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
         p = layer.params()
         if collect_layers:
             per_layer.append(residual.to(dtype))
-        normed = _norm(residual.to(dtype), p["norm_weight"], cfg)
-        out = mamba_mixer(p, normed, cfg, use_kernels=use_kernels)
-        residual = residual + out.to(residual.dtype)
+
+        def block(res, p=p):
+            normed = _norm(res.to(dtype), p["norm_weight"], cfg)
+            out = mamba_mixer(p, normed, cfg, use_kernels=use_kernels)
+            return res + out.to(res.dtype)
+
+        residual = (checkpoint(block, residual, use_reentrant=False)
+                    if remat and torch.is_grad_enabled() else block(residual))
     final = _norm(residual.to(dtype), model.norm_f_weight, cfg)
     return (final, per_layer) if collect_layers else final
 
@@ -278,12 +313,13 @@ def lm_logits(model: Caduceus, h_work: torch.Tensor) -> torch.Tensor:
 
 def forward(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
             output_hidden_states: bool = False, all_hidden_states: bool = False,
-            use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+            use_kernels: bool = True, remat: bool = False) -> Dict[str, torch.Tensor]:
     """Masked-LM forward: ``logits [B, L, V]``, optionally ``hidden_states``
     (final layer) and ``all_hidden_states [n_layer+1, B, L, hidden]`` (entry
-    k = block k's input, last = ``hidden_states``)."""
+    k = block k's input, last = ``hidden_states``). ``remat`` as
+    :func:`backbone`."""
     h_work = backbone(model, input_ids, dtype, collect_layers=all_hidden_states,
-                      use_kernels=use_kernels)
+                      use_kernels=use_kernels, remat=remat)
     per_layer = None
     if all_hidden_states:
         h_work, per_layer = h_work

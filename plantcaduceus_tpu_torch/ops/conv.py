@@ -51,3 +51,23 @@ def causal_conv1d(
     elif activation is not None:
         raise ValueError(f"unsupported activation {activation!r}")
     return y
+
+
+def causal_conv1d_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                      anticausal: bool = False):
+    """Transpose of :func:`causal_conv1d` without activation, for ``x [B, L,
+    D]`` and ``w [D, K]``: returns ``(dx, dw, db)`` for the cotangent ``dy``
+    of its output (the conv is linear, so its VJP is its transpose), in
+    ``dy``'s dtype."""
+    K = w.shape[-1]
+    L = x.shape[-2]
+    pad = (0, 0, 0, K - 1) if anticausal else (0, 0, K - 1, 0)
+    xp = F.pad(x, pad)
+    dxp = torch.zeros_like(xp, dtype=dy.dtype)
+    dw = torch.empty(w.shape, dtype=dy.dtype, device=dy.device)
+    for k in range(K):
+        tap = K - 1 - k if anticausal else k
+        dxp[..., k:k + L, :] += dy * w[..., tap].to(dy.dtype)
+        dw[..., tap] = (dy * xp[..., k:k + L, :]).sum((0, 1))
+    dx = dxp[..., :L, :] if anticausal else dxp[..., K - 1:, :]
+    return dx, dw, dy.sum((0, 1))

@@ -161,22 +161,36 @@ def test_runner_extractors_match_jax(tiny_ckpt):
 
 
 def test_port_imports_no_jax():
-    """Import every module of the port and chip_smoke.py, run a CPU forward,
-    and check that neither jax nor any plantcaduceus_tpu module was loaded."""
+    """Import every module of the port (the training stack, the HF export and
+    the pre-training CLI included) and chip_smoke.py, run a CPU forward and
+    a CPU training step, and check that neither jax nor any
+    plantcaduceus_tpu module was loaded."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
+import numpy as np
 import torch
 import plantcaduceus_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+for m in ("train.masking", "train.data", "train.optimizer", "train.step", "train.loop",
+          "train.checkpoint", "compat.hf_export", "cli.pretrain"):
+    assert "plantcaduceus_tpu_torch." + m in sys.modules, m
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+from plantcaduceus_tpu_torch.train.step import make_train_step
 cfg = CaduceusConfig(d_model=16, n_layer=2, d_state=4)
+model = Caduceus(cfg, init_params(cfg))
 with torch.inference_mode():
-    out = Caduceus(cfg, init_params(cfg))(torch.randint(7, 11, (2, 16)))
+    out = model(torch.randint(7, 11, (2, 16)))
 assert out["logits"].shape == (2, 16, 16)
+init, step, _ = make_train_step(cfg, make_optimizer(params=dict(model.named_parameters())),
+                                model, dtype=torch.float32, device="cpu")
+ids = np.random.default_rng(0).integers(7, 11, (2, 16))
+_, m = step(init(), {"input_ids": ids, "labels": ids})
+assert np.isfinite(float(m["loss"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "plantcaduceus_tpu"))
 assert not bad, bad
