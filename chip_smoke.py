@@ -31,7 +31,21 @@ with the l20 model:
    through ``python -m`` resumes from the step-15 checkpoint and must reach
    the same step-30 weights bit for bit; the exported ``final/`` scores
    phase 6's TSV through ``python -m ...zero_shot_score``;
-10. device time by kernel over one l20 training step (torch.profiler).
+10. device time by kernel over one l20 training step (torch.profiler);
+
+and the Mamba-2 (SSD) scoring path with the l20-ssd model (d_model 384, 20
+layers, H 6 heads of P 128, N 128, chunk 128):
+
+3c. K4 (``ssd_dir``) and K5 (``mamba2_mixer_interior``) against their plain
+    versions at the l20-ssd scoring shape (256 rows x 512 x 768), both
+    directions, fp32 and bf16, with time, plain time and bound; one timing
+    row at the pc2-small-ssd width (16 rows x 8192 x 1536, H 12); and K4's
+    own entry point driven once per direction at the scoring shape;
+4b. the full l20-ssd forward with the kernels against the plain path in
+    fp32; K5 launches = 2 * n_layer;
+6b. the CLI with ``-model l20-ssd`` on phase 6's TSV (counted and timed)
+    and the steady-state scoring rate;
+7b. device time by kernel over one l20-ssd scoring batch (torch.profiler).
 
 Inputs and outputs of phases 6 and 9 go to ``build/chip_smoke/`` in the
 checkout.
@@ -61,6 +75,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 SFU_OPS_S = 16 * 132 * 1.98e9
+BF16_TC_FLOP_S = 989e12  # dense bf16 tensor-core products
 
 # Kernel vs plain version. float32: only the order of sums differs (the
 # x_proj reduction over D=768, the dt projection, the C readout over N, 512
@@ -114,9 +129,12 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops, sfu_ops):
+def bound_ms(nbytes, flops, sfu_ops, tc_flops=0.0):
+    """The least time for the work: the largest of bytes over the memory
+    rate, fp32 flops over the fp32 rate, special-function ops over their
+    rate and bf16 product flops (``tc_flops``) over the tensor cores' rate."""
     t = {"bytes": nbytes / HBM_BYTES_S, "flops": flops / FP32_FLOP_S,
-         "sfu": sfu_ops / SFU_OPS_S}
+         "sfu": sfu_ops / SFU_OPS_S, "tc": tc_flops / BF16_TC_FLOP_S}
     kind = max(t, key=t.get)
     return t[kind] * 1e3, ("bytes" if kind == "bytes" else "operations"), t
 
@@ -357,30 +375,190 @@ def phase_train_kernels(cfg, dev):
     return res
 
 
+def ssd_work(R, L, H, NG, s, K=4, mixer=False):
+    """What one direction of K4 (or, with ``mixer``, K5) must do, counted
+    from the shapes (P = N = chunk = 128): bytes (each input read once, each
+    output written once, ``s`` bytes an activation), fp32 elementwise flops,
+    special-function ops, and the flops of the four products (C @ B^T once
+    per group, the other three per head)."""
+    P = N = T = 128
+    di, NGN = H * P, NG * N
+    rows, nc = R * L, L // T
+    head_chunks = R * nc * H
+    prod = R * nc * (NG * 2 * T * T * N + H * 3 * 2 * T * T * P)
+    # per score: the masked difference and the product (exp2 on the SFU);
+    # per (step, head): softplus and three exp2 decays
+    scores_ew, scores_sfu = 3 * head_chunks * T * T, head_chunks * T * T
+    if mixer:  # + conv of x|B|C (2K flops) and SiLU; gate and norm over di
+        nbytes = (s * rows * (3 * di + 2 * NGN + H)
+                  + 4 * (di * (K + 2) + 2 * NGN * (K + 1) + 3 * H))
+        ew = rows * (2 * K * (di + 2 * NGN) + 12 * di + 10 * H) + scores_ew
+        sfu = rows * (2 * di + 2 * NGN + 5 * H) + scores_sfu
+    else:
+        nbytes = s * rows * (2 * di + 2 * NGN + H) + 4 * 3 * H
+        ew = rows * (6 * di + 10 * H) + scores_ew
+        sfu = rows * 5 * H + scores_sfu
+    return nbytes, ew, sfu, prod
+
+
+def ssd_bound(work, dtype_name):
+    """bf16: the products on the tensor cores; fp32: on the fp32 cores."""
+    nbytes, ew, sfu, prod = work
+    if dtype_name == "bfloat16":
+        return bound_ms(nbytes, ew, sfu, tc_flops=prod)
+    return bound_ms(nbytes, ew + prod, sfu)
+
+
+def ssd_inputs(cfg, R, L, dtype, dev, gen, seed):
+    """Seeded activations at one layer's shapes and that layer's weights
+    from the model's initialiser: K5's 15 arguments and K4's 7."""
+    import torch
+
+    H, di, NGN = cfg.n_heads, cfg.d_inner, cfg.n_groups * cfg.d_state
+    w = layer_weights(cfg, seed, dev)
+    A = -torch.exp(w["A_log"])
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * sc).to(dtype)
+
+    xi, z, Braw, Craw, dt = r(R, L, di), r(R, L, di), r(R, L, NGN), r(R, L, NGN), r(R, L, H)
+    Bm = r(R, L, cfg.n_groups, cfg.d_state, sc=0.5)
+    Cm = r(R, L, cfg.n_groups, cfg.d_state, sc=0.5)
+
+    def mixer(g):
+        return (xi, z, Braw, Craw, dt, w["conv_x_w"][g], w["conv_x_b"][g], w["conv_B_w"][g],
+                w["conv_B_b"][g], w["conv_C_w"][g], w["conv_C_b"][g],
+                w["mixer_norm_weight"][0], A[g], w["D"][g], w["dt_bias"][g])
+
+    def ssd(g):
+        return xi, dt, A[g], Bm, Cm, w["D"][g], w["dt_bias"][g]
+
+    return mixer, ssd
+
+
+def phase_ssd_kernels(dev):
+    """K4 and K5 against their plain versions at the l20-ssd scoring shape
+    (both directions, fp32 and bf16) with timings; a bf16 timing row at the
+    pc2-small-ssd width; K4's own entry point driven once per direction."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+
+    cfg = CaduceusConfig.preset("l20-ssd")
+    rows, L = 256, 512
+    log(f"phase 3c: SSD kernels vs plain versions (l20-ssd: {rows} rows x {L} x "
+        f"{cfg.d_inner}, H {cfg.n_heads}, P = N = chunk = 128)")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
+           for k in ("ssd_fwd", "mixer2_fwd")}
+    kw = dict(d_state=cfg.d_state, eps=cfg.norm_epsilon, chunk=cfg.chunk_size)
+
+    def k5(args, rev):
+        return cuda_mixer2.mamba2_mixer_interior(*args, **kw, reverse=rev)
+
+    def k5_plain(args, rev):
+        return cuda_mixer2.mamba2_mixer_interior_plain(*args, **kw, reverse=rev)
+
+    def k4(args, rev):
+        return cuda_ssd.ssd_dir(*args, cfg.chunk_size, rev)
+
+    def k4_plain(args, rev):
+        return cuda_ssd.ssd_dir_plain(*args, cfg.chunk_size, rev)
+
+    fns = {"mixer2_fwd": (k5, k5_plain, True), "ssd_fwd": (k4, k4_plain, False)}
+    bf16_inputs = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        inp = ssd_inputs(cfg, rows, L, dtype, dev, gen, 21)
+        if dtype == torch.bfloat16:
+            bf16_inputs = inp
+        for name, (kern, plain, mixer) in fns.items():
+            make = inp[0] if mixer else inp[1]
+            for g in (0, 1):
+                got = kern(make(g), g == 1)
+                want = plain(make(g), g == 1)
+                torch.cuda.synchronize()
+                res[name]["err"] = max(res[name]["err"], compare(
+                    f"{'K5' if mixer else 'K4'} {name} {dn} {'rev' if g else 'fwd'}",
+                    got, want, dn))
+                del got, want
+            args = make(1)
+            res[name]["ms"][dn] = time_ms(lambda: kern(args, True), 10)
+            res[name]["plain_ms"][dn] = time_ms(lambda: plain(args, True), 2, warmup=1)
+            res[name]["bound"][dn] = ssd_bound(
+                ssd_work(rows, L, cfg.n_heads, cfg.n_groups, dtype.itemsize, mixer=mixer), dn)
+    for name, r in res.items():
+        for dn in r["ms"]:
+            b, by, parts = r["bound"][dn]
+            log(f"  {name} ({dn}, one direction): {r['ms'][dn]:.3f} ms; plain "
+                f"{r['plain_ms'][dn]:.1f} ms; bound {b:.3f} ms by {by} (bytes "
+                f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, sfu "
+                f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)")
+
+    # K4's own entry point, one launch per direction, counted (no model path
+    # of the port launches K4: its core runs inside every K5 launch).
+    reset_counts()
+    for g in (0, 1):
+        k4(bf16_inputs[1](g), g == 1)
+    torch.cuda.synchronize()
+    c = counts()
+    if c != only(ssd_fwd=2):
+        fail(f"K4's entry point launched {c}")
+    k4_launches = c["ssd_fwd"]
+    del bf16_inputs
+
+    # pc2-small-ssd width: 16 rows (8 windows + RC) x 8192 bp, d_inner 1536, H 12.
+    pcfg = CaduceusConfig.preset("pc2-small-ssd")
+    prow, pL = 16, 8192
+    inp = ssd_inputs(pcfg, prow, pL, torch.bfloat16, dev, gen, 22)
+    for name, (kern, plain, mixer) in fns.items():
+        args = (inp[0] if mixer else inp[1])(1)
+        got, want = kern(args, True), plain(args, True)
+        torch.cuda.synchronize()
+        compare(f"{name} bfloat16 rev at pc2-small-ssd width", got, want, "bfloat16")
+        del got, want
+        b, by, parts = ssd_bound(ssd_work(prow, pL, pcfg.n_heads, pcfg.n_groups, 2,
+                                          mixer=mixer), "bfloat16")
+        res[name]["pc2_small_ssd"] = dict(
+            ms=time_ms(lambda: kern(args, True), 5),
+            plain_ms=time_ms(lambda: plain(args, True), 1, warmup=1), bound_ms=b, bound_by=by)
+        r = res[name]["pc2_small_ssd"]
+        log(f"  {name} (bfloat16, one direction, {prow} x {pL} x {pcfg.d_inner}, H "
+            f"{pcfg.n_heads}): {r['ms']:.3f} ms; plain {r['plain_ms']:.1f} ms; bound "
+            f"{b:.3f} ms by {by}")
+    return res, k4_launches
+
+
 def reset_counts():
-    from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_scan
+    from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_mixer2, cuda_scan, cuda_ssd
 
     cuda_mixer.mixer_fwd.launches = 0
     cuda_mixer.mixer_fwd.res_launches = 0
     cuda_scan.scan_fwd.launches = 0
     cuda_scan.scan_fwd.hb_launches = 0
     cuda_scan.scan_bwd.launches = 0
+    cuda_ssd.ssd_dir.launches = 0
+    cuda_mixer2.mamba2_mixer_interior.launches = 0
 
 
 def counts():
-    from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_scan
+    from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_mixer2, cuda_scan, cuda_ssd
 
     return {"mixer_fwd": cuda_mixer.mixer_fwd.launches,
             "mixer_fwd_res": cuda_mixer.mixer_fwd.res_launches,
             "scan_fwd": cuda_scan.scan_fwd.launches,
             "scan_fwd_hb": cuda_scan.scan_fwd.hb_launches,
-            "scan_bwd": cuda_scan.scan_bwd.launches}
+            "scan_bwd": cuda_scan.scan_bwd.launches,
+            "ssd_fwd": cuda_ssd.ssd_dir.launches,
+            "mixer2_fwd": cuda_mixer2.mamba2_mixer_interior.launches}
 
 
 def only(**nonzero):
     """The counts dict with these entries and every other one 0."""
     return {k: nonzero.get(k, 0) for k in ("mixer_fwd", "mixer_fwd_res", "scan_fwd",
-                                            "scan_fwd_hb", "scan_bwd")}
+                                            "scan_fwd_hb", "scan_bwd", "ssd_fwd",
+                                            "mixer2_fwd")}
 
 
 def phase_forward(cfg, dev):
@@ -410,6 +588,39 @@ def phase_forward(cfg, dev):
         fail("l20 forward with kernels disagrees with the plain path")
     if not torch.isfinite(lo).all():
         fail("bf16 l20 forward produced non-finite logits")
+    del model
+
+
+def phase_forward2(dev):
+    """The full l20-ssd forward, kernels against the plain path in fp32."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    cfg = CaduceusConfig.preset("l20-ssd")
+    log("phase 4b: full l20-ssd forward, kernels vs plain path (fp32, batch 128 x 512 bp)")
+    model = Caduceus(cfg, init_params(cfg, seed=0)).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(7, 11, (128, 512), generator=gen, device=dev)
+    with torch.inference_mode():
+        reset_counts()
+        got = model(ids, dtype=torch.float32)["logits"]
+        torch.cuda.synchronize()
+        c = counts()
+        want = model(ids, dtype=torch.float32, use_kernels=False)["logits"]
+        lo = model(ids)["logits"]  # default bf16 compute
+        torch.cuda.synchronize()
+    if c != only(mixer2_fwd=2 * cfg.n_layer):
+        fail(f"l20-ssd forward launched {c}; expected mixer2_fwd={2 * cfg.n_layer} only")
+    d = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"  logits {tuple(got.shape)}: max_abs_err={d:.3e} (max |logit| {scale:.3e}, "
+        f"tol {FORWARD_TOL:.0e} rel); launches {c}")
+    if not (torch.isfinite(got).all() and d <= FORWARD_TOL * scale):
+        fail("l20-ssd forward with kernels disagrees with the plain path")
+    if not torch.isfinite(lo).all():
+        fail("bf16 l20-ssd forward produced non-finite logits")
     del model
 
 
@@ -603,6 +814,76 @@ def report_profile(prof, wall, top):
     log(f"  wall {wall:.2f} ms; device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4} {e.key[:90]}")
+
+
+def phase_cli2(dev, tsv, n_valid):
+    """The zero-shot CLI with the l20-ssd preset on phase 6's TSV, and the
+    engine's steady-state rate at batch 128."""
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.cli.zero_shot_score import main as cli_main
+    from plantcaduceus_tpu_torch.engine import zero_shot
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.io.tokenizer import nucleotide_ids
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    log("phase 6b: zero-shot CLI, l20-ssd preset (random seeded weights), bf16")
+    out = tsv.parent / "scores_ssd.tsv"
+    reset_counts()
+    t = time.perf_counter()
+    cli_main(["-input-table", str(tsv), "-model", "l20-ssd", "-output", str(out),
+              "-no-progress"])
+    secs = time.perf_counter() - t
+    c = counts()
+    model, cfg, tok = load_model_and_tokenizer("l20-ssd")
+    n_batches = math.ceil(n_valid / 128)
+    got = zero_shot.read_table(out)
+    scores = np.array([float(r["zeroShotScore"]) for r in got.rows])
+    log(f"  TSV: {len(got.rows)} scored, {secs:.2f} s end to end ({n_valid / secs:.1f} "
+        f"windows/s incl. model build and file I/O); launches {c}")
+    if len(got.rows) != n_valid or not np.isfinite(scores).all():
+        fail("l20-ssd TSV scoring: wrong row count or non-finite scores")
+    if c != only(mixer2_fwd=2 * cfg.n_layer * n_batches):
+        fail(f"l20-ssd TSV scoring launched {c}; expected "
+             f"mixer2_fwd={2 * cfg.n_layer * n_batches} only")
+
+    runner = InferenceRunner(model, cfg, dtype=torch.bfloat16, batch_size=128, device=dev)
+    seqs = [r["sequences"] for r in got.rows][:384]
+    ids = zero_shot.mask_and_encode(seqs * 4, tok, 255)  # 1536 windows, 12 batches
+    runner.masked_probs(ids[:256], nucleotide_ids(tok), 255, progress=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probs = runner.masked_probs(ids, nucleotide_ids(tok), 255, progress=False)
+    wps = len(ids) / (time.perf_counter() - t)
+    if probs.shape != (len(ids), 4) or not np.isfinite(probs).all():
+        fail("l20-ssd steady-state scoring produced bad probabilities")
+    log(f"  steady state: {wps:.1f} windows/s (l20-ssd, 512 bp, batch 128, bf16; "
+        f"{len(ids)} windows, model resident)")
+    return c["mixer2_fwd"], wps, n_valid / secs
+
+
+def phase_profile2(dev):
+    """Device time by kernel over one l20-ssd scoring batch (bf16, 128 x 512 bp)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    log("phase 7b: profile one l20-ssd bf16 batch (torch.profiler)")
+    cfg = CaduceusConfig.preset("l20-ssd")
+    model = Caduceus(cfg, init_params(cfg, seed=0)).to(dev).eval()
+    ids = torch.randint(7, 11, (128, 512), device=dev)
+    with torch.inference_mode():
+        model(ids)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            model(ids)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    report_profile(prof, wall, 10)
 
 
 def phase_grads(dev):
@@ -815,16 +1096,21 @@ def main():
     cfg = CaduceusConfig.preset("l20")
     kres = phase_kernels(cfg, dev)
     tres = phase_train_kernels(cfg, dev)
+    sres, k4_launches = phase_ssd_kernels(dev)
     phase_forward(cfg, dev)
+    phase_forward2(dev)
     k1_launches = phase_general(dev)
     k2_launches, wps, wps_e2e, tsv, n_valid = phase_cli(cfg, dev)
+    k5_launches, wps2, wps2_e2e = phase_cli2(dev, tsv, n_valid)
     phase_profile(cfg, dev)
+    phase_profile2(dev)
     hb_launches = phase_grads(dev)
     tc, tps, step_s, peak = phase_pretrain(cfg, dev, tsv, n_valid)
     phase_train_profile(cfg, dev)
-    log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring "
-        f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; training "
-        f"{tps:.1f} tokens/s, {step_s * 1e3:.2f} ms per step, peak {peak} bytes")
+    log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
+        f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
+        f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training {tps:.1f} tokens/s, "
+        f"{step_s * 1e3:.2f} ms per step, peak {peak} bytes")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
@@ -843,6 +1129,12 @@ def main():
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
                          launches=tc["scan_bwd"]),
+        "ssd_fwd": dict(source=src + "ssd_fwd.cu",
+                        replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
+                        launches=k4_launches),
+        "mixer2_fwd": dict(source=src + "mixer2_fwd.cu",
+                           replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
+                           launches=k5_launches),
     }
     kernels = []
     for name in ("mixer_fwd", "scan_fwd"):
@@ -853,8 +1145,8 @@ def main():
                             library_ms=None))
     # The training variants and K3: the bf16 numbers (the trainer's dtype)
     # in the contract's keys, the fp32 ones beside them.
-    for name in ("mixer_fwd_res", "scan_fwd_hb", "scan_bwd"):
-        r = tres[name]
+    for name, r in [(n, tres[n]) for n in ("mixer_fwd_res", "scan_fwd_hb", "scan_bwd")] + \
+            [(n, sres[n]) for n in ("mixer2_fwd", "ssd_fwd")]:
         b, by, _ = r["bound"]["bfloat16"]
         b32, by32, _ = r["bound"]["float32"]
         kernels.append(dict(name=name, route="cuda", **meta[name], max_abs_err=r["err"],
@@ -862,7 +1154,9 @@ def main():
                             bound_ms=b, bound_by=by, library_ms=None,
                             float32=dict(ms=r["ms"]["float32"],
                                          plain_ms=r["plain_ms"]["float32"],
-                                         bound_ms=b32, bound_by=by32)))
+                                         bound_ms=b32, bound_by=by32),
+                            **({"pc2_small_ssd": r["pc2_small_ssd"]}
+                               if "pc2_small_ssd" in r else {})))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

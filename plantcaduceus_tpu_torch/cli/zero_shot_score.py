@@ -9,7 +9,7 @@ Usage:
         -input-vcf in.vcf -input-fasta genome.fa -model <ckpt> -output out.vcf
 
 ``-model`` takes an HF checkpoint directory or a preset name like ``l20``
-(random weights from a seeded generator). Runs on CUDA unless ``-device
+or ``l20-ssd`` (random weights from a seeded generator). Runs on CUDA unless ``-device
 cpu`` is given, and fails when CUDA is asked for and absent.
 """
 
@@ -38,7 +38,8 @@ def parse_args(argv=None):
     p.add_argument("-output", dest="output", required=True)
     p.add_argument("-outBED", action="store_true", dest="out_bed")
     p.add_argument("-model", dest="model", required=True,
-                   help="HF checkpoint dir or preset (l20/l24/l28/l32)")
+                   help="HF checkpoint dir or preset (l20/l24/l28/l32, pc2-*, "
+                        "and their Mamba-2 variants *-ssd)")
     p.add_argument("-batchSize", dest="batch_size", type=int, default=128)
     p.add_argument("-tokenIdx", dest="token_idx", type=int, default=255)
     p.add_argument("-window", dest="window", type=int, default=512)

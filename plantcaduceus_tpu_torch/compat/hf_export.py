@@ -24,7 +24,9 @@ def export_state_dict(params, cfg: CaduceusConfig) -> Dict[str, np.ndarray]:
     """JAX-layout parameter pytree (numpy, as ``compat.params.to_jax_params``
     gives) -> torch-convention state dict of float32 numpy arrays."""
     if cfg.ssm_variant != "mamba1":
-        raise NotImplementedError("the PyTorch port exports Mamba-1 models only")
+        raise NotImplementedError(
+            "the PyTorch port exports Mamba-1 models only; the Mamba-2 export comes "
+            "with Mamba-2 pre-training, the port's next slice")
     blocks = {k: np.asarray(v, np.float32) for k, v in params["blocks"].items()}
     sd: Dict[str, np.ndarray] = {}
     emb_key = ("caduceus.backbone.embeddings.word_embeddings.embedding.weight"

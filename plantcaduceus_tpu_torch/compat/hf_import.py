@@ -1,15 +1,18 @@
 """Strict HF Caduceus checkpoint loader: ``pytorch_model*.bin`` -> model.
 
-Counterpart of ``plantcaduceus_tpu.compat.hf_import`` for Mamba-1
-checkpoints, with the same contract: every state-dict tensor is consumed
-exactly once (known torch buffers aside), every mapped leaf must have the
-shape the config implies, and a lookup that matches several keys is an
-error. A checkpoint therefore maps correctly or fails naming the key.
+Counterpart of ``plantcaduceus_tpu.compat.hf_import``, with the same
+contract: every state-dict tensor is consumed exactly once (known torch
+buffers aside), every mapped leaf must have the shape the config implies,
+and a lookup that matches several keys is an error. A checkpoint therefore
+maps correctly or fails naming the key.
 
 Mapping: torch Linear ``[out, in]`` -> ``[in, out]``; depthwise conv
-``[di, 1, K]`` -> ``[di, K]``; BiMamba fwd/rev weights stacked on the
-direction axis (tied in/out projections collapse to one); packed in_proj
-rows ``[x | z]`` and x_proj rows ``[dt | B | C]`` split.
+``[C, 1, K]`` -> ``[C, K]``; BiMamba fwd/rev weights stacked on the
+direction axis (tied in/out projections collapse to one). Mamba-1: packed
+in_proj rows ``[x | z]`` and x_proj rows ``[dt | B | C]`` split. Mamba-2
+(mamba_ssm ``Mamba2`` packing): in_proj rows ``[z | x | B | C | dt]``, the
+conv over the packed ``[x | B | C]`` stream, per-head dt_bias/A_log/D and
+the gated-RMSNorm weight beside out_proj.
 """
 
 from __future__ import annotations
@@ -47,8 +50,13 @@ def load_hf_config(model_dir) -> CaduceusConfig:
     """Translate the HF config.json into a CaduceusConfig."""
     data = json.loads((Path(model_dir) / "config.json").read_text())
     ssm = data.get("ssm_cfg") or {}
-    if data.get("ssm_variant") == "mamba2" or ssm.get("layer") == "Mamba2":
-        raise NotImplementedError("the PyTorch port covers Mamba-1 checkpoints only")
+    # Mamba-2 checkpoints: exports write ssm_variant; mamba_ssm-convention
+    # configs mark ssm_cfg.layer == "Mamba2".
+    is_m2 = data.get("ssm_variant") == "mamba2" or ssm.get("layer") == "Mamba2"
+    extra = {}
+    if is_m2:
+        extra = {"ssm_variant": "mamba2", "head_dim": ssm.get("headdim", 128),
+                 "n_groups": ssm.get("ngroups", 1), "chunk_size": ssm.get("chunk_size", 128)}
     cmap = data.get("complement_map")
     if isinstance(cmap, dict):
         cmap = tuple(cmap[str(i)] if str(i) in cmap else cmap[i]
@@ -57,9 +65,10 @@ def load_hf_config(model_dir) -> CaduceusConfig:
         d_model=data["d_model"],
         n_layer=data["n_layer"],
         vocab_size=data.get("vocab_size", 16),
-        d_state=ssm.get("d_state", 16),
+        d_state=ssm.get("d_state", 128 if is_m2 else 16),
         d_conv=ssm.get("d_conv", 4),
         expand=ssm.get("expand", 2),
+        **extra,
         bidirectional=data.get("bidirectional", True),
         bidirectional_strategy=data.get("bidirectional_strategy", "add"),
         bidirectional_weight_tie=data.get("bidirectional_weight_tie", True),
@@ -123,10 +132,29 @@ _IGNORABLE = re.compile(
 def _expected_shapes(cfg: CaduceusConfig, gio: int, has_lm_head: bool):
     d, di, N, K = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
     L, V, G, R = cfg.n_layer, cfg.vocab_size, cfg.n_directions, cfg.dt_rank
-    want = {
-        "embedding": (V, d),
-        "norm_f_weight": (d,),
-        "blocks": {
+    if cfg.ssm_variant == "mamba2":
+        H, NGN = cfg.n_heads, cfg.n_groups * cfg.d_state
+        blocks = {
+            "norm_weight": (L, d),
+            "in_proj_x": (L, gio, d, di),
+            "in_proj_z": (L, gio, d, di),
+            "in_proj_B": (L, G, d, NGN),
+            "in_proj_C": (L, G, d, NGN),
+            "in_proj_dt": (L, G, d, H),
+            "conv_x_w": (L, G, di, K),
+            "conv_x_b": (L, G, di),
+            "conv_B_w": (L, G, NGN, K),
+            "conv_B_b": (L, G, NGN),
+            "conv_C_w": (L, G, NGN, K),
+            "conv_C_b": (L, G, NGN),
+            "mixer_norm_weight": (L, gio, di),
+            "out_proj": (L, gio, di, d),
+            "dt_bias": (L, G, H),
+            "A_log": (L, G, H),
+            "D": (L, G, H),
+        }
+    else:
+        blocks = {
             "norm_weight": (L, d),
             "in_proj_x": (L, gio, d, di),
             "in_proj_z": (L, gio, d, di),
@@ -140,66 +168,126 @@ def _expected_shapes(cfg: CaduceusConfig, gio: int, has_lm_head: bool):
             "dt_proj_b": (L, G, di),
             "A_log": (L, G, di, N),
             "D": (L, G, di),
-        },
-    }
+        }
+    want = {"embedding": (V, d), "norm_f_weight": (d,), "blocks": blocks}
     if has_lm_head:
         want["lm_head"] = (V, d)
     return want
 
 
-def _build_pytree(r: _Resolver, sd: Dict[str, np.ndarray], cfg: CaduceusConfig):
+def _dir_name(g: int) -> str:
+    return "mamba_fwd" if g == 0 else "mamba_rev"
+
+
+def _per_dir(r: _Resolver, i: int, G: int, *frag, transform=lambda x: x) -> np.ndarray:
+    """Layer i's tensor ``frag`` of each direction (the unwrapped name when a
+    model has one direction), stacked; raises if their shapes disagree."""
+    base = f"layers.{i}."
+    vals = []
+    for g in range(G):
+        v = r.maybe(base, _dir_name(g), *frag)
+        if v is None:
+            v = r.get(base, *frag)
+        vals.append(transform(v))
+    if len({v.shape for v in vals}) > 1:
+        raise ValueError(
+            f"strict import: mapped tensor shapes disagree between directions for "
+            f"layer {i} {'.'.join(frag)}: {[v.shape for v in vals]} (transposed weights?)")
+    return np.stack(vals)
+
+
+def _per_dir_weights(r: _Resolver, i: int, G: int, name: str):
+    """``name`` (e.g. ``in_proj.weight``) of each direction, or the one
+    unwrapped tensor of a unidirectional model."""
+    base = f"layers.{i}."
+    ws = [r.maybe(base, _dir_name(g), name) for g in range(G)]
+    if ws[0] is None:  # unidirectional naming without wrapper
+        ws = [r.get(base, name)]
+    return ws
+
+
+def _layer_mamba1(r: _Resolver, i: int, cfg: CaduceusConfig):
     G = cfg.n_directions
     R, N = cfg.dt_rank, cfg.d_state
+    in_w = _per_dir_weights(r, i, G, "in_proj.weight")
+    tied = len(in_w) == 1 or in_w[1] is None or np.array_equal(in_w[0], in_w[1])
+    # torch in_proj.weight is [2*di, d], rows [:di] = x, [di:] = z
+    in_kept = [w.T for w in in_w[:(1 if tied else G)]]
+    di = in_kept[0].shape[1] // 2
+    out_w = _per_dir_weights(r, i, G, "out_proj.weight")
+    x_proj = _per_dir(r, i, G, "x_proj.weight", transform=lambda w: w.T)  # [G, di, R+2N]
+    return {
+        "norm_weight": r.get(f"layers.{i}.", "norm", "weight"),
+        "in_proj_x": np.stack([w[:, :di] for w in in_kept]),
+        "in_proj_z": np.stack([w[:, di:] for w in in_kept]),
+        "out_proj": np.stack([w.T for w in out_w[:(1 if tied else G)]]),
+        "conv_w": _per_dir(r, i, G, "conv1d.weight", transform=lambda w: w[:, 0, :]),
+        "conv_b": _per_dir(r, i, G, "conv1d.bias"),
+        "x_proj_dt": x_proj[..., :R],
+        "x_proj_B": x_proj[..., R:R + N],
+        "x_proj_C": x_proj[..., R + N:],
+        "dt_proj_w": _per_dir(r, i, G, "dt_proj.weight", transform=lambda w: w.T),
+        "dt_proj_b": _per_dir(r, i, G, "dt_proj.bias"),
+        "A_log": _per_dir(r, i, G, "A_log"),
+        "D": _per_dir(r, i, G, "D"),
+    }
 
-    def layer(i: int):
-        base = f"layers.{i}."
 
-        def dir_name(g: int) -> str:
-            return "mamba_fwd" if g == 0 else "mamba_rev"
+def _layer_mamba2(r: _Resolver, i: int, cfg: CaduceusConfig):
+    """One Mamba-2 block. Direction tying is read from the z|x rows of
+    in_proj; when they are tied, the reverse direction's gated-norm weight
+    and out_proj must equal the forward's (else the checkpoint is not one
+    this layout holds, and the import raises)."""
+    G = cfg.n_directions
+    di, NGN = cfg.d_inner, cfg.n_groups * cfg.d_state
+    base = f"layers.{i}."
+    in_w = [w for w in _per_dir_weights(r, i, G, "in_proj.weight") if w is not None]
+    tied = len(in_w) == 1 or np.array_equal(in_w[0][:2 * di], in_w[1][:2 * di])
+    keep = 1 if tied else G
+    # rows: [z (di) | x (di) | B (NGN) | C (NGN) | dt (H)]
+    per_dir_in = [in_w[min(g, len(in_w) - 1)] for g in range(G)]
+    norm_w = []
+    for g in range(G):
+        v = r.maybe(base, _dir_name(g), "norm.weight")
+        if v is None:  # anchored on "mixer": the block's own norm is layers.{i}.norm
+            v = r.get(base, "mixer", "norm.weight")
+        norm_w.append(v)
+    out_w = [w for w in _per_dir_weights(r, i, G, "out_proj.weight") if w is not None]
+    if tied and not (np.array_equal(norm_w[0], norm_w[-1])
+                     and np.array_equal(out_w[0], out_w[-1])):
+        raise ValueError(f"strict import: layer {i} ties in_proj across directions but "
+                         "not its gated-norm weight or out_proj")
+    bn = r.maybe(f"layers.{i}.norm.weight")
+    if bn is None:
+        bn = r.maybe(f"layers.{i}.norm.submodule.weight")
+    if bn is None:
+        raise KeyError(f"block norm weight not found for layer {i}")
+    cw = _per_dir(r, i, G, "conv1d.weight", transform=lambda w: w[:, 0, :])
+    cb = _per_dir(r, i, G, "conv1d.bias")
+    return {
+        "norm_weight": bn,
+        "in_proj_x": np.stack([w[di:2 * di].T for w in in_w[:keep]]),
+        "in_proj_z": np.stack([w[:di].T for w in in_w[:keep]]),
+        "in_proj_B": np.stack([w[2 * di:2 * di + NGN].T for w in per_dir_in]),
+        "in_proj_C": np.stack([w[2 * di + NGN:2 * di + 2 * NGN].T for w in per_dir_in]),
+        "in_proj_dt": np.stack([w[2 * di + 2 * NGN:].T for w in per_dir_in]),
+        "conv_x_w": cw[:, :di],
+        "conv_x_b": cb[:, :di],
+        "conv_B_w": cw[:, di:di + NGN],
+        "conv_B_b": cb[:, di:di + NGN],
+        "conv_C_w": cw[:, di + NGN:],
+        "conv_C_b": cb[:, di + NGN:],
+        "mixer_norm_weight": np.stack(norm_w[:keep]),
+        "out_proj": np.stack([w.T for w in out_w[:keep]]),
+        "dt_bias": _per_dir(r, i, G, "dt_bias"),
+        "A_log": _per_dir(r, i, G, "A_log"),
+        "D": _per_dir(r, i, G, "D"),
+    }
 
-        in_w = [r.maybe(base, dir_name(g), "in_proj.weight") for g in range(G)]
-        if in_w[0] is None:  # unidirectional naming without wrapper
-            in_w = [r.get(base, "in_proj.weight")]
-        tied = len(in_w) == 1 or in_w[1] is None or np.array_equal(in_w[0], in_w[1])
-        # torch in_proj.weight is [2*di, d], rows [:di] = x, [di:] = z
-        in_kept = [w.T for w in in_w[:(1 if tied else G)]]
-        di = in_kept[0].shape[1] // 2
-        out_w = [r.maybe(base, dir_name(g), "out_proj.weight") for g in range(G)]
-        if out_w[0] is None:
-            out_w = [r.get(base, "out_proj.weight")]
 
-        def per_dir(*frag, transform=lambda x: x):
-            vals = []
-            for g in range(G):
-                v = r.maybe(base, dir_name(g), *frag)
-                if v is None:
-                    v = r.get(base, *frag)
-                vals.append(transform(v))
-            if len({v.shape for v in vals}) > 1:
-                raise ValueError(
-                    f"strict import: mapped tensor shapes disagree between "
-                    f"directions for layer {i} {'.'.join(frag)}: "
-                    f"{[v.shape for v in vals]} (transposed weights?)")
-            return np.stack(vals)
-
-        x_proj = per_dir("x_proj.weight", transform=lambda w: w.T)  # [G, di, R+2N]
-        return {
-            "norm_weight": r.get(base, "norm", "weight"),
-            "in_proj_x": np.stack([w[:, :di] for w in in_kept]),
-            "in_proj_z": np.stack([w[:, di:] for w in in_kept]),
-            "out_proj": np.stack([w.T for w in out_w[:(1 if tied else G)]]),
-            "conv_w": per_dir("conv1d.weight", transform=lambda w: w[:, 0, :]),
-            "conv_b": per_dir("conv1d.bias"),
-            "x_proj_dt": x_proj[..., :R],
-            "x_proj_B": x_proj[..., R:R + N],
-            "x_proj_C": x_proj[..., R + N:],
-            "dt_proj_w": per_dir("dt_proj.weight", transform=lambda w: w.T),
-            "dt_proj_b": per_dir("dt_proj.bias"),
-            "A_log": per_dir("A_log"),
-            "D": per_dir("D"),
-        }
-
-    layers = [layer(i) for i in range(cfg.n_layer)]
+def _build_pytree(r: _Resolver, sd: Dict[str, np.ndarray], cfg: CaduceusConfig):
+    layer = _layer_mamba2 if cfg.ssm_variant == "mamba2" else _layer_mamba1
+    layers = [layer(r, i, cfg) for i in range(cfg.n_layer)]
     emb_key = r.find("embeddings", "weight") or r.find("word_embeddings", "weight")
     if emb_key is None:
         raise KeyError("embedding weights not found")

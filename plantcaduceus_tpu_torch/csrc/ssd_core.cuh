@@ -1,0 +1,338 @@
+// SSD (Mamba-2) chunk core, shared device code of K4 (ssd_fwd.cu) and the
+// SSD half of K5 (mixer2_fwd.cu).
+//
+// Math (one row, one head h of group g; chunk of T steps), the same as
+// plantcaduceus_tpu/ops/pallas_ssd.py::ssd_chunk_core:
+//   dt'    = softplus(dt + dt_bias)                la = dt' * A * log2(e)
+//   cum    = inclusive cumsum of la over the chunk, total = cum[T-1]
+//   GBC    = C @ B^T                               [T, T]
+//   scores = GBC * exp2(mask ? seg : -inf)         seg[t,s] = sb[t] - sb[s]
+//   y      = scores @ (x*dt') + (C @ S) * exp2(into) + D * x
+//   S      = exp2(total) * S + B^T @ (x*dt'*exp2(outof))
+// forward: sb = into = cum, outof = total - cum, mask t >= s;
+// reverse: e = cum - la, sb = -e, into = total - e, outof = e, mask t <= s.
+// The segment sums are masked before the exponent, as the TPU kernel does:
+// a masked-out seg can be large and positive, and exp2 of it times 0 is nan.
+//
+// Numerics: every decay, the state S and every sum are float32. The four
+// products take their operands in E, the kernel's product type (bfloat16
+// when the inputs are bfloat16, else float32): C, B, the scores, x*dt', the
+// decayed x and the state (rounded to E only as an operand of C @ S), with
+// float32 accumulation, as the TPU's MXU products with
+// preferred_element_type=float32.
+//
+// Layout. The TPU kernel keeps the whole state S [N, H*P] of a row in VMEM
+// (384 KB at l20-ssd); a GPU block has at most 227 KB of shared memory. So a
+// block owns one (row, head): its state [N, P] float32 (64 KB) lives in
+// shared memory while the block walks the L/T chunks in processing order
+// (0 -> nc-1, or nc-1 -> 0 for reverse, with no flipped copy of anything).
+// C @ B^T belongs to the group; each head's block computes it again (T*T*N
+// multiply-adds, a quarter of the block's products).
+//
+// Each product is a 128 x 128 x 128 block product over shared-memory tiles,
+// 256 threads, each owning 4 rows x 16 columns of the output in the layout
+// of mma.m16n8k16's accumulators (struct Tile). bfloat16: mma.sync on the
+// tensor cores, fragments read from the tiles with 32-bit loads (or two
+// 16-bit loads where the pair runs across rows). float32: FMA loops on the
+// same ownership, so both types share every epilogue. Shared memory per
+// block: S (66 KB, rows padded to 132 floats), two [128][LD] tiles of E and
+// four [128] decay vectors; 197 KB in float32 (one block per SM), 136 KB in
+// bfloat16 (one block per SM). The tiles are reused: C then x*dt' in the
+// first; B, then the scores, then B again in the second. Values are drawn
+// from a source object (plain loads for K4; the float32 conv outputs for
+// K5), so the same core serves both kernels.
+
+#pragma once
+
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "scan_core.cuh"
+
+namespace pc {
+
+constexpr int kSsdT = 128;        // chunk length
+constexpr int kSsdP = 128;        // head dim
+constexpr int kSsdN = 128;        // state size
+constexpr int kSsdThreads = 256;  // 8 warps, each a 32 x 64 part of every product
+constexpr int kSsdLdS = kSsdP + 4;  // row stride of S (floats)
+constexpr int kSsdParts = 2;      // warps that share an output row
+
+// Row stride (elements) of the [128][LD] tiles: odd in 32-bit words for
+// float32 (the FMA loops' strided reads), 68 words for bfloat16 (the
+// tensor-core fragment loads of 8 rows x 4 words fall on 32 banks).
+template <typename E> struct SsdLd;
+template <> struct SsdLd<float> { static constexpr int v = 129; };
+template <> struct SsdLd<__nv_bfloat16> { static constexpr int v = 136; };
+
+// S, four decay vectors and the total, the two tiles.
+template <typename E>
+inline size_t ssd_smem_bytes() {
+  return sizeof(float) * (kSsdN * kSsdLdS + 4 * kSsdT + 32) +
+         2 * sizeof(E) * kSsdT * SsdLd<E>::v;
+}
+
+template <typename E>
+__device__ __forceinline__ float round_to(float v) { return to_f(from_f<E>(v)); }
+
+// A thread's share of a 128 x 128 product: 4 rows x 16 columns, laid out as
+// the accumulators of mma.m16n8k16 (warp w covers rows 32*(w/2) .. +32 and
+// columns 64*(w%2) .. +64; lane = 4g + q). acc[i][j] is (row(i), col(j)).
+struct Tile {
+  int rb, cb, g, q;
+  __device__ Tile() {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    rb = 32 * (w >> 1);
+    cb = 64 * (w & 1);
+    g = lane >> 2;
+    q = lane & 3;
+  }
+  __device__ int row(int i) const { return rb + (i >> 1) * 16 + (i & 1) * 8 + g; }
+  __device__ int col(int j) const { return cb + (j >> 1) * 8 + 2 * q + (j & 1); }
+  __device__ int part() const { return cb >> 6; }  // which of the kSsdParts row halves
+};
+
+__device__ __forceinline__ void zero(float (&acc)[4][16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+}
+
+// float32: FMA loops. acc[i][j] += sum_k A(row(i), k) * B(k, col(j)) over
+// k < 128. A(m, k) = a[m*lda + k] (AT: a[k*lda + m]); B(k, n) = b[k*ldb + n]
+// (BT: b[n*ldb + k]); B's values are rounded through RB.
+template <bool AT, bool BT, typename RB, typename TA, typename TB>
+__device__ __forceinline__ void block_mm_fma(float (&acc)[4][16], const Tile& tl,
+                                             const TA* __restrict__ a, int lda,
+                                             const TB* __restrict__ b, int ldb) {
+#pragma unroll 2
+  for (int k = 0; k < 128; ++k) {
+    float av[4], bv[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = tl.row(i);
+      av[i] = to_f(AT ? a[k * lda + m] : a[m * lda + k]);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = tl.col(j);
+      bv[j] = round_to<RB>(to_f(BT ? b[n * ldb + k] : b[k * ldb + n]));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Two bf16 of A at (m, k), (m, k+1), packed low to high.
+template <bool AT>
+__device__ __forceinline__ uint32_t a_pair(const bf16* a, int lda, int m, int k) {
+  if (AT) return pack2(a[k * lda + m], a[(k + 1) * lda + m]);
+  return *reinterpret_cast<const uint32_t*>(a + m * lda + k);
+}
+
+// Two bf16 of B at (k, n), (k+1, n); a float32 B (the state S) is rounded.
+template <bool BT, typename TB>
+__device__ __forceinline__ uint32_t b_pair(const TB* b, int ldb, int k, int n) {
+  if constexpr (std::is_same<TB, float>::value) {
+    return pack2(__float2bfloat16(b[k * ldb + n]), __float2bfloat16(b[(k + 1) * ldb + n]));
+  } else {
+    if (BT) return *reinterpret_cast<const uint32_t*>(b + n * ldb + k);
+    return pack2(b[k * ldb + n], b[(k + 1) * ldb + n]);
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float& c0, float& c1, float& c2, float& c3,
+                                         const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bfloat16: the same product on the tensor cores (mma.sync m16n8k16, bf16
+// operands, float32 accumulation), fragments read from shared memory.
+template <bool AT, bool BT, typename TB>
+__device__ __forceinline__ void block_mm_mma(float (&acc)[4][16], const Tile& tl,
+                                             const bf16* __restrict__ a, int lda,
+                                             const TB* __restrict__ b, int ldb) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < 128; k0 += 16) {
+    const int k = k0 + 2 * tl.q;
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int m = tl.rb + 16 * mt + tl.g;
+      af[mt][0] = a_pair<AT>(a, lda, m, k);
+      af[mt][1] = a_pair<AT>(a, lda, m + 8, k);
+      af[mt][2] = a_pair<AT>(a, lda, m, k + 8);
+      af[mt][3] = a_pair<AT>(a, lda, m + 8, k + 8);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = tl.cb + 8 * nt + tl.g;
+      const uint32_t b0 = b_pair<BT>(b, ldb, k, n), b1 = b_pair<BT>(b, ldb, k + 8, n);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_bf16(acc[2 * mt][2 * nt], acc[2 * mt][2 * nt + 1], acc[2 * mt + 1][2 * nt],
+                 acc[2 * mt + 1][2 * nt + 1], af[mt], b0, b1);
+    }
+  }
+}
+
+template <bool AT, bool BT, typename RB, typename TA, typename TB>
+__device__ __forceinline__ void block_mm(float (&acc)[4][16], const Tile& tl, const TA* a,
+                                         int lda, const TB* b, int ldb) {
+  if constexpr (std::is_same<TA, bf16>::value)
+    block_mm_mma<AT, BT>(acc, tl, a, lda, b, ldb);
+  else
+    block_mm_fma<AT, BT, RB>(acc, tl, a, lda, b, ldb);
+}
+
+// Fill a [128][LD] tile with f(t, c) for t, c < 128, rounded to E.
+template <typename E, class F>
+__device__ __forceinline__ void fill_tile(E* tile, F f) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kSsdT * 128; e += kSsdThreads) {
+    const int r = e >> 7, c = e & 127;
+    tile[r * SsdLd<E>::v + c] = from_f<E>(f(r, c));
+  }
+}
+
+// The whole run of one (row, head) block. `src` supplies, for absolute time
+// step t: x(t, p), b(t, n), c(t, n) (float32 values, rounded to E here),
+// dt(t) (raw, before bias and softplus), and out(acc, t0, tl), which
+// receives the block's y tile without the D-skip for the chunk at t0
+// (acc[i][j] at chunk row tl.row(i), column tl.col(j)).
+template <typename E, class Src>
+__device__ void ssd_head(const Src& src, float A_h, float dtb_h, int L, int reverse,
+                         unsigned char* smem_raw) {
+  constexpr int LD = SsdLd<E>::v;
+  float* S = reinterpret_cast<float*>(smem_raw);  // [N][kSsdLdS]
+  float* dtp = S + kSsdN * kSsdLdS;               // [T] dt'
+  float* segb = dtp + kSsdT;                      // [T] sb
+  float* into_e = segb + kSsdT;                   // [T] exp2(into)
+  float* scale = into_e + kSsdT;                  // [T] exp2(outof)
+  float* total_s = scale + kSsdT;                 // [1] total
+  E* buf1 = reinterpret_cast<E*>(total_s + 32);   // [T][LD]: C, then x*dt' / decayed x
+  E* buf2 = buf1 + kSsdT * LD;                    // [T][LD]: B, then the scores, then B
+  const int tid = threadIdx.x;
+  const Tile tl;
+  const float al = A_h * kLog2e;
+  for (int i = tid; i < kSsdN * kSsdLdS; i += kSsdThreads) S[i] = 0.f;
+
+  const int nc = L / kSsdT;
+  float acc[4][16];
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = (reverse ? nc - 1 - ci : ci) * kSsdT;
+    // 1. dt' and the log-decays (warps 0-3, one step a thread: an inclusive
+    //    scan in each warp, then the warps' totals in order); the C and B tiles.
+    float la = 0.f, cum = 0.f, total = 0.f;
+    if (tid < kSsdT) {
+      const float d = softplus(src.dt(t0 + tid) + dtb_h);
+      la = d * al;
+      float v = la;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, o);
+        if ((tid & 31) >= o) v += u;
+      }
+      dtp[tid] = d;
+      into_e[tid] = v;  // the in-warp prefix, until step 1b
+    }
+    fill_tile<E>(buf1, [&](int r, int c) { return src.c(t0 + r, c); });
+    fill_tile<E>(buf2, [&](int r, int c) { return src.b(t0 + r, c); });
+    __syncthreads();
+    if (tid < kSsdT) {
+      const int w = tid >> 5;
+      float base = 0.f;
+#pragma unroll
+      for (int q = 0; q < kSsdT / 32; ++q) {
+        const float s = into_e[q * 32 + 31];
+        if (q < w) base += s;
+        total += s;
+      }
+      cum = base + into_e[tid];  // cum[T-1] == total, bit for bit
+    }
+    __syncthreads();
+    // 1b. the decay vectors
+    if (tid < kSsdT) {
+      if (!reverse) {
+        segb[tid] = cum;
+        into_e[tid] = exp2f(cum);
+        scale[tid] = exp2f(total - cum);
+      } else {
+        const float e = cum - la;
+        segb[tid] = -e;
+        into_e[tid] = exp2f(total - e);
+        scale[tid] = exp2f(e);
+      }
+      if (tid == 0) total_s[0] = total;
+    }
+    __syncthreads();
+
+    // 2. GBC = C @ B^T
+    zero(acc);
+    block_mm<false, true, float>(acc, tl, buf1, LD, buf2, LD);
+    __syncthreads();  // every read of B is done
+    // 3. scores = GBC * exp2(masked seg) into the second tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = tl.row(i);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int s = tl.col(j);
+        const bool keep = reverse ? t <= s : t >= s;
+        const float seg = keep ? segb[t] - segb[s] : __uint_as_float(0xff800000u);  // -inf
+        buf2[t * LD + s] = from_f<E>(acc[i][j] * exp2f(seg));
+      }
+    }
+    // 4. y = (C @ S) * exp2(into)
+    zero(acc);
+    block_mm<false, false, E>(acc, tl, buf1, LD, S, kSsdLdS);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float f = into_e[tl.row(i)];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[i][j] *= f;
+    }
+    __syncthreads();  // every read of C is done; the scores are written
+    // 5. x * dt' into the first tile
+    fill_tile<E>(buf1, [&](int r, int p) { return src.x(t0 + r, p) * dtp[r]; });
+    __syncthreads();
+    // 6. y += scores @ (x * dt'); the epilogue
+    block_mm<false, false, float>(acc, tl, buf2, LD, buf1, LD);
+    src.out(acc, t0, tl);
+    __syncthreads();  // every read of the scores and of x * dt' is done
+    // 7. B again, and the decayed x: x * dt' * exp2(outof)
+    fill_tile<E>(buf2, [&](int r, int c) { return src.b(t0 + r, c); });
+    fill_tile<E>(buf1, [&](int r, int p) { return src.x(t0 + r, p) * dtp[r] * scale[r]; });
+    __syncthreads();
+    // 8. S = exp2(total) * S + B^T @ (decayed x); each thread its own tile of S
+    zero(acc);
+    block_mm<true, false, float>(acc, tl, buf2, LD, buf1, LD);
+    const float tot_e = exp2f(total_s[0]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* srow = S + tl.row(i) * kSsdLdS;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float* sp = srow + tl.col(j);
+        *sp = tot_e * *sp + acc[i][j];
+      }
+    }
+    __syncthreads();  // before the next chunk rewrites the tiles and vectors
+  }
+}
+
+}  // namespace pc

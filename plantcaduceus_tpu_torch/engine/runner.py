@@ -16,6 +16,7 @@ import torch
 
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+from plantcaduceus_tpu_torch.ops.cuda_ssd import check_kernel_shapes
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 
 
@@ -28,6 +29,10 @@ class InferenceRunner:
         self.dtype = dtype
         self.batch_size = batch_size
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and cfg.ssm_variant == "mamba2":
+            # K5's shapes, checked before the model moves (L at each launch)
+            check_kernel_shapes(f"{cfg.d_model}-wide Mamba-2 model", None, cfg.n_heads,
+                                cfg.head_dim, cfg.n_groups, cfg.d_state, cfg.chunk_size)
         self.model = model.to(self.device).eval()
 
     # -- batching ----------------------------------------------------------

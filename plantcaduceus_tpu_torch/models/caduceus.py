@@ -1,7 +1,8 @@
-"""Caduceus (Mamba-1, bidirectional, RC-equivariant) masked LM in PyTorch.
+"""Caduceus (bidirectional, RC-equivariant) masked LM in PyTorch.
 
-Counterpart of ``plantcaduceus_tpu.models.caduceus`` for the Mamba-1
-family. The same flattened formulation:
+Counterpart of ``plantcaduceus_tpu.models.caduceus``: the Mamba-1 family
+(the released models) and the SSD (Mamba-2) family of the ``*-ssd``
+presets. The same flattened formulation:
 
 * **RC stream folding.** The residual stream is ``[2B, L, d]``; rows ``B:``
   hold the network state of the reverse-complemented input in its working
@@ -20,7 +21,12 @@ Mixer paths:
 * everything else (untied, ``ew_multiply``, unidirectional): conv and
   x_proj in plain PyTorch, then kernel K1 (``ops.cuda_scan``) per
   direction, with dt projected inside the kernel when G=2 and outside when
-  G=1, as the JAX package does.
+  G=1, as the JAX package does;
+* Mamba-2 (:func:`mamba2_mixer`): five in-projections with ``torch.matmul``,
+  kernel K5 (``ops.cuda_mixer2``: conv, SiLU, the SSD chunk scan, the gated
+  RMS norm) once per direction, out_proj. Inference only on the card: under
+  training the kernel route raises, and ``use_kernels=False`` differentiates
+  the plain versions.
 
 Under training (grad enabled, and the input or a weight requiring it) the
 same paths go through autograd Functions: ``BimambaMixerFn`` (K2's residual
@@ -45,12 +51,23 @@ from torch.utils.checkpoint import checkpoint
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.ops.conv import causal_conv1d
 from plantcaduceus_tpu_torch.ops.cuda_mixer import bimamba_mixer, bimamba_mixer_fused
+from plantcaduceus_tpu_torch.ops.cuda_mixer2 import (mamba2_mixer_interior,
+                                                     mamba2_mixer_interior_plain)
 from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd, scan_fwd_plain, selective_scan
 from plantcaduceus_tpu_torch.ops.norms import layer_norm, rms_norm
 
 LAYER_KEYS = ("norm_weight", "in_proj_x", "in_proj_z", "out_proj", "conv_w",
               "conv_b", "x_proj_dt", "x_proj_B", "x_proj_C", "dt_proj_w",
               "dt_proj_b", "A_log", "D")
+LAYER_KEYS_MAMBA2 = ("norm_weight", "in_proj_x", "in_proj_z", "in_proj_B", "in_proj_C",
+                     "in_proj_dt", "conv_x_w", "conv_x_b", "conv_B_w", "conv_B_b",
+                     "conv_C_w", "conv_C_b", "mixer_norm_weight", "out_proj", "dt_bias",
+                     "A_log", "D")
+
+
+def layer_keys(cfg: CaduceusConfig):
+    """The block leaves of ``cfg``'s SSM variant, in the JAX layout."""
+    return LAYER_KEYS_MAMBA2 if cfg.ssm_variant == "mamba2" else LAYER_KEYS
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +99,9 @@ def init_params(cfg: CaduceusConfig, generator: Optional[torch.Generator] = None
     leading n_layer axis), float32 on the CPU, drawn from ``generator``
     (default: a new one seeded with ``seed``). The numbers differ from JAX's
     for the same seed; the distributions are the same."""
-    if cfg.ssm_variant != "mamba1":
-        raise NotImplementedError("the PyTorch port covers Mamba-1 models only")
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
+    if cfg.ssm_variant == "mamba2":
+        return _init_params_mamba2(cfg, gen)
     d, di, N, R, K = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
     G = cfg.n_directions
     Gio = 1 if (cfg.bidirectional_weight_tie or G == 1) else G
@@ -117,6 +134,46 @@ def init_params(cfg: CaduceusConfig, generator: Optional[torch.Generator] = None
     return params
 
 
+def _init_params_mamba2(cfg: CaduceusConfig, gen: torch.Generator) -> dict:
+    """The SSD (Mamba-2) variant (JAX ``_init_params_mamba2``): A ~ U(1, 16)
+    per head, dt bias log-uniform, D = 1, gated-RMSNorm weight 1; in/out
+    projections and the norm weight tied across directions when
+    ``bidirectional_weight_tie``, the B/C/dt projections per direction."""
+    d, di, N, K = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv
+    H, NGN = cfg.n_heads, cfg.n_groups * cfg.d_state
+    G = cfg.n_directions
+    Gio = 1 if (cfg.bidirectional_weight_tie or G == 1) else G
+    nl = cfg.n_layer
+    in_proj = _linear_init(gen, d, (nl, Gio, d, 2 * di))
+    params = {
+        "embedding": 0.02 * torch.randn((cfg.vocab_size, d), generator=gen),
+        "blocks": {
+            "norm_weight": torch.ones((nl, d)),
+            "in_proj_x": in_proj[..., :di].contiguous(),
+            "in_proj_z": in_proj[..., di:].contiguous(),
+            "in_proj_B": _linear_init(gen, d, (nl, G, d, NGN)),
+            "in_proj_C": _linear_init(gen, d, (nl, G, d, NGN)),
+            "in_proj_dt": _linear_init(gen, d, (nl, G, d, H)),
+            "conv_x_w": _linear_init(gen, K, (nl, G, di, K)),
+            "conv_x_b": _linear_init(gen, K, (nl, G, di)),
+            "conv_B_w": _linear_init(gen, K, (nl, G, NGN, K)),
+            "conv_B_b": torch.zeros((nl, G, NGN)),
+            "conv_C_w": _linear_init(gen, K, (nl, G, NGN, K)),
+            "conv_C_b": torch.zeros((nl, G, NGN)),
+            "mixer_norm_weight": torch.ones((nl, Gio, di)),
+            # rescale_prenorm_residual: out_proj /= sqrt(2 * n_layer)
+            "out_proj": _linear_init(gen, di, (nl, Gio, di, d)) / math.sqrt(2 * nl),
+            "dt_bias": _dt_bias_init(gen, (nl, G, H)),
+            "A_log": torch.log(_uniform(gen, (nl, G, H), 1.0, 16.0)),
+            "D": torch.ones((nl, G, H)),
+        },
+        "norm_f_weight": torch.ones((d,)),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = 0.02 * torch.randn((cfg.vocab_size, d), generator=gen)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # Module
 # ---------------------------------------------------------------------------
@@ -129,31 +186,32 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 class CaduceusLayer(nn.Module):
     """One block's weights, in the JAX layout without the n_layer axis."""
 
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
+    def __init__(self, tensors: Dict[str, torch.Tensor], keys=LAYER_KEYS):
         super().__init__()
-        for k in LAYER_KEYS:
+        self.keys = tuple(keys)
+        for k in self.keys:
             setattr(self, k, _param(tensors[k]))
 
     def params(self) -> Dict[str, torch.Tensor]:
-        return {k: getattr(self, k) for k in LAYER_KEYS}
+        return {k: getattr(self, k) for k in self.keys}
 
 
 class Caduceus(nn.Module):
-    """Mamba-1 Caduceus masked LM. Weights are kept in float32; each forward
-    casts them to its compute ``dtype`` where the JAX package does. They are
-    built frozen for scoring; ``requires_grad_()`` makes them train."""
+    """Caduceus masked LM, Mamba-1 or Mamba-2 by ``cfg.ssm_variant``. Weights
+    are kept in float32; each forward casts them to its compute ``dtype``
+    where the JAX package does. They are built frozen for scoring;
+    ``requires_grad_()`` makes them train."""
 
     def __init__(self, cfg: CaduceusConfig, params: dict):
         super().__init__()
-        if cfg.ssm_variant != "mamba1":
-            raise NotImplementedError("the PyTorch port covers Mamba-1 models only")
         self.cfg = cfg
         self.embedding = _param(params["embedding"])
         self.norm_f_weight = _param(params["norm_f_weight"])
         self.lm_head = _param(params["lm_head"]) if "lm_head" in params else None
         blocks = params["blocks"]
+        keys = layer_keys(cfg)
         self.layers = nn.ModuleList(
-            CaduceusLayer({k: blocks[k][i] for k in LAYER_KEYS})
+            CaduceusLayer({k: blocks[k][i] for k in keys}, keys)
             for i in range(cfg.n_layer))
         self.register_buffer("cmap", torch.tensor(cfg.complement_map, dtype=torch.long),
                              persistent=False)
@@ -239,6 +297,49 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
     return outs[0] * outs[1]  # ew_multiply
 
 
+def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
+                 use_kernels: bool = True) -> torch.Tensor:
+    """One (Bi)Mamba-2 (SSD) mixer over ``x: [rows, L, d]`` (JAX
+    ``mamba2_mixer`` on one device). Per direction: the x, z, B, C and dt
+    in-projections, K5 (conv, SiLU, the SSD chunk scan, gated RMS norm; the
+    reverse direction anticausal, with no flips), then out_proj. Tied
+    in/out projections with the ``add`` combine sum the normed streams
+    before one out_proj. ``use_kernels=False`` runs K5's plain version on
+    any device, differentiated by autograd; the kernel route has no
+    gradient yet and raises under training."""
+    if use_kernels and _training(p, x):
+        raise NotImplementedError(
+            "Mamba-2 training through the CUDA kernels is the port's next slice (K5's "
+            "residual variant, K4's chunk-entry states and the SSD adjoint K6); "
+            "use_kernels=False differentiates the plain versions")
+    G = cfg.n_directions
+    cdtype = x.dtype
+    interior = mamba2_mixer_interior if use_kernels else mamba2_mixer_interior_plain
+
+    def proj(name, g):
+        return x @ p[name][g].to(cdtype)
+
+    Gio, Gn, Go = (p[k].shape[0] for k in ("in_proj_x", "mixer_norm_weight", "out_proj"))
+    xi = [proj("in_proj_x", g) for g in range(Gio)]
+    z = [proj("in_proj_z", g) for g in range(Gio)]
+    A = -torch.exp(p["A_log"].float())                          # [G, H]
+    outs = [interior(xi[min(g, Gio - 1)], z[min(g, Gio - 1)], proj("in_proj_B", g),
+                     proj("in_proj_C", g), proj("in_proj_dt", g),
+                     p["conv_x_w"][g], p["conv_x_b"][g], p["conv_B_w"][g], p["conv_B_b"][g],
+                     p["conv_C_w"][g], p["conv_C_b"][g], p["mixer_norm_weight"][min(g, Gn - 1)],
+                     A[g], p["D"][g], p["dt_bias"][g], d_state=cfg.d_state,
+                     eps=cfg.norm_epsilon, chunk=cfg.chunk_size, reverse=(g == 1))
+            for g in range(G)]
+    if G == 2 and Go == 1 and cfg.bidirectional_strategy == "add":
+        return (outs[0] + outs[1]) @ p["out_proj"][0].to(cdtype)
+    projs = [o @ p["out_proj"][min(g, Go - 1)].to(cdtype) for g, o in enumerate(outs)]
+    if G == 1:
+        return projs[0]
+    if cfg.bidirectional_strategy == "add":
+        return projs[0] + projs[1]
+    return projs[0] * projs[1]  # ew_multiply
+
+
 def embed_residual(model: Caduceus, input_ids: torch.Tensor,
                    dtype=torch.bfloat16) -> torch.Tensor:
     """Token embedding -> residual stream ``[S*B, L, d]`` (S=2 with rcps:
@@ -268,6 +369,7 @@ def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
     as JAX ``make_block_fn``'s ``jax.checkpoint``): activation memory of
     O(L * d) per layer instead of every block's intermediates."""
     cfg = model.cfg
+    mixer = mamba2_mixer if cfg.ssm_variant == "mamba2" else mamba_mixer
     residual = embed_residual(model, input_ids, dtype)
     per_layer = []
     for layer in model.layers:
@@ -277,7 +379,7 @@ def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
 
         def block(res, p=p):
             normed = _norm(res.to(dtype), p["norm_weight"], cfg)
-            out = mamba_mixer(p, normed, cfg, use_kernels=use_kernels)
+            out = mixer(p, normed, cfg, use_kernels=use_kernels)
             return res + out.to(res.dtype)
 
         residual = (checkpoint(block, residual, use_reentrant=False)

@@ -279,3 +279,139 @@ def test_frozen_layer_gradient_flows_through_kernels(cuda, overrides):
         grads[use_kernels] = model.embedding.grad
     assert grads[False].abs().max() > 0
     _close_to_scale(grads[True], grads[False], 1e-4)
+
+
+# -- Mamba-2: K4 (ssd_fwd) and K5 (mixer2_fwd) -------------------------------------
+
+# Kernel vs plain version at P = N = chunk = 128: float32, only the order of
+# sums differs (products over 128, the state across chunks); bfloat16, both
+# round the product operands to 8 mantissa bits but at other points (the
+# plain version folds dt' into the scores, the kernel into x), and the
+# output itself to bfloat16: 2**-7 of the output's scale.
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2 ** -7}
+
+
+def _ssd_case(rng, dev, dtype, R=2, L=256, H=2, NG=1):
+    P = N = 128
+    x = _t(rng.standard_normal((R, L, H * P)), dev, dtype)
+    dt = _t(rng.standard_normal((R, L, H)) * 0.5 - 1.0, dev, dtype)
+    Bm = _t(rng.standard_normal((R, L, NG, N)) * 0.3, dev, dtype)
+    Cm = _t(rng.standard_normal((R, L, NG, N)) * 0.3, dev, dtype)
+    A = _t(-np.exp(rng.standard_normal(H) * 0.5), dev)
+    Ds = _t(rng.standard_normal(H), dev)
+    dtb = _t(rng.standard_normal(H) * 0.3, dev)
+    return x, dt, A, Bm, Cm, Ds, dtb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("ng", [1, 2])
+def test_ssd_kernel_matches_plain(cuda, dtype, reverse, ng):
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    args = _ssd_case(np.random.default_rng(5), cuda, dtype, NG=ng)
+    before = cuda_ssd.ssd_dir.launches
+    got = cuda_ssd.ssd_dir(*args, 128, reverse)
+    torch.cuda.synchronize()
+    assert cuda_ssd.ssd_dir.launches == before + 1
+    want = cuda_ssd.ssd_dir_plain(*args, 128, reverse)
+    assert got.dtype == dtype
+    _close_to_scale(got, want, SSD_TOL[dtype], "ssd_dir")
+
+
+def _mixer2_case(rng, dev, dtype, R=2, L=256, H=2, NG=1, K=4):
+    di, NGN = H * 128, NG * 128
+    f = lambda *s, sc=1.0: _t(rng.standard_normal(s) * sc, dev)
+    acts = [_t(rng.standard_normal(s) * sc, dev, dtype)
+            for s, sc in (((R, L, di), 1.0), ((R, L, di), 1.0), ((R, L, NGN), 1.0),
+                          ((R, L, NGN), 1.0), ((R, L, H), 0.5))]
+    weights = [f(di, K, sc=0.5), f(di, sc=0.3), f(NGN, K, sc=0.5), f(NGN, sc=0.3),
+               f(NGN, K, sc=0.5), f(NGN, sc=0.3), 1 + f(di, sc=0.2),
+               -torch.exp(f(H, sc=0.5)), f(H), f(H, sc=0.3)]
+    return acts + weights, dict(d_state=128, eps=1e-5, chunk=128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_mixer2_kernel_matches_plain(cuda, dtype, reverse):
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2
+
+    args, kw = _mixer2_case(np.random.default_rng(6), cuda, dtype)
+    before = cuda_mixer2.mamba2_mixer_interior.launches
+    got = cuda_mixer2.mamba2_mixer_interior(*args, **kw, reverse=reverse)
+    torch.cuda.synchronize()
+    assert cuda_mixer2.mamba2_mixer_interior.launches == before + 1
+    want = cuda_mixer2.mamba2_mixer_interior_plain(*args, **kw, reverse=reverse)
+    assert got.dtype == dtype
+    _close_to_scale(got, want, SSD_TOL[dtype], "mamba2_mixer_interior")
+
+
+def test_ssd_kernels_are_deterministic(cuda):
+    """Two launches of K4 and of K5 give equal bits (no atomics: K5's norm
+    sums its per-head partials in head order)."""
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+
+    args = _ssd_case(np.random.default_rng(7), cuda, torch.bfloat16)
+    assert torch.equal(cuda_ssd.ssd_dir(*args, 128, True), cuda_ssd.ssd_dir(*args, 128, True))
+    margs, kw = _mixer2_case(np.random.default_rng(8), cuda, torch.float32, H=3)
+    a = cuda_mixer2.mamba2_mixer_interior(*margs, **kw, reverse=False)
+    b = cuda_mixer2.mamba2_mixer_interior(*margs, **kw, reverse=False)
+    assert torch.equal(a, b)
+
+
+def test_ssd_wrappers_reject_bad_input(cuda):
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+
+    x, dt, A, Bm, Cm, Ds, dtb = _ssd_case(np.random.default_rng(9), cuda, torch.float32)
+    with pytest.raises(ValueError, match="chunk"):
+        cuda_ssd.ssd_dir(x, dt, A, Bm, Cm, Ds, dtb, 64, False)
+    with pytest.raises(ValueError, match="does not divide"):
+        cuda_ssd.ssd_dir(x[:, :200].contiguous(), dt[:, :200].contiguous(), A,
+                         Bm[:, :200].contiguous(), Cm[:, :200].contiguous(), Ds, dtb, 128,
+                         False)
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_ssd.ssd_dir(x.reshape(2, 256, 4, 64).reshape(2, 256, 256),
+                         torch.cat([dt, dt], -1), torch.cat([A, A]), Bm, Cm,
+                         torch.cat([Ds, Ds]), torch.cat([dtb, dtb]), 128, False)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_ssd.ssd_dir(x.half(), dt.half(), A, Bm.half(), Cm.half(), Ds, dtb, 128, False)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_ssd.ssd_dir(x, dt.bfloat16(), A, Bm, Cm, Ds, dtb, 128, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ssd.ssd_dir(x, dt, A, Bm.transpose(0, 1).contiguous().transpose(0, 1), Cm, Ds,
+                         dtb, 128, False)
+    margs, kw = _mixer2_case(np.random.default_rng(10), cuda, torch.float32)
+    with pytest.raises(ValueError, match="d_state"):
+        cuda_mixer2.mamba2_mixer_interior(*margs, **dict(kw, d_state=64), reverse=False)
+    bad = list(margs)
+    bad[1] = bad[1].bfloat16()  # z in another dtype than xi
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_mixer2.mamba2_mixer_interior(*bad, **kw, reverse=False)
+
+
+@pytest.mark.parametrize("overrides", [{}, dict(bidirectional_weight_tie=False, n_groups=2),
+                                       dict(bidirectional=False, rcps=False)],
+                         ids=["tied_add", "untied_ng2", "unidirectional"])
+def test_model2_forward_kernels_match_plain_path(cuda, overrides):
+    """A 2-layer l20-ssd-width model (d_model 384, H 6, P = N = 128): logits
+    through K5 against the plain path (fp32, 1e-3 of the logits' scale),
+    with one K5 launch per direction and layer; under grad the kernel route
+    raises."""
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2
+
+    cfg = CaduceusConfig.preset("l20-ssd", n_layer=2, **overrides)
+    model = Caduceus(cfg, init_params(cfg, seed=4)).to(cuda)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(7, 11, (4, 256))).to(cuda)
+    before = cuda_mixer2.mamba2_mixer_interior.launches
+    with torch.inference_mode():
+        got = model(ids, dtype=torch.float32)["logits"]
+        torch.cuda.synchronize()
+        launched = cuda_mixer2.mamba2_mixer_interior.launches - before
+        want = model(ids, dtype=torch.float32, use_kernels=False)["logits"]
+    assert launched == cfg.n_directions * cfg.n_layer
+    _close_to_scale(got, want, 1e-3, "logits")
+    model.requires_grad_()
+    with pytest.raises(NotImplementedError, match="next slice"):
+        model(ids, dtype=torch.float32)
