@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``plantcaduceus_tpu_torch/csrc`` and drives the
-port's two paths on the card, zero-shot scoring and masked-LM pre-training
-with the l20 model:
+port's paths on the card, zero-shot scoring and masked-LM pre-training with
+the l20 model and with its Mamba-2 (SSD) variant l20-ssd:
 
 1. the card: name, power limit, count;
 2. build the kernels (one nvcc per source, in parallel);
@@ -45,9 +45,23 @@ layers, H 6 heads of P 128, N 128, chunk 128):
     fp32; K5 launches = 2 * n_layer;
 6b. the CLI with ``-model l20-ssd`` on phase 6's TSV (counted and timed)
     and the steady-state scoring rate;
-7b. device time by kernel over one l20-ssd scoring batch (torch.profiler).
+7b. device time by kernel over one l20-ssd scoring batch (torch.profiler);
 
-Inputs and outputs of phases 6 and 9 go to ``build/chip_smoke/`` in the
+and the Mamba-2 pre-training path with l20-ssd:
+
+3d. K4-fentry (``ssd_dir(emit_fentry=True)``), K5-res
+    (``mamba2_mixer_interior(emit_residuals=True)``) and K6
+    (``ssd_dir_bwd``, plain and ``pre_silu`` modes) against their plain
+    versions at the l20-ssd training shape (64 rows x 512 x 768), both
+    directions, fp32 and bf16, with time, plain time and bound;
+8b. one fp32 training step's gradients at l20-ssd width, 2 layers, kernels
+    (K5-res, K6 pre_silu) against the plain path; ``SsdDirFn``'s gradients
+    (K4-fentry, K6 plain mode) against autograd through K4's plain version;
+9b. phase 9 with ``--preset l20-ssd``: 30 steps, launch counts, the exact
+    resume from step 15, the export scored;
+10b. device time by kernel over one l20-ssd training step.
+
+Inputs and outputs of phases 6, 9 and 9b go to ``build/chip_smoke/`` in the
 checkout.
 
 Every failure exits non-zero; no phase's failure is caught. Without CUDA it
@@ -530,35 +544,143 @@ def phase_ssd_kernels(dev):
     return res, k4_launches
 
 
-def reset_counts():
+def ssd_train_work(R, L, H, NG, s, kernel):
+    """What one direction of ``kernel`` (``ssd_fwd_fentry``,
+    ``mixer2_fwd_res``, ``ssd_bwd`` or ``ssd_bwd_pre_silu``) must do,
+    counted from the shapes as :func:`ssd_work`. The training variants add their residual outputs: the
+    float32 entry states [R, L/T, N, H*P] and, for K5-res, the accumulators
+    and y in the activation dtype. K6 reads x, g, B, C, dt and the entry
+    states and writes dx, dB, dC, ddt_raw and dmass in float32 (pre_silu:
+    also gx and dtp); its products are eight per (row, chunk, head) and C @
+    B^T once per group; per score, the masked exp2 and ~6 flops."""
+    P = N = T = 128
+    di, NGN = H * P, NG * N
+    rows, nc = R * L, L // T
+    fentry = 4 * R * nc * N * di
+    if kernel in ("ssd_fwd_fentry", "mixer2_fwd_res"):
+        res = kernel == "mixer2_fwd_res"
+        nbytes, ew, sfu, prod = ssd_work(R, L, H, NG, s, mixer=res)
+        return nbytes + fentry + (s * rows * (2 * di + 2 * NGN) if res else 0), ew, sfu, prod
+    pre = kernel == "ssd_bwd_pre_silu"
+    head_chunks = R * nc * H
+    nbytes = (s * rows * (2 * di + 2 * NGN + H) + fentry
+              + 4 * rows * (di + 2 * NGN + (4 if pre else 2) * H) + 4 * 3 * H)
+    prod = R * nc * (NG * 2 * T * T * N + H * 8 * 2 * T * T * P)
+    ew = 6 * head_chunks * T * T + rows * (10 * di + 4 * NGN + 20 * H)
+    sfu = head_chunks * T * T + rows * (6 * H + (2 * (di + 2 * NGN) if pre else 0))
+    return nbytes, ew, sfu, prod
+
+
+def phase_ssd_train_kernels(dev):
+    """The Mamba-2 training kernels against their plain versions at the
+    l20-ssd training shape (64 rows x 512 x 768, H 6): K4-fentry, K5-res and
+    K6 in both modes (K6 pre_silu on K5-res's plain residuals, as the
+    trainer calls it), both directions, fp32 and bf16; timings."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+
+    cfg = CaduceusConfig.preset("l20-ssd")
+    rows, L, H, NG, N = TRAIN_ROWS, 512, cfg.n_heads, cfg.n_groups, cfg.d_state
+    log(f"phase 3d: Mamba-2 training kernels vs plain versions (l20-ssd: {rows} rows x {L} "
+        f"x {cfg.d_inner}, H {H}, P = N = chunk = 128)")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    names = ("ssd_fwd_fentry", "mixer2_fwd_res", "ssd_bwd", "ssd_bwd_pre_silu")
+    res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}} for k in names}
+    kw = dict(d_state=N, eps=cfg.norm_epsilon, chunk=cfg.chunk_size)
+    T = cfg.chunk_size
+
+    def check(kernel, label, got, want, dn):
+        # TOL[dn] for every output, the float32 ones too (entry states and
+        # gradients computed from bf16-rounded product operands; a value
+        # near a rounding boundary can round the other way)
+        for n, g_, w_ in zip(label, got, want):
+            res[kernel]["err"] = max(res[kernel]["err"], compare(
+                f"{kernel} {n} {dn}", g_, w_, dn))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        s = dtype.itemsize
+        mixer, ssd = ssd_inputs(cfg, rows, L, dtype, dev, gen, 23)
+        g = torch.randn((rows, L, cfg.d_inner), generator=gen, device=dev).to(dtype)
+        for d in (0, 1):
+            rev = d == 1
+            tag = "rev" if rev else "fwd"
+            k4 = (lambda a=ssd(d), r=rev: cuda_ssd.ssd_dir(*a, T, r, emit_fentry=True),
+                  lambda a=ssd(d), r=rev: cuda_ssd.ssd_dir_plain(*a, T, r, emit_fentry=True))
+            k5 = (lambda a=mixer(d), r=rev: cuda_mixer2.mamba2_mixer_interior(
+                      *a, **kw, reverse=r, emit_residuals=True),
+                  lambda a=mixer(d), r=rev: cuda_mixer2.mamba2_mixer_interior_plain(
+                      *a, **kw, reverse=r, emit_residuals=True))
+            y_p, fe_p = k4[1]()
+            check("ssd_fwd_fentry", (f"y {tag}", f"fentry {tag}"), k4[0](), (y_p, fe_p), dn)
+            want5 = k5[1]()
+            check("mixer2_fwd_res",
+                  [f"{n} {tag}" for n in ("u", "accx", "accB", "accC", "fentry", "y")],
+                  k5[0](), want5, dn)
+            # K6, plain mode on K4's arguments; pre_silu on K5-res's residuals
+            bargs = (*ssd(d), fe_p, g)
+            _, accx, accB, accC, fe5, _ = want5
+            a5 = mixer(d)
+            pargs = (accx, a5[4], a5[12], accB.reshape(rows, L, NG, N),
+                     accC.reshape(rows, L, NG, N), a5[13], a5[14], fe5, g)
+            k6 = (lambda a=bargs, r=rev: cuda_ssd.ssd_dir_bwd(*a, T, r),
+                  lambda a=bargs, r=rev: cuda_ssd.ssd_dir_bwd_plain(*a, T, r))
+            k6p = (lambda a=pargs, r=rev: cuda_ssd.ssd_dir_bwd(*a, T, r, pre_silu=True),
+                   lambda a=pargs, r=rev: cuda_ssd.ssd_dir_bwd_plain(*a, T, r, pre_silu=True))
+            bnames = ("dx", "dB", "dC", "ddt_raw", "dmass", "gx", "dtp")
+            check("ssd_bwd", [f"{n} {tag}" for n in bnames[:5]], k6[0](), k6[1](), dn)
+            check("ssd_bwd_pre_silu", [f"{n} {tag}" for n in bnames], k6p[0](), k6p[1](), dn)
+            torch.cuda.synchronize()
+            calls = {"ssd_fwd_fentry": k4, "mixer2_fwd_res": k5, "ssd_bwd": k6,
+                     "ssd_bwd_pre_silu": k6p}  # the reverse direction's are timed
+            del y_p, fe_p, want5, bargs, pargs
+        for name, (kern, plain) in calls.items():
+            res[name]["ms"][dn] = time_ms(kern, 10)
+            res[name]["plain_ms"][dn] = time_ms(plain, 2, warmup=1)
+            res[name]["bound"][dn] = ssd_bound(ssd_train_work(rows, L, H, NG, s, name), dn)
+        del calls, mixer, ssd, g
+        torch.cuda.empty_cache()
+    for name, r in res.items():
+        for dn in r["ms"]:
+            b, by, parts = r["bound"][dn]
+            log(f"  {name} ({dn}, one direction): {r['ms'][dn]:.3f} ms; plain "
+                f"{r['plain_ms'][dn]:.1f} ms; bound {b:.3f} ms by {by} (bytes "
+                f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, sfu "
+                f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)")
+    return res
+
+
+def _counters():
+    """Each kernel's name in the kernels line -> (wrapper, counter attribute)."""
     from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_mixer2, cuda_scan, cuda_ssd
 
-    cuda_mixer.mixer_fwd.launches = 0
-    cuda_mixer.mixer_fwd.res_launches = 0
-    cuda_scan.scan_fwd.launches = 0
-    cuda_scan.scan_fwd.hb_launches = 0
-    cuda_scan.scan_bwd.launches = 0
-    cuda_ssd.ssd_dir.launches = 0
-    cuda_mixer2.mamba2_mixer_interior.launches = 0
+    return {"mixer_fwd": (cuda_mixer.mixer_fwd, "launches"),
+            "mixer_fwd_res": (cuda_mixer.mixer_fwd, "res_launches"),
+            "scan_fwd": (cuda_scan.scan_fwd, "launches"),
+            "scan_fwd_hb": (cuda_scan.scan_fwd, "hb_launches"),
+            "scan_bwd": (cuda_scan.scan_bwd, "launches"),
+            "ssd_fwd": (cuda_ssd.ssd_dir, "launches"),
+            "ssd_fwd_fentry": (cuda_ssd.ssd_dir, "fentry_launches"),
+            "mixer2_fwd": (cuda_mixer2.mamba2_mixer_interior, "launches"),
+            "mixer2_fwd_res": (cuda_mixer2.mamba2_mixer_interior, "res_launches"),
+            "ssd_bwd": (cuda_ssd.ssd_dir_bwd, "launches"),
+            "ssd_bwd_pre_silu": (cuda_ssd.ssd_dir_bwd, "pre_silu_launches")}
+
+
+def reset_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def counts():
-    from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_mixer2, cuda_scan, cuda_ssd
-
-    return {"mixer_fwd": cuda_mixer.mixer_fwd.launches,
-            "mixer_fwd_res": cuda_mixer.mixer_fwd.res_launches,
-            "scan_fwd": cuda_scan.scan_fwd.launches,
-            "scan_fwd_hb": cuda_scan.scan_fwd.hb_launches,
-            "scan_bwd": cuda_scan.scan_bwd.launches,
-            "ssd_fwd": cuda_ssd.ssd_dir.launches,
-            "mixer2_fwd": cuda_mixer2.mamba2_mixer_interior.launches}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def only(**nonzero):
     """The counts dict with these entries and every other one 0."""
-    return {k: nonzero.get(k, 0) for k in ("mixer_fwd", "mixer_fwd_res", "scan_fwd",
-                                            "scan_fwd_hb", "scan_bwd", "ssd_fwd",
-                                            "mixer2_fwd")}
+    return {k: nonzero.get(k, 0) for k in _counters()}
 
 
 def phase_forward(cfg, dev):
@@ -929,31 +1051,110 @@ def phase_grads(dev):
                 hb_launches += c["scan_fwd_hb"]
                 launched = {k: v for k, v in c.items() if v}
             grads[use_kernels] = {n: p.grad for n, p in model.named_parameters()}
-        worst, worst_name = 0.0, ""
-        for n, gp in grads[False].items():
-            gk = grads[True][n]
-            scale = gp.abs().max().item()
-            err = (gk - gp).abs().max().item()
-            rel = err / scale if scale else err
-            if not (math.isfinite(err) and rel <= GRAD_TOL):
-                fail(f"phase 8 {name}: gradient of {n} off by {rel:.3e} of its max "
-                     f"(tol {GRAD_TOL:.0e})")
-            if rel >= worst:
-                worst, worst_name = rel, n
+        worst, worst_name = grads_agree(f"phase 8 {name}", grads[True], grads[False])
         log(f"  {name}: {len(grads[False])} parameter gradients, worst {worst_name} at "
             f"{worst:.3e} of its max |grad| (tol {GRAD_TOL:.0e}); launches {launched}")
     return hb_launches
 
 
-TRAIN_ARGS = ["--dataset", "synthetic", "--preset", "l20", "--batch-size", "32",
-              "--window", "512", "--dtype", "bfloat16", "--max-steps", "30",
-              "--warmup-steps", "5", "--lr", "1e-3", "--save-steps", "15", "--log-steps", "1"]
+def grads_agree(what, got, want):
+    """Every parameter's gradient through the kernels within GRAD_TOL of its
+    max |gradient| through the plain path; returns (worst, its name)."""
+    worst, worst_name = 0.0, ""
+    for n, gp in want.items():
+        scale = gp.abs().max().item()
+        err = (got[n] - gp).abs().max().item()
+        rel = err / scale if scale else err
+        if not (math.isfinite(err) and rel <= GRAD_TOL):
+            fail(f"{what}: gradient of {n} off by {rel:.3e} of its max (tol {GRAD_TOL:.0e})")
+        if rel >= worst:
+            worst, worst_name = rel, n
+    return worst, worst_name
 
 
-def phase_pretrain(cfg, dev, tsv, n_valid):
-    """The pre-training CLI on the card (l20, full width and depth, batch 32
-    x 512 bp, bf16, remat): loss, launches, throughput, memory; an exact
-    resume from step 15 through ``python -m``; scoring with the export."""
+def phase_grads2(dev):
+    """One fp32 training step of an l20-ssd-width model (2 layers, 4 x 512
+    bp), kernels (K5-res, K6 pre_silu) against the plain path; then
+    SsdDirFn's gradients (K4-fentry, K6 plain mode) against autograd
+    through K4's plain version at 4 rows x 512 x 768. Returns the launches
+    of K4-fentry and K6 plain mode."""
+    import torch
+
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models.caduceus import (Caduceus, forward, init_params,
+                                                         mlm_loss)
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+    from plantcaduceus_tpu_torch.train import data as data_lib
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    log("phase 8b: one fp32 training step's gradients, kernels vs plain path "
+        "(l20-ssd width, 2 layers, batch 4 x 512 bp); SsdDirFn's gradients")
+    cfg = CaduceusConfig.preset("l20-ssd", n_layer=2)
+    seqs = data_lib.sequence_source("synthetic", window=512, synthetic_n=16, seed=8)
+    batch = to_device(data_lib.PretrainDataset(seqs, DnaTokenizer(), 4, seed=8).batch_at(0),
+                      dev)
+    params = init_params(cfg, seed=9)
+    grads = {}
+    for use_kernels in (True, False):
+        model = Caduceus(cfg, params).requires_grad_().to(dev)
+        reset_counts()
+        logits = forward(model, batch["input_ids"], dtype=torch.float32,
+                         use_kernels=use_kernels)["logits"]
+        mlm_loss(logits, batch["labels"], batch["loss_weights"]).backward()
+        torch.cuda.synchronize()
+        c = counts()
+        nl2 = 2 * cfg.n_layer
+        want = only(mixer2_fwd_res=nl2, ssd_bwd_pre_silu=nl2) if use_kernels else only()
+        if c != want:
+            fail(f"phase 8b (kernels={use_kernels}) launched {c}; expected {want}")
+        grads[use_kernels] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    worst, worst_name = grads_agree("phase 8b", grads[True], grads[False])
+    log(f"  tied+add: {len(grads[False])} parameter gradients, worst {worst_name} at "
+        f"{worst:.3e} of its max |grad| (tol {GRAD_TOL:.0e}); launches per direction and "
+        f"layer: K5-res 1, K6 pre_silu 1")
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    _, ssd = ssd_inputs(cfg, 4, 512, torch.float32, dev, gen, 31)
+    reset_counts()
+    worst, worst_name = 0.0, ""
+    for d in (0, 1):
+        ins = [t.detach().clone().requires_grad_() for t in ssd(d)]
+        gw = torch.randn(tuple(ins[0].shape), generator=gen, device=dev)
+        got = torch.autograd.grad(
+            (cuda_ssd.ssd_dir_train(*ins, cfg.chunk_size, d == 1) * gw).sum(), ins)
+        torch.cuda.synchronize()
+        c = counts()
+        want = torch.autograd.grad(
+            (cuda_ssd.ssd_dir_plain(*ins, cfg.chunk_size, d == 1) * gw).sum(), ins)
+        names = [f"{n} {'rev' if d else 'fwd'}"
+                 for n in ("x", "dt", "A", "Bm", "Cm", "Dskip", "dt_bias")]
+        w, wn = grads_agree("phase 8b SsdDirFn", dict(zip(names, got)), dict(zip(names, want)))
+        if w >= worst:
+            worst, worst_name = w, wn
+    if c != only(ssd_fwd_fentry=2, ssd_bwd=2):
+        fail(f"phase 8b SsdDirFn launched {c}")
+    log(f"  SsdDirFn, both directions: 14 input gradients, worst {worst_name} at {worst:.3e} "
+        f"of its max |grad|; launches {dict((k, v) for k, v in c.items() if v)}")
+    return c["ssd_fwd_fentry"], c["ssd_bwd"]
+
+
+TRAIN_ARGS = ["--dataset", "synthetic", "--batch-size", "32", "--window", "512",
+              "--dtype", "bfloat16", "--max-steps", "30", "--warmup-steps", "5", "--lr", "1e-3",
+              "--save-steps", "15", "--log-steps", "1"]
+# Per preset: the phase, and the kernels a training run launches: the
+# inference variant (the final eval), the residual variant (forward and
+# remat recompute) and the adjoint.
+TRAIN_KERNELS = {"l20": ("9", "mixer_fwd", "mixer_fwd_res", "scan_bwd"),
+                 "l20-ssd": ("9b", "mixer2_fwd", "mixer2_fwd_res", "ssd_bwd_pre_silu")}
+
+
+def phase_pretrain(preset, dev, tsv, n_valid):
+    """The pre-training CLI on the card (``preset`` at full width and depth,
+    batch 32 x 512 bp, bf16, remat): loss, launches, throughput, memory; an
+    exact resume from step 15 through ``python -m``; scoring with the
+    export."""
     import logging
 
     import numpy as np
@@ -961,11 +1162,15 @@ def phase_pretrain(cfg, dev, tsv, n_valid):
 
     from plantcaduceus_tpu_torch.cli import pretrain
     from plantcaduceus_tpu_torch.engine import zero_shot
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
-    log("phase 9: pre-training CLI, l20 (20 layers, d_model 384), batch 32 x 512 bp, "
-        "bf16, remat, 30 steps")
+    cfg = CaduceusConfig.preset(preset)
+    phase, k_inf, k_res, k_bwd = TRAIN_KERNELS[preset]
+    args = TRAIN_ARGS + ["--preset", preset]
+    log(f"phase {phase}: pre-training CLI, {preset} ({cfg.n_layer} layers, d_model "
+        f"{cfg.d_model}), batch 32 x 512 bp, bf16, remat, 30 steps")
     tmp = REPO / "build" / "chip_smoke"
-    run_a, run_b = tmp / "pretrain", tmp / "pretrain_resumed"
+    run_a, run_b = tmp / f"pretrain_{preset}", tmp / f"pretrain_{preset}_resumed"
     for d in (run_a, run_b):
         shutil.rmtree(d, ignore_errors=True)
     steps = []  # (step, loss, host time once the step's metrics reached the host)
@@ -981,7 +1186,7 @@ def phase_pretrain(cfg, dev, tsv, n_valid):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t = time.perf_counter()
-    pretrain.main(TRAIN_ARGS + ["--output-dir", str(run_a)])
+    pretrain.main(args + ["--output-dir", str(run_a)])
     wall = time.perf_counter() - t
     c = counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -992,18 +1197,20 @@ def phase_pretrain(cfg, dev, tsv, n_valid):
     log(f"  {len(steps)} steps in {wall:.1f} s (kernel build, model init, final eval and "
         f"export included); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     if [s[0] for s in steps] != list(range(1, 31)) or not all(map(math.isfinite, losses)):
-        fail(f"phase 9: bad step log {steps}")
+        fail(f"phase {phase}: bad step log {steps}")
     if not losses[-1] < losses[0]:
-        fail(f"phase 9: loss did not fall ({losses[0]} -> {losses[-1]})")
-    # Per step: K2-res twice per direction and layer (the forward, and the
-    # recompute of every block in the backward under remat), K3 once per
-    # direction and layer. The final eval runs the inference K2.
-    want = only(mixer_fwd=c["mixer_fwd"], mixer_fwd_res=30 * 2 * 2 * nl, scan_bwd=30 * 2 * nl)
-    if c != want or not (c["mixer_fwd"] > 0 and c["mixer_fwd"] % (2 * nl) == 0):
-        fail(f"phase 9 launched {c}; expected {want} with mixer_fwd a positive "
+        fail(f"phase {phase}: loss did not fall ({losses[0]} -> {losses[-1]})")
+    # Per step: the residual variant twice per direction and layer (the
+    # forward, and the recompute of every block in the backward under
+    # remat), the adjoint once per direction and layer. The final eval runs
+    # the inference variant.
+    want = only(**{k_inf: c[k_inf], k_res: 30 * 2 * 2 * nl, k_bwd: 30 * 2 * nl})
+    if c != want or not (c[k_inf] > 0 and c[k_inf] % (2 * nl) == 0):
+        fail(f"phase {phase} launched {c}; expected {want} with {k_inf} a positive "
              f"multiple of {2 * nl}")
-    log(f"  launches {c}: per step K2-res {4 * nl} (2 directions x {nl} layers x forward + "
-        f"remat recompute), K3 {2 * nl}; mixer_fwd = final eval, inference kernel")
+    log(f"  launches {dict((k, v) for k, v in c.items() if v)}: per step {k_res} {4 * nl} (2 "
+        f"directions x {nl} layers x forward + remat recompute), {k_bwd} {2 * nl}; {k_inf} = "
+        f"final eval, inference kernel")
     times = {s[0]: s[2] for s in steps}
     # Steps 11..30, without step 16: its interval holds the step-15 checkpoint write.
     deltas = [times[k] - times[k - 1] for k in range(11, 31) if k != 16]
@@ -1020,7 +1227,7 @@ def phase_pretrain(cfg, dev, tsv, n_valid):
     shutil.copy(run_a / "config.json", run_b / "config.json")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.pretrain",
-                          *TRAIN_ARGS, "--output-dir", str(run_b)], cwd=REPO, env=env,
+                          *args, "--output-dir", str(run_b)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         fail(f"resumed pre-training exited {res.returncode}:\n{res.stderr[-4000:]}")
@@ -1033,7 +1240,7 @@ def phase_pretrain(cfg, dev, tsv, n_valid):
     log(f"  python -m ... resumed at step 15: step-30 weights equal bit for bit "
         f"({len(a)} tensors)")
 
-    out = tmp / "scores_trained.tsv"
+    out = tmp / f"scores_trained_{preset}.tsv"
     run_cli(["-input-table", str(tsv), "-model", str(run_a / "final"), "-output", str(out)])
     scores = np.array([float(r["zeroShotScore"]) for r in zero_shot.read_table(out).rows])
     if len(scores) != n_valid or not np.isfinite(scores).all():
@@ -1042,19 +1249,22 @@ def phase_pretrain(cfg, dev, tsv, n_valid):
     return c, tps, step_s, peak
 
 
-def phase_train_profile(cfg, dev):
-    """Device time by kernel over one l20 training step (bf16, batch 32 x
-    512 bp, remat), and the device's busy share of it."""
+def phase_train_profile(preset, dev):
+    """Device time by kernel over one training step of ``preset`` (bf16,
+    batch 32 x 512 bp, remat), and the device's busy share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
     from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
     from plantcaduceus_tpu_torch.train import data as data_lib
     from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
     from plantcaduceus_tpu_torch.train.step import make_train_step, to_device
 
-    log("phase 10: profile one l20 training step (bf16, batch 32 x 512 bp, remat)")
+    cfg = CaduceusConfig.preset(preset)
+    phase = "10" if preset == "l20" else "10b"
+    log(f"phase {phase}: profile one {preset} training step (bf16, batch 32 x 512 bp, remat)")
     model = Caduceus(cfg, init_params(cfg, seed=32))
     opt = make_optimizer(learning_rate=1e-3, warmup_steps=5, total_steps=30,
                          params=dict(model.named_parameters()))
@@ -1097,6 +1307,7 @@ def main():
     kres = phase_kernels(cfg, dev)
     tres = phase_train_kernels(cfg, dev)
     sres, k4_launches = phase_ssd_kernels(dev)
+    s2res = phase_ssd_train_kernels(dev)
     phase_forward(cfg, dev)
     phase_forward2(dev)
     k1_launches = phase_general(dev)
@@ -1105,12 +1316,16 @@ def main():
     phase_profile(cfg, dev)
     phase_profile2(dev)
     hb_launches = phase_grads(dev)
-    tc, tps, step_s, peak = phase_pretrain(cfg, dev, tsv, n_valid)
-    phase_train_profile(cfg, dev)
+    fentry_launches, k6_launches = phase_grads2(dev)
+    tc, tps, step_s, peak = phase_pretrain("l20", dev, tsv, n_valid)
+    tc2, tps2, step_s2, peak2 = phase_pretrain("l20-ssd", dev, tsv, n_valid)
+    phase_train_profile("l20", dev)
+    phase_train_profile("l20-ssd", dev)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
-        f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training {tps:.1f} tokens/s, "
-        f"{step_s * 1e3:.2f} ms per step, peak {peak} bytes")
+        f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
+        f"{step_s * 1e3:.2f} ms per step, peak {peak} bytes; l20-ssd {tps2:.1f} tokens/s, "
+        f"{step_s2 * 1e3:.2f} ms per step, peak {peak2} bytes")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
@@ -1135,6 +1350,18 @@ def main():
         "mixer2_fwd": dict(source=src + "mixer2_fwd.cu",
                            replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
                            launches=k5_launches),
+        "ssd_fwd_fentry": dict(source=src + "ssd_fwd.cu",
+                               replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
+                               launches=fentry_launches),
+        "mixer2_fwd_res": dict(source=src + "mixer2_fwd.cu",
+                               replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
+                               launches=tc2["mixer2_fwd_res"]),
+        "ssd_bwd": dict(source=src + "ssd_bwd.cu",
+                        replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
+                        launches=k6_launches),
+        "ssd_bwd_pre_silu": dict(source=src + "ssd_bwd.cu",
+                                 replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
+                                 launches=tc2["ssd_bwd_pre_silu"]),
     }
     kernels = []
     for name in ("mixer_fwd", "scan_fwd"):
@@ -1146,7 +1373,7 @@ def main():
     # The training variants and K3: the bf16 numbers (the trainer's dtype)
     # in the contract's keys, the fp32 ones beside them.
     for name, r in [(n, tres[n]) for n in ("mixer_fwd_res", "scan_fwd_hb", "scan_bwd")] + \
-            [(n, sres[n]) for n in ("mixer2_fwd", "ssd_fwd")]:
+            [(n, sres[n]) for n in ("mixer2_fwd", "ssd_fwd")] + list(s2res.items()):
         b, by, _ = r["bound"]["bfloat16"]
         b32, by32, _ = r["bound"]["float32"]
         kernels.append(dict(name=name, route="cuda", **meta[name], max_abs_err=r["err"],

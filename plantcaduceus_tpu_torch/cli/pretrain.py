@@ -113,9 +113,6 @@ def main(argv=None):
     else:
         sys.exit("one of --preset / --config is required")
 
-    if cfg.ssm_variant == "mamba2":
-        raise NotImplementedError(
-            "Mamba-2 (*-ssd) pre-training is the port's next slice; it scores only")
     tokenizer = DnaTokenizer()
     model = Caduceus(cfg, init_params(cfg, seed=args.seed))
     optimizer = make_optimizer(

@@ -2,13 +2,17 @@
 //
 // Replaces plantcaduceus_tpu/ops/pallas_mixer2.py::_fused_kernel with
 // _conv_acc (launched at pallas_mixer2.py:179 through _interior_pallas_call /
-// mamba2_mixer_interior), forward without emit_residuals (the training
-// slice's):
+// mamba2_mixer_interior):
 //   xc, Bc, Cc = silu(depthwise conv K taps + bias) of xi, Braw, Craw
 //                (causal, or anticausal for reverse; taps and biases rounded
 //                to xi's dtype, sums in float32)
 //   y          = K4's chunk core (ssd_core.cuh) over xc, dt, Bc, Cc, in float32
 //   u          = rmsnorm(y * silu(z)) * nw over d_inner, cast to xi's dtype.
+// The training variant (emit_residuals, a template parameter kRes) also
+// writes what K6 (ssd_bwd.cu, pre_silu mode) and the gated-norm adjoint
+// need: the pre-SiLU conv accumulators accx, accB, accC and the pre-gate y
+// (with the D-skip), all in xi's dtype as the TPU kernel emits them, and the
+// float32 chunk-entry states fentry [R, L/128, N, d_inner] (ssd_core.cuh).
 //
 // The TPU kernel walks the chunks of a row in order, carries the conv's K-1
 // halo in scratch and normalises each [T, d_inner] tile in VMEM. On the GPU a
@@ -54,10 +58,11 @@ constexpr int kConvSteps = 32;     // time steps per thread of stage (0)
 // way. A thread owns one channel and walks kConvSteps steps in direction
 // dir, keeping the K inputs of the current output in registers, so each
 // input is read once per walk.
-template <typename T>
+// With kRes the pre-SiLU sum (bias included) also goes to acc_out in T.
+template <typename T, bool kRes>
 __global__ void __launch_bounds__(kConvThreads) conv_silu_kernel(
     const T* __restrict__ in, const float* __restrict__ w, const float* __restrict__ b,
-    float* __restrict__ out, int L, int C, int K, int reverse) {
+    float* __restrict__ out, T* __restrict__ acc_out, int L, int C, int K, int reverse) {
   const int c = blockIdx.x * kConvThreads + threadIdx.x;
   if (c >= C) return;
   const long long row = (long long)blockIdx.z * L * C;
@@ -82,6 +87,7 @@ __global__ void __launch_bounds__(kConvThreads) conv_silu_kernel(
     for (int k = 0; k < kMaxTaps; ++k)
       if (k < K) acc = fmaf(win[k], wk[k], acc);
     acc += bias;
+    if constexpr (kRes) acc_out[row + (long long)t * C + c] = from_f<T>(acc);
     out[row + (long long)t * C + c] = acc / (1.f + expf(-acc));
 #pragma unroll
     for (int k = 0; k + 1 < kMaxTaps; ++k)
@@ -89,8 +95,9 @@ __global__ void __launch_bounds__(kConvThreads) conv_silu_kernel(
   }
 }
 
-// The core's values for one (row, head): the float32 conv outputs.
-template <typename T>
+// The core's values for one (row, head): the float32 conv outputs. With
+// kRes, out() also stores the pre-gate y in T.
+template <typename T, bool kRes>
 struct Mixer2Src {
   const float* xc;  // the row's [L, di], at head h's first channel
   const float* Bc;  // the row's [L, NG*N], at group g's first column
@@ -99,6 +106,7 @@ struct Mixer2Src {
   const T* z;       // the row's [L, di], at head h's first channel
   float* u;         // as z, float32
   float* part;      // the row's [L, H, kSsdParts] sums of u^2, at head h
+  T* yres;          // as z (kRes)
   int di, NGN, H;
   float D;
   __device__ float x(int t, int p) const { return xc[(long long)t * di + p]; }
@@ -114,6 +122,7 @@ struct Mixer2Src {
       for (int j = 0; j < 16; ++j) {
         const int p = tl.col(j);
         const float y = acc[i][j] + x(t, p) * D;
+        if constexpr (kRes) yres[(long long)t * di + p] = from_f<T>(y);
         const float zf = to_f(z[(long long)t * di + p]);
         const float v = y * (zf / (1.f + expf(-zf)));
         u[(long long)t * di + p] = v;
@@ -127,16 +136,17 @@ struct Mixer2Src {
   }
 };
 
-template <typename T>
+template <typename T, bool kRes>
 __global__ void __launch_bounds__(kSsdThreads, 1) mixer2_head_kernel(
     const float* __restrict__ xc, const float* __restrict__ Bc, const float* __restrict__ Cc,
     const T* __restrict__ dt, const T* __restrict__ z, const float* __restrict__ A,
     const float* __restrict__ Dskip, const float* __restrict__ dt_bias, float* __restrict__ u,
-    float* __restrict__ part, int L, int H, int NG, int reverse) {
+    float* __restrict__ part, float* __restrict__ fe, T* __restrict__ yres, int L, int H,
+    int NG, int reverse) {
   extern __shared__ __align__(16) unsigned char ssd_smem[];
   const int h = blockIdx.x;
   const long long r = blockIdx.y;
-  Mixer2Src<T> src;
+  Mixer2Src<T, kRes> src;
   src.H = H;
   src.di = H * kSsdP;
   src.NGN = NG * kSsdN;
@@ -149,8 +159,10 @@ __global__ void __launch_bounds__(kSsdThreads, 1) mixer2_head_kernel(
   src.Cc = Cc + bcoff;
   src.dtr = dt + r * L * H + h;
   src.part = part + r * L * H * kSsdParts + h * kSsdParts;
+  src.yres = kRes ? yres + xoff : nullptr;
   src.D = Dskip[h];
-  ssd_head<T>(src, A[h], dt_bias[h], L, reverse, ssd_smem);
+  float* fer = kRes ? fe + r * (L / kSsdT) * kSsdN * src.di + h * kSsdP : nullptr;
+  ssd_head<T, kRes>(src, A[h], dt_bias[h], L, reverse, ssd_smem, fer, src.di);
 }
 
 template <typename T>
@@ -168,39 +180,41 @@ __global__ void __launch_bounds__(32 * kNormRows) gated_norm_kernel(
   for (int c = lane; c < di; c += 32) o[c] = from_f<T>(ur[c] * rs * nw[c]);
 }
 
-template <typename T>
+template <typename T, bool kRes>
 cudaError_t launch_conv_silu(const void* in, const float* w, const float* b, float* out,
-                             int R, int L, int C, int K, int reverse, cudaStream_t s) {
+                             void* acc_out, int R, int L, int C, int K, int reverse,
+                             cudaStream_t s) {
   const dim3 grid((C + kConvThreads - 1) / kConvThreads, (L + kConvSteps - 1) / kConvSteps, R);
-  conv_silu_kernel<T><<<grid, kConvThreads, 0, s>>>(static_cast<const T*>(in), w, b, out, L,
-                                                    C, K, reverse);
+  conv_silu_kernel<T, kRes><<<grid, kConvThreads, 0, s>>>(
+      static_cast<const T*>(in), w, b, out, static_cast<T*>(acc_out), L, C, K, reverse);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kRes>
 cudaError_t launch_mixer2(const void* xi, const void* z, const void* Bm, const void* Cm,
                           const void* dt, const float* cxw, const float* cxb, const float* cbw,
                           const float* cbb, const float* ccw, const float* ccb,
                           const float* nw, const float* A, const float* Dskip,
                           const float* dt_bias, float* xc, float* Bc, float* Cc, float* u,
-                          float* part, void* out, int R, int L, int H, int NG, int K,
+                          float* part, void* out, void* accx, void* accB, void* accC,
+                          float* fe, void* yres, int R, int L, int H, int NG, int K,
                           int reverse, float eps, cudaStream_t s) {
   if (K > kMaxTaps) return cudaErrorInvalidValue;
   const long long rows = (long long)R * L;
   const int di = H * kSsdP, NGN = NG * kSsdN;
-  cudaError_t e = launch_conv_silu<T>(xi, cxw, cxb, xc, R, L, di, K, reverse, s);
+  cudaError_t e = launch_conv_silu<T, kRes>(xi, cxw, cxb, xc, accx, R, L, di, K, reverse, s);
   if (e != cudaSuccess) return e;
-  e = launch_conv_silu<T>(Bm, cbw, cbb, Bc, R, L, NGN, K, reverse, s);
+  e = launch_conv_silu<T, kRes>(Bm, cbw, cbb, Bc, accB, R, L, NGN, K, reverse, s);
   if (e != cudaSuccess) return e;
-  e = launch_conv_silu<T>(Cm, ccw, ccb, Cc, R, L, NGN, K, reverse, s);
+  e = launch_conv_silu<T, kRes>(Cm, ccw, ccb, Cc, accC, R, L, NGN, K, reverse, s);
   if (e != cudaSuccess) return e;
   const size_t smem = ssd_smem_bytes<T>();
-  e = cudaFuncSetAttribute(mixer2_head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  e = cudaFuncSetAttribute(mixer2_head_kernel<T, kRes>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  mixer2_head_kernel<T><<<dim3(H, R), kSsdThreads, smem, s>>>(
+  mixer2_head_kernel<T, kRes><<<dim3(H, R), kSsdThreads, smem, s>>>(
       xc, Bc, Cc, static_cast<const T*>(dt), static_cast<const T*>(z), A, Dskip, dt_bias, u,
-      part, L, H, NG, reverse);
+      part, fe, static_cast<T*>(yres), L, H, NG, reverse);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   gated_norm_kernel<T><<<(unsigned)((rows + kNormRows - 1) / kNormRows), 32 * kNormRows, 0, s>>>(
@@ -208,25 +222,47 @@ cudaError_t launch_mixer2(const void* xi, const void* z, const void* Bm, const v
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_mixer2_any(const void* xi, const void* z, const void* Bm, const void* Cm,
+                              const void* dt, const float* cxw, const float* cxb,
+                              const float* cbw, const float* cbb, const float* ccw,
+                              const float* ccb, const float* nw, const float* A,
+                              const float* Dskip, const float* dt_bias, float* xc, float* Bc,
+                              float* Cc, float* u, float* part, void* out, void* accx,
+                              void* accB, void* accC, float* fe, void* yres, int R, int L,
+                              int H, int NG, int K, int reverse, float eps, cudaStream_t s) {
+  if (accx)
+    return launch_mixer2<T, true>(xi, z, Bm, Cm, dt, cxw, cxb, cbw, cbb, ccw, ccb, nw, A,
+                                  Dskip, dt_bias, xc, Bc, Cc, u, part, out, accx, accB, accC,
+                                  fe, yres, R, L, H, NG, K, reverse, eps, s);
+  return launch_mixer2<T, false>(xi, z, Bm, Cm, dt, cxw, cxb, cbw, cbb, ccw, ccb, nw, A,
+                                 Dskip, dt_bias, xc, Bc, Cc, u, part, out, accx, accB, accC,
+                                 fe, yres, R, L, H, NG, K, reverse, eps, s);
+}
+
 }  // namespace pc
 
 // P = N = chunk = 128, L % 128 == 0 and NG | H are the wrapper's to check.
 // Conv taps and biases arrive as float32 values already rounded to xi's
 // dtype; xc [R, L, di], Bc and Cc [R, L, NG*N], u [R, L, di] and part [R, L,
-// H, 2] are float32 scratch.
+// H, 2] are float32 scratch. The residuals accx [R, L, di], accB, accC [R,
+// L, NG*N], yres [R, L, di] (xi's dtype) and fentry [R, L/128, N, di]
+// (float32) are all given for the training variant, all null otherwise.
 extern "C" int pc_mixer2_fwd(const void* xi, const void* z, const void* Bm, const void* Cm,
                              const void* dt, const float* cxw, const float* cxb,
                              const float* cbw, const float* cbb, const float* ccw,
                              const float* ccb, const float* nw, const float* A,
                              const float* Dskip, const float* dt_bias, float* xc, float* Bc,
-                             float* Cc, float* u, float* part, void* out, int R, int L, int H,
-                             int NG, int K, int reverse, float eps, int bf16, void* stream) {
+                             float* Cc, float* u, float* part, void* out, void* accx,
+                             void* accB, void* accC, float* fentry, void* yres, int R, int L,
+                             int H, int NG, int K, int reverse, float eps, int bf16,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return pc::launch_mixer2<__nv_bfloat16>(xi, z, Bm, Cm, dt, cxw, cxb, cbw, cbb, ccw, ccb,
-                                            nw, A, Dskip, dt_bias, xc, Bc, Cc, u, part, out,
-                                            R, L, H, NG, K, reverse, eps, s);
-  return pc::launch_mixer2<float>(xi, z, Bm, Cm, dt, cxw, cxb, cbw, cbb, ccw, ccb, nw, A,
-                                  Dskip, dt_bias, xc, Bc, Cc, u, part, out, R, L, H, NG, K,
-                                  reverse, eps, s);
+    return pc::launch_mixer2_any<__nv_bfloat16>(
+        xi, z, Bm, Cm, dt, cxw, cxb, cbw, cbb, ccw, ccb, nw, A, Dskip, dt_bias, xc, Bc, Cc, u,
+        part, out, accx, accB, accC, fentry, yres, R, L, H, NG, K, reverse, eps, s);
+  return pc::launch_mixer2_any<float>(xi, z, Bm, Cm, dt, cxw, cxb, cbw, cbb, ccw, ccb, nw, A,
+                                      Dskip, dt_bias, xc, Bc, Cc, u, part, out, accx, accB,
+                                      accC, fentry, yres, R, L, H, NG, K, reverse, eps, s);
 }

@@ -1,5 +1,6 @@
 // SSD (Mamba-2) chunk core, shared device code of K4 (ssd_fwd.cu) and the
-// SSD half of K5 (mixer2_fwd.cu).
+// SSD half of K5 (mixer2_fwd.cu); K6 (ssd_bwd.cu) builds on its block
+// products, tiles and decay vectors.
 //
 // Math (one row, one head h of group g; chunk of T steps), the same as
 // plantcaduceus_tpu/ops/pallas_ssd.py::ssd_chunk_core:
@@ -140,10 +141,12 @@ __device__ __forceinline__ uint32_t a_pair(const bf16* a, int lda, int m, int k)
   return *reinterpret_cast<const uint32_t*>(a + m * lda + k);
 }
 
-// Two bf16 of B at (k, n), (k+1, n); a float32 B (the state S) is rounded.
+// Two bf16 of B at (k, n), (k+1, n); a float32 B (the state S, the
+// backward's Rv and F) is rounded.
 template <bool BT, typename TB>
 __device__ __forceinline__ uint32_t b_pair(const TB* b, int ldb, int k, int n) {
   if constexpr (std::is_same<TB, float>::value) {
+    if (BT) return pack2(__float2bfloat16(b[n * ldb + k]), __float2bfloat16(b[n * ldb + k + 1]));
     return pack2(__float2bfloat16(b[k * ldb + n]), __float2bfloat16(b[(k + 1) * ldb + n]));
   } else {
     if (BT) return *reinterpret_cast<const uint32_t*>(b + n * ldb + k);
@@ -209,14 +212,72 @@ __device__ __forceinline__ void fill_tile(E* tile, F f) {
   }
 }
 
+// dt' and the decay vectors of the chunk at t0, for threads < kSsdT (one
+// step each; every thread of the block calls it): dtp = softplus(dt +
+// dt_bias), the inclusive cumsum `cum` of la = dtp * al (an inclusive scan in
+// each warp, then the warps' totals in order, so cum[T-1] == total bit for
+// bit), and segb, into_e = exp2(into), scale = exp2(outof) and total_s[0] =
+// total as set out at the top of this file. into_e holds the in-warp
+// prefixes in between. Ends with __syncthreads().
+template <class Src>
+__device__ __forceinline__ void chunk_decays(const Src& src, int t0, float al, float dtb_h,
+                                             int reverse, float* dtp, float* segb,
+                                             float* into_e, float* scale, float* total_s) {
+  const int tid = threadIdx.x;
+  float la = 0.f, cum = 0.f, total = 0.f;
+  if (tid < kSsdT) {
+    const float d = softplus(src.dt(t0 + tid) + dtb_h);
+    la = d * al;
+    float v = la;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if ((tid & 31) >= o) v += u;
+    }
+    dtp[tid] = d;
+    into_e[tid] = v;
+  }
+  __syncthreads();
+  if (tid < kSsdT) {
+    const int w = tid >> 5;
+    float base = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSsdT / 32; ++q) {
+      const float s = into_e[q * 32 + 31];
+      if (q < w) base += s;
+      total += s;
+    }
+    cum = base + into_e[tid];
+  }
+  __syncthreads();
+  if (tid < kSsdT) {
+    if (!reverse) {
+      segb[tid] = cum;
+      into_e[tid] = exp2f(cum);
+      scale[tid] = exp2f(total - cum);
+    } else {
+      const float e = cum - la;
+      segb[tid] = -e;
+      into_e[tid] = exp2f(total - e);
+      scale[tid] = exp2f(e);
+    }
+    if (tid == 0) total_s[0] = total;
+  }
+  __syncthreads();
+}
+
 // The whole run of one (row, head) block. `src` supplies, for absolute time
 // step t: x(t, p), b(t, n), c(t, n) (float32 values, rounded to E here),
 // dt(t) (raw, before bias and softplus), and out(acc, t0, tl), which
 // receives the block's y tile without the D-skip for the chunk at t0
-// (acc[i][j] at chunk row tl.row(i), column tl.col(j)).
-template <typename E, class Src>
+// (acc[i][j] at chunk row tl.row(i), column tl.col(j)). With kFentry, the
+// state each chunk starts from is written to fe (the row's [L/T, N, fe_ld]
+// float32 chunk-entry states, at the head's first column) by chunk index,
+// as the TPU kernel's emit_fentry: each thread stores its own elements of S
+// just before it advances them (step 8).
+template <typename E, bool kFentry, class Src>
 __device__ void ssd_head(const Src& src, float A_h, float dtb_h, int L, int reverse,
-                         unsigned char* smem_raw) {
+                         unsigned char* smem_raw, float* fe = nullptr, int fe_ld = 0) {
   constexpr int LD = SsdLd<E>::v;
   float* S = reinterpret_cast<float*>(smem_raw);  // [N][kSsdLdS]
   float* dtp = S + kSsdN * kSsdLdS;               // [T] dt'
@@ -235,51 +296,10 @@ __device__ void ssd_head(const Src& src, float A_h, float dtb_h, int L, int reve
   float acc[4][16];
   for (int ci = 0; ci < nc; ++ci) {
     const int t0 = (reverse ? nc - 1 - ci : ci) * kSsdT;
-    // 1. dt' and the log-decays (warps 0-3, one step a thread: an inclusive
-    //    scan in each warp, then the warps' totals in order); the C and B tiles.
-    float la = 0.f, cum = 0.f, total = 0.f;
-    if (tid < kSsdT) {
-      const float d = softplus(src.dt(t0 + tid) + dtb_h);
-      la = d * al;
-      float v = la;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, o);
-        if ((tid & 31) >= o) v += u;
-      }
-      dtp[tid] = d;
-      into_e[tid] = v;  // the in-warp prefix, until step 1b
-    }
+    // 1. the C and B tiles; dt' and the decay vectors.
     fill_tile<E>(buf1, [&](int r, int c) { return src.c(t0 + r, c); });
     fill_tile<E>(buf2, [&](int r, int c) { return src.b(t0 + r, c); });
-    __syncthreads();
-    if (tid < kSsdT) {
-      const int w = tid >> 5;
-      float base = 0.f;
-#pragma unroll
-      for (int q = 0; q < kSsdT / 32; ++q) {
-        const float s = into_e[q * 32 + 31];
-        if (q < w) base += s;
-        total += s;
-      }
-      cum = base + into_e[tid];  // cum[T-1] == total, bit for bit
-    }
-    __syncthreads();
-    // 1b. the decay vectors
-    if (tid < kSsdT) {
-      if (!reverse) {
-        segb[tid] = cum;
-        into_e[tid] = exp2f(cum);
-        scale[tid] = exp2f(total - cum);
-      } else {
-        const float e = cum - la;
-        segb[tid] = -e;
-        into_e[tid] = exp2f(total - e);
-        scale[tid] = exp2f(e);
-      }
-      if (tid == 0) total_s[0] = total;
-    }
-    __syncthreads();
+    chunk_decays(src, t0, al, dtb_h, reverse, dtp, segb, into_e, scale, total_s);
 
     // 2. GBC = C @ B^T
     zero(acc);
@@ -322,12 +342,14 @@ __device__ void ssd_head(const Src& src, float A_h, float dtb_h, int L, int reve
     zero(acc);
     block_mm<true, false, float>(acc, tl, buf2, LD, buf1, LD);
     const float tot_e = exp2f(total_s[0]);
+    float* fec = kFentry ? fe + (long long)(t0 / kSsdT) * kSsdN * fe_ld : nullptr;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float* srow = S + tl.row(i) * kSsdLdS;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         float* sp = srow + tl.col(j);
+        if constexpr (kFentry) fec[(long long)tl.row(i) * fe_ld + tl.col(j)] = *sp;
         *sp = tot_e * *sp + acc[i][j];
       }
     }

@@ -24,14 +24,13 @@ Mixer paths:
   G=1, as the JAX package does;
 * Mamba-2 (:func:`mamba2_mixer`): five in-projections with ``torch.matmul``,
   kernel K5 (``ops.cuda_mixer2``: conv, SiLU, the SSD chunk scan, the gated
-  RMS norm) once per direction, out_proj. Inference only on the card: under
-  training the kernel route raises, and ``use_kernels=False`` differentiates
-  the plain versions.
+  RMS norm) once per direction, out_proj.
 
 Under training (grad enabled, and the input or a weight requiring it) the
 same paths go through autograd Functions: ``BimambaMixerFn`` (K2's residual
-variant, K3 in the backward) and ``SelectiveScanFn`` (K1 with chunk-entry
-states, K3).
+variant, K3 in the backward), ``SelectiveScanFn`` (K1 with chunk-entry
+states, K3) and ``Mamba2InteriorFn`` (K5's residual variant, K6 in
+``pre_silu`` mode in the backward).
 Under ``no_grad``/``inference_mode`` the inference kernels run. Weights are
 float32 master copies; compute runs in the forward's ``dtype`` with a
 float32 residual stream, as in the JAX package. On CPU tensors the kernel
@@ -52,7 +51,8 @@ from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.ops.conv import causal_conv1d
 from plantcaduceus_tpu_torch.ops.cuda_mixer import bimamba_mixer, bimamba_mixer_fused
 from plantcaduceus_tpu_torch.ops.cuda_mixer2 import (mamba2_mixer_interior,
-                                                     mamba2_mixer_interior_plain)
+                                                     mamba2_mixer_interior_plain,
+                                                     mamba2_mixer_interior_train)
 from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd, scan_fwd_plain, selective_scan
 from plantcaduceus_tpu_torch.ops.norms import layer_norm, rms_norm
 
@@ -304,17 +304,18 @@ def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfi
     in-projections, K5 (conv, SiLU, the SSD chunk scan, gated RMS norm; the
     reverse direction anticausal, with no flips), then out_proj. Tied
     in/out projections with the ``add`` combine sum the normed streams
-    before one out_proj. ``use_kernels=False`` runs K5's plain version on
-    any device, differentiated by autograd; the kernel route has no
-    gradient yet and raises under training."""
-    if use_kernels and _training(p, x):
-        raise NotImplementedError(
-            "Mamba-2 training through the CUDA kernels is the port's next slice (K5's "
-            "residual variant, K4's chunk-entry states and the SSD adjoint K6); "
-            "use_kernels=False differentiates the plain versions")
+    before one out_proj. Under training (grad enabled, and ``x`` or a
+    weight requiring it) the interior is ``cuda_mixer2.Mamba2InteriorFn``
+    (K5-res, then K6 in the backward). ``use_kernels=False`` runs K5's
+    plain version on any device, differentiated by autograd."""
     G = cfg.n_directions
     cdtype = x.dtype
-    interior = mamba2_mixer_interior if use_kernels else mamba2_mixer_interior_plain
+    if not use_kernels:
+        interior = mamba2_mixer_interior_plain
+    elif _training(p, x):
+        interior = mamba2_mixer_interior_train
+    else:
+        interior = mamba2_mixer_interior
 
     def proj(name, g):
         return x @ p[name][g].to(cdtype)

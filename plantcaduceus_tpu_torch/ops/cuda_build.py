@@ -21,7 +21,7 @@ from typing import Dict, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("scan_fwd", "mixer_fwd", "scan_bwd", "ssd_fwd", "mixer2_fwd")
+SOURCES = ("scan_fwd", "mixer_fwd", "scan_bwd", "ssd_fwd", "mixer2_fwd", "ssd_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

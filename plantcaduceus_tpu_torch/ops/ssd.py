@@ -111,10 +111,14 @@ def _mm(a: torch.Tensor, b: torch.Tensor, mm_dtype) -> torch.Tensor:
 
 
 def chunk_scan(xg, dtg, Ag, Bg, Cg, chunk: int, rev: bool,
-               mm_dtype=torch.float32) -> torch.Tensor:
+               mm_dtype=torch.float32, emit_fentry: bool = False):
     """One direction of the chunked SSD (JAX ``_chunk_group``). xg [B, L, H,
     P] float32, dtg [B, L, H] (softplus applied), Ag [H], Bg/Cg [B, L, NG,
-    N]. Returns y [B, L, H, P] float32 without the D-skip."""
+    N]. Returns y [B, L, H, P] float32 without the D-skip; with
+    ``emit_fentry`` also the float32 state each chunk starts from, in the
+    layout of the TPU kernel's ``emit_fentry`` output: ``[B, L/T, N, H*P]``
+    by chunk index (for ``rev``, the state that enters from the chunk's
+    end)."""
     B, L, H, P = xg.shape
     NG, N = Bg.shape[-2:]
     hg = H // NG
@@ -165,7 +169,10 @@ def chunk_scan(xg, dtg, Ag, Bg, Cg, chunk: int, rev: bool,
 
     y_inter = _mm(Ch[:, :, :, None], S_prev, mm_dtype) * torch.exp(into)[..., None]
     y = (y_intra + y_inter).permute(0, 1, 4, 2, 3, 5)                  # [B,nc,T,NG,hg,P]
-    return y.reshape(B, L, H, P)
+    y = y.reshape(B, L, H, P)
+    if emit_fentry:
+        return y, S_prev.permute(0, 1, 4, 2, 3, 5).reshape(B, nc, N, H * P)
+    return y
 
 
 def ssd_chunked(

@@ -2,7 +2,8 @@
 
 Counterpart of ``plantcaduceus_tpu.train.step`` without the mesh: the
 gradient of the globally normalised weighted MLM loss through the model's
-forward (K2's residual variant and K3 under autograd; remat per block),
+forward (Mamba-1: K2's residual variant and K3 under autograd; Mamba-2: K5's
+residual variant and K6; remat per block),
 gradient accumulation over microbatches, and the optimizer update. The
 data-, fsdp-, tensor-, sequence- and pipeline-parallel layouts are not
 ported yet (the CLI refuses them).

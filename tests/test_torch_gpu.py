@@ -395,8 +395,7 @@ def test_ssd_wrappers_reject_bad_input(cuda):
 def test_model2_forward_kernels_match_plain_path(cuda, overrides):
     """A 2-layer l20-ssd-width model (d_model 384, H 6, P = N = 128): logits
     through K5 against the plain path (fp32, 1e-3 of the logits' scale),
-    with one K5 launch per direction and layer; under grad the kernel route
-    raises."""
+    with one K5 launch per direction and layer."""
     from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
     from plantcaduceus_tpu_torch.models.config import CaduceusConfig
     from plantcaduceus_tpu_torch.ops import cuda_mixer2
@@ -412,6 +411,164 @@ def test_model2_forward_kernels_match_plain_path(cuda, overrides):
         want = model(ids, dtype=torch.float32, use_kernels=False)["logits"]
     assert launched == cfg.n_directions * cfg.n_layer
     _close_to_scale(got, want, 1e-3, "logits")
-    model.requires_grad_()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        model(ids, dtype=torch.float32)
+
+
+# -- Mamba-2 training: K4-fentry, K5-res and K6 (ssd_bwd) ------------------------------
+
+# float32 outputs computed by kernel and plain version from the same inputs
+# (K6's gradients, the entry states): only the order of sums differs.
+F32_TOL = 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_ssd_fentry_kernel_matches_plain(cuda, dtype, reverse):
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    args = _ssd_case(np.random.default_rng(21), cuda, dtype, H=4, NG=2)
+    before = cuda_ssd.ssd_dir.fentry_launches
+    y, fe = cuda_ssd.ssd_dir(*args, 128, reverse, emit_fentry=True)
+    torch.cuda.synchronize()
+    assert cuda_ssd.ssd_dir.fentry_launches == before + 1
+    y_p, fe_p = cuda_ssd.ssd_dir_plain(*args, 128, reverse, emit_fentry=True)
+    assert y.dtype == dtype and fe.dtype == torch.float32 and fe.shape == fe_p.shape
+    _close_to_scale(y, y_p, SSD_TOL[dtype], "y")
+    _close_to_scale(fe, fe_p, SSD_TOL[dtype] if dtype == torch.bfloat16 else F32_TOL, "fentry")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_mixer2_res_kernel_matches_plain(cuda, dtype, reverse):
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2
+
+    args, kw = _mixer2_case(np.random.default_rng(22), cuda, dtype)
+    before = cuda_mixer2.mamba2_mixer_interior.res_launches
+    got = cuda_mixer2.mamba2_mixer_interior(*args, **kw, reverse=reverse, emit_residuals=True)
+    torch.cuda.synchronize()
+    assert cuda_mixer2.mamba2_mixer_interior.res_launches == before + 1
+    want = cuda_mixer2.mamba2_mixer_interior_plain(*args, **kw, reverse=reverse,
+                                                   emit_residuals=True)
+    for name, g, w in zip(("u", "accx", "accB", "accC", "fentry", "y"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = SSD_TOL[dtype] if (dtype == torch.bfloat16 or name != "fentry") else F32_TOL
+        _close_to_scale(g, w, tol, name)
+
+
+def _ssd_bwd_case(rng, dev, dtype, pre_silu, reverse, NG=1):
+    """K6's arguments: _ssd_case's, the plain forward's entry states (from
+    SiLU of the accumulators in pre_silu mode) and a cotangent."""
+    import torch.nn.functional as F
+
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    x, dt, A, Bm, Cm, Ds, dtb = _ssd_case(rng, dev, dtype, H=2 * NG, NG=NG)
+    act = (lambda t: F.silu(t.float()).to(dtype)) if pre_silu else (lambda t: t)
+    _, fe = cuda_ssd.ssd_dir_plain(act(x), dt, A, act(Bm), act(Cm), Ds, dtb, 128, reverse,
+                                   emit_fentry=True)
+    g = _t(rng.standard_normal(tuple(x.shape)), dev, dtype)
+    return (x, dt, A, Bm, Cm, Ds, dtb, fe, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("pre_silu", [False, True])
+@pytest.mark.parametrize("ng", [1, 2])
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, reverse, pre_silu, ng):
+    """K6 in both modes against its plain version (ops/ssd_bwd.py), every
+    output: float32, 1e-3 of each output's scale; bfloat16 inputs, 2**-7
+    (both round the same product operands; an operand whose float32 value
+    lies near a rounding boundary can round the other way)."""
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    args = _ssd_bwd_case(np.random.default_rng(23 + ng), cuda, dtype, pre_silu, reverse, ng)
+    counter = "pre_silu_launches" if pre_silu else "launches"
+    before = getattr(cuda_ssd.ssd_dir_bwd, counter)
+    got = cuda_ssd.ssd_dir_bwd(*args, 128, reverse, pre_silu=pre_silu)
+    torch.cuda.synchronize()
+    assert getattr(cuda_ssd.ssd_dir_bwd, counter) == before + 1
+    want = cuda_ssd.ssd_dir_bwd_plain(*args, 128, reverse, pre_silu=pre_silu)
+    assert len(got) == len(want) == (7 if pre_silu else 5)
+    tol = F32_TOL if dtype == torch.float32 else SSD_TOL[dtype]
+    for name, g, w in zip(("dx", "dB", "dC", "ddt_raw", "dmass", "gx", "dtp"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        _close_to_scale(g, w, tol, name)
+
+
+def test_ssd_bwd_is_deterministic(cuda):
+    """Two launches of K6 give equal bits in both modes (no atomics: the
+    heads' partials are summed in head order)."""
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    for pre_silu in (False, True):
+        args = _ssd_bwd_case(np.random.default_rng(31), cuda, torch.bfloat16, pre_silu, True,
+                             NG=2)
+        a = cuda_ssd.ssd_dir_bwd(*args, 128, True, pre_silu=pre_silu)
+        b = cuda_ssd.ssd_dir_bwd(*args, 128, True, pre_silu=pre_silu)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_ssd_training_functions_match_plain_autograd(cuda):
+    """Mamba2InteriorFn (K5-res, K6 pre_silu) and SsdDirFn (K4-fentry, K6)
+    gradients of every input on the card against autograd through the plain
+    versions, float32, 1e-3 of each gradient's scale."""
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+
+    for reverse in (False, True):
+        args, kw = _mixer2_case(np.random.default_rng(41 + reverse), cuda, torch.float32)
+        ins = [t.requires_grad_() for t in args]
+        gw = _t(np.random.default_rng(5).standard_normal(tuple(args[0].shape)), cuda)
+        want = torch.autograd.grad((cuda_mixer2.mamba2_mixer_interior_plain(
+            *ins, **kw, reverse=reverse) * gw).sum(), ins)
+        before = (cuda_mixer2.mamba2_mixer_interior.res_launches,
+                  cuda_ssd.ssd_dir_bwd.pre_silu_launches)
+        got = torch.autograd.grad((cuda_mixer2.mamba2_mixer_interior_train(
+            *ins, **kw, reverse=reverse) * gw).sum(), ins)
+        assert (cuda_mixer2.mamba2_mixer_interior.res_launches - before[0],
+                cuda_ssd.ssd_dir_bwd.pre_silu_launches - before[1]) == (1, 1)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close_to_scale(g, w, F32_TOL, f"interior input {i}")
+
+        ins = [t.requires_grad_() for t in _ssd_case(np.random.default_rng(43 + reverse), cuda,
+                                                     torch.float32, H=4, NG=2)]
+        gw = _t(np.random.default_rng(6).standard_normal(tuple(ins[0].shape)), cuda)
+        want = torch.autograd.grad(
+            (cuda_ssd.ssd_dir_plain(*ins, 128, reverse) * gw).sum(), ins)
+        before = (cuda_ssd.ssd_dir.fentry_launches, cuda_ssd.ssd_dir_bwd.launches)
+        got = torch.autograd.grad((cuda_ssd.ssd_dir_train(*ins, 128, reverse) * gw).sum(), ins)
+        assert (cuda_ssd.ssd_dir.fentry_launches - before[0],
+                cuda_ssd.ssd_dir_bwd.launches - before[1]) == (1, 1)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close_to_scale(g, w, F32_TOL, f"ssd_dir input {i}")
+
+
+@pytest.mark.parametrize("overrides", [{}, dict(bidirectional_weight_tie=False, n_groups=2)],
+                         ids=["tied_add", "untied_ng2"])
+def test_model2_train_kernels_match_plain_path(cuda, overrides):
+    """One fp32 training step of a 2-layer l20-ssd-width model with layer 0
+    frozen: every trained parameter's gradient through K5-res and K6 against
+    the plain path (1e-3 of its max |grad|), with one K5-res and one K6
+    launch per direction and layer."""
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params, mlm_loss
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+
+    cfg = CaduceusConfig.preset("l20-ssd", n_layer=2, **overrides)
+    params = init_params(cfg, seed=5)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(7, 11, (2, 256))).to(cuda)
+    grads = {}
+    for use_kernels in (True, False):
+        model = Caduceus(cfg, params).requires_grad_().to(cuda)
+        model.layers[0].requires_grad_(False)
+        before = (cuda_mixer2.mamba2_mixer_interior.res_launches,
+                  cuda_ssd.ssd_dir_bwd.pre_silu_launches)
+        mlm_loss(model(ids, dtype=torch.float32, use_kernels=use_kernels)["logits"],
+                 ids).backward()
+        torch.cuda.synchronize()
+        n = cfg.n_directions * cfg.n_layer if use_kernels else 0
+        assert (cuda_mixer2.mamba2_mixer_interior.res_launches - before[0],
+                cuda_ssd.ssd_dir_bwd.pre_silu_launches - before[1]) == (n, n)
+        grads[use_kernels] = {k: p.grad for k, p in model.named_parameters()
+                              if p.grad is not None}
+    assert grads[True].keys() == grads[False].keys() and "embedding" in grads[False]
+    for k, w in grads[False].items():
+        _close_to_scale(grads[True][k], w, 1e-3, k)

@@ -152,14 +152,20 @@ def test_strict_import_rejects_transposed_tensor(exported, tmp_path):
 
 
 def test_mamba2_is_refused():
-    """Mamba-2 models build and score (tests/test_torch_model2.py); their
-    export waits for Mamba-2 pre-training and is refused."""
+    """The export refused Mamba-2 models until their pre-training was
+    ported; it now takes them and writes mamba_ssm ``Mamba2``'s packing
+    (values held to JAX's export in tests/test_torch_train2.py): one in_proj
+    [z | x | B | C | dt] and one conv over [x | B | C] per direction."""
     from plantcaduceus_tpu_torch.compat.hf_export import export_state_dict as port_export
 
     cfg = CaduceusConfig(**dict(BASE, ssm_variant="mamba2", d_state=16, head_dim=16))
     params = tcad.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="Mamba-1"):
-        port_export(params, cfg)
+    sd = port_export(params, cfg)
+    m = "caduceus.backbone.layers.0.mixer.submodule.mamba_fwd"
+    di, NGN, H = cfg.d_inner, cfg.n_groups * cfg.d_state, cfg.n_heads
+    assert sd[f"{m}.in_proj.weight"].shape == (2 * di + 2 * NGN + H, cfg.d_model)
+    assert sd[f"{m}.conv1d.weight"].shape == (di + 2 * NGN, 1, cfg.d_conv)
+    assert not any(".x_proj." in k for k in sd)
 
 
 def test_bf16_forward_close_to_fp32(rng):
