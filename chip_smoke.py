@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from ``plantcaduceus_tpu_torch/csrc`` and drives the
 port's paths on the card, zero-shot scoring and masked-LM pre-training with
-the l20 model and with its Mamba-2 (SSD) variant l20-ssd:
+the l20 model and with its Mamba-2 (SSD) variant l20-ssd, and the forward
+and training of the ALiBi attention baseline:
 
 1. the card: name, power limit, count;
 2. build the kernels (one nvcc per source, in parallel);
@@ -59,7 +60,29 @@ and the Mamba-2 pre-training path with l20-ssd:
     (K4-fentry, K6 plain mode) against autograd through K4's plain version;
 9b. phase 9 with ``--preset l20-ssd``: 30 steps, launch counts, the exact
     resume from step 15, the export scored;
-10b. device time by kernel over one l20-ssd training step.
+10b. device time by kernel over one l20-ssd training step;
+
+and the attention baseline, BERT at MosaicBERT-Base width and depth
+(d_model 768, 12 layers, 12 heads of 64, GLU FFN 3072, ALiBi, post-norm,
+tied MLM head; vocab 16, 512-bp windows, seeded weights):
+
+3e. K7 (``flash_fwd``) and K8 (``flash_bwd``) against their plain versions
+    in four bias cases (symmetric ALiBi, causal, window 128, ALiBi + window
+    128), fp32 and bf16: K7 at the forward shape (128 windows x 512, H 12,
+    hd 64) and both at the training shape (32 windows); the ALiBi case
+    timed beside the plain version and ``scaled_dot_product_attention``
+    with the ALiBi bias materialised (the library yardstick, never on the
+    path); one bf16 timing row at L 8192 (one window);
+4c. the BERT-Base forward at batch 128, fp32, K7 against the einsum path;
+    K7 launches = 12;
+6c. the steady bf16 forward rate at batch 128, model resident;
+8c. one fp32 ``mlm_loss`` gradient at BERT-Base width, 2 layers, batch 8,
+    K7/K8 against autograd through the einsum path;
+9c. 30 bf16 training steps at full depth, batch 32, fp32 master weights,
+    the port's AdamW: the loss falls; ms per step, tokens/s, peak memory;
+    K7 and K8 12 launches per step;
+10c. device time by kernel over one bf16 forward batch and one training
+    step.
 
 Inputs and outputs of phases 6, 9 and 9b go to ``build/chip_smoke/`` in the
 checkout.
@@ -415,8 +438,10 @@ def ssd_work(R, L, H, NG, s, K=4, mixer=False):
     return nbytes, ew, sfu, prod
 
 
-def ssd_bound(work, dtype_name):
-    """bf16: the products on the tensor cores; fp32: on the fp32 cores."""
+def work_bound(work, dtype_name):
+    """The bound of ``(bytes, fp32 elementwise flops, SFU ops, product
+    flops)``: in bf16 the products run on the tensor cores, in fp32 on the
+    fp32 cores."""
     nbytes, ew, sfu, prod = work
     if dtype_name == "bfloat16":
         return bound_ms(nbytes, ew, sfu, tc_flops=prod)
@@ -500,7 +525,7 @@ def phase_ssd_kernels(dev):
             args = make(1)
             res[name]["ms"][dn] = time_ms(lambda: kern(args, True), 10)
             res[name]["plain_ms"][dn] = time_ms(lambda: plain(args, True), 2, warmup=1)
-            res[name]["bound"][dn] = ssd_bound(
+            res[name]["bound"][dn] = work_bound(
                 ssd_work(rows, L, cfg.n_heads, cfg.n_groups, dtype.itemsize, mixer=mixer), dn)
     for name, r in res.items():
         for dn in r["ms"]:
@@ -532,7 +557,7 @@ def phase_ssd_kernels(dev):
         torch.cuda.synchronize()
         compare(f"{name} bfloat16 rev at pc2-small-ssd width", got, want, "bfloat16")
         del got, want
-        b, by, parts = ssd_bound(ssd_work(prow, pL, pcfg.n_heads, pcfg.n_groups, 2,
+        b, by, parts = work_bound(ssd_work(prow, pL, pcfg.n_heads, pcfg.n_groups, 2,
                                           mixer=mixer), "bfloat16")
         res[name]["pc2_small_ssd"] = dict(
             ms=time_ms(lambda: kern(args, True), 5),
@@ -639,7 +664,7 @@ def phase_ssd_train_kernels(dev):
         for name, (kern, plain) in calls.items():
             res[name]["ms"][dn] = time_ms(kern, 10)
             res[name]["plain_ms"][dn] = time_ms(plain, 2, warmup=1)
-            res[name]["bound"][dn] = ssd_bound(ssd_train_work(rows, L, H, NG, s, name), dn)
+            res[name]["bound"][dn] = work_bound(ssd_train_work(rows, L, H, NG, s, name), dn)
         del calls, mixer, ssd, g
         torch.cuda.empty_cache()
     for name, r in res.items():
@@ -654,7 +679,8 @@ def phase_ssd_train_kernels(dev):
 
 def _counters():
     """Each kernel's name in the kernels line -> (wrapper, counter attribute)."""
-    from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_mixer2, cuda_scan, cuda_ssd
+    from plantcaduceus_tpu_torch.ops import (cuda_attention, cuda_mixer, cuda_mixer2, cuda_scan,
+                                             cuda_ssd)
 
     return {"mixer_fwd": (cuda_mixer.mixer_fwd, "launches"),
             "mixer_fwd_res": (cuda_mixer.mixer_fwd, "res_launches"),
@@ -666,7 +692,9 @@ def _counters():
             "mixer2_fwd": (cuda_mixer2.mamba2_mixer_interior, "launches"),
             "mixer2_fwd_res": (cuda_mixer2.mamba2_mixer_interior, "res_launches"),
             "ssd_bwd": (cuda_ssd.ssd_dir_bwd, "launches"),
-            "ssd_bwd_pre_silu": (cuda_ssd.ssd_dir_bwd, "pre_silu_launches")}
+            "ssd_bwd_pre_silu": (cuda_ssd.ssd_dir_bwd, "pre_silu_launches"),
+            "attn_fwd": (cuda_attention.flash_fwd, "launches"),
+            "attn_bwd": (cuda_attention.flash_bwd, "launches")}
 
 
 def reset_counts():
@@ -1286,6 +1314,364 @@ def phase_train_profile(preset, dev):
     report_profile(prof, wall, 14)
 
 
+# ---------------------------------------------------------------------------
+# The attention baseline: BERT-Base width (mosaicml/mosaic-bert-base: hidden
+# 768, 12 layers, 12 heads of 64, intermediate 3072 with a GLU, ALiBi,
+# post-norm, tied MLM head), vocab 16, 512-bp windows.
+
+BERT_BASE = dict(vocab_size=16, d_model=768, n_layer=12, n_heads=12, ffn_mult=4, glu=True,
+                 position="alibi")
+# K7/K8 cases: symmetric ALiBi (the model's), causal, window 128, ALiBi +
+# window 128.
+ATTN_CASES = {"alibi": dict(alibi=True), "causal": dict(causal=True),
+              "window128": dict(window=128), "alibi_window128": dict(alibi=True, window=128)}
+ATTN_TILE = 64  # the kernels' query and key tiles (kAttnTile in csrc/attn_core.cuh)
+BERT_L = 512                    # the windows' length
+BERT_BATCH = (128, 32, 8)       # windows per batch: forward, training, fp32 gradient (8c)
+BERT_STEPS = 30                 # training steps of phase 9c
+LONG_L = 8192                   # PlantCAD2's context: phase 3e's timing row
+
+
+def attn_pairs(L, causal=False, window=None):
+    """(query, key) pairs in the 64 x 64 tiles K7 and K8 compute for one
+    (batch row, head): each query tile's key tiles within its span."""
+    n = 0
+    for q0 in range(0, L, ATTN_TILE):
+        q1 = min(q0 + ATTN_TILE, L) - 1
+        lo, hi = 0, L - 1
+        if window is not None:
+            lo, hi = max(0, q0 - window), min(hi, q1 + window)
+        if causal:
+            hi = min(hi, q1)
+        n += (q1 - q0 + 1) * (min((hi // ATTN_TILE + 1) * ATTN_TILE, L)
+                              - lo // ATTN_TILE * ATTN_TILE)
+    return n
+
+
+def attn_work(B, L, H, hd, s, kernel, causal=False, window=None):
+    """What K7 (``attn_fwd``) or K8 (``attn_bwd``) must do, counted from the
+    shapes over the tiles it computes: bytes (q, k, v read and o written;
+    K8: q, k, v, o, do read and dq, dk, dv written; lse in float32), fp32
+    elementwise flops (~8 per score: scale, bias, max, the exp's argument,
+    the sum; K8 ~10), one exp per score on the SFU, and the products' flops
+    (K7: q k^T and p v; K8: s, dp, dv, dk and dq, five products)."""
+    pairs = B * H * attn_pairs(L, causal, window)
+    rows = B * L * H
+    if kernel == "attn_fwd":
+        return 4 * rows * hd * s + 4 * rows, 8 * pairs, pairs, 2 * 2 * pairs * hd
+    return 8 * rows * hd * s + 4 * rows, 10 * pairs, pairs, 5 * 2 * pairs * hd
+
+
+def attn_inputs(B, L, H, hd, dtype, dev, gen):
+    import torch
+
+    return [torch.randn((B, L, H, hd), generator=gen, device=dev).to(dtype) for _ in range(4)]
+
+
+def sdpa_fn(q, k, v, bias, grad):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the same inputs with the ALiBi bias materialised as an ``attn_mask`` [H,
+    L, L] in the input dtype; with ``grad``, a closure timing its autograd
+    backward."""
+    import torch
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.detach().transpose(1, 2).requires_grad_(grad) for t in (q, k, v))
+    if not grad:
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+    g = torch.randn_like(out)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+
+
+def phase_attn_kernels(dev):
+    """K7 and K8 against their plain versions in four bias cases, fp32 and
+    bf16: K7 at the forward shape (128 x 512, H 12, hd 64) and both at the
+    training shape (32 x 512); the ALiBi case timed beside the plain version
+    and SDPA; one bf16 timing row at L 8192 (B 1)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.ops import cuda_attention as ca
+    from plantcaduceus_tpu_torch.ops import flash_plain as fp
+    from plantcaduceus_tpu_torch.ops.attention import alibi_bias, alibi_slopes
+
+    H, hd, L = BERT_BASE["n_heads"], BERT_BASE["d_model"] // BERT_BASE["n_heads"], BERT_L
+    fwd_b, train_b = BERT_BATCH[:2]
+    log(f"phase 3e: attention kernels vs plain versions (H {H}, hd {hd}, L {L}; forward "
+        f"{fwd_b} windows, training {train_b})")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    slopes = alibi_slopes(H, dev)
+    res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "library_ms": {}, "bound": {}}
+           for k in ("attn_fwd", "attn_fwd_train", "attn_bwd")}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for B, kern in ((fwd_b, "attn_fwd"), (train_b, "attn_fwd_train")):
+            q, k, v, do = attn_inputs(B, L, H, hd, dtype, dev, gen)
+            for case, kw in ATTN_CASES.items():
+                kw = dict(kw)
+                sl = slopes if kw.pop("alibi", False) else None
+                o, lse = ca.flash_fwd(q, k, v, sl, **kw)
+                o_w, lse_w = fp.flash_fwd_plain(q, k, v, sl, **kw)
+                torch.cuda.synchronize()
+                err = compare(f"K7 {case} {dn} B {B} o", o, o_w, dn)
+                compare(f"K7 {case} {dn} B {B} lse", lse, lse_w, dn, tol=F32_TOL)
+                res[kern]["err"] = max(res[kern]["err"], err)
+                if kern == "attn_fwd_train":
+                    got = ca.flash_bwd(q, k, v, o, do, lse, sl, **kw)
+                    want = fp.flash_bwd_plain(q, k, v, o, do, lse, sl, **kw)
+                    torch.cuda.synchronize()
+                    for n, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                        res["attn_bwd"]["err"] = max(res["attn_bwd"]["err"], compare(
+                            f"K8 {case} {dn} B {B} {n}", g_, w_, dn))
+                    del got, want
+                del o_w, lse_w
+            # timings, ALiBi (the model's case)
+            o, lse = ca.flash_fwd(q, k, v, slopes)
+            bias = alibi_bias(H, L, dev).to(dtype)
+            r = res[kern]
+            r["ms"][dn] = time_ms(lambda: ca.flash_fwd(q, k, v, slopes), 10)
+            r["plain_ms"][dn] = time_ms(lambda: fp.flash_fwd_plain(q, k, v, slopes), 2,
+                                        warmup=1)
+            r["library_ms"][dn] = time_ms(sdpa_fn(q, k, v, bias, False), 10)
+            r["bound"][dn] = work_bound(attn_work(B, L, H, hd, dtype.itemsize, "attn_fwd"), dn)
+            if kern == "attn_fwd_train":
+                r = res["attn_bwd"]
+                r["ms"][dn] = time_ms(lambda: ca.flash_bwd(q, k, v, o, do, lse, slopes), 10)
+                r["plain_ms"][dn] = time_ms(
+                    lambda: fp.flash_bwd_plain(q, k, v, o, do, lse, slopes), 2, warmup=1)
+                r["library_ms"][dn] = time_ms(sdpa_fn(q, k, v, bias, True), 10)
+                r["bound"][dn] = work_bound(attn_work(B, L, H, hd, dtype.itemsize, "attn_bwd"),
+                                            dn)
+            # the other cases' K7 times (forward shape), for the log
+            if kern == "attn_fwd":
+                for case in ("causal", "window128"):
+                    kw = ATTN_CASES[case]
+                    t_ = time_ms(lambda: ca.flash_fwd(q, k, v, None, **kw), 10)
+                    b_ = work_bound(attn_work(B, L, H, hd, dtype.itemsize, "attn_fwd",
+                                              kw.get("causal", False), kw.get("window")), dn)
+                    log(f"  K7 {case} {dn} B {B}: {t_:.3f} ms; bound {b_[0]:.3f} ms by {b_[1]}")
+            del q, k, v, do, o, lse, bias
+            torch.cuda.empty_cache()
+    for name, r in res.items():
+        for dn in r["ms"]:
+            b, by, parts = r["bound"][dn]
+            log(f"  {name} ({dn}, ALiBi): {r['ms'][dn]:.3f} ms; plain {r['plain_ms'][dn]:.2f} "
+                f"ms; SDPA {r['library_ms'][dn]:.3f} ms; bound {b:.3f} ms by {by} (bytes "
+                f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, sfu "
+                f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)")
+
+    # PlantCAD2's context: L 8192, one window, ALiBi, bf16
+    B8, L8 = 1, LONG_L
+    q, k, v, _ = attn_inputs(B8, L8, H, hd, torch.bfloat16, dev, gen)
+    o, _ = ca.flash_fwd(q, k, v, slopes)
+    o_w, _ = fp.flash_fwd_plain(q, k, v, slopes)
+    torch.cuda.synchronize()
+    compare(f"K7 alibi bfloat16 L {L8} o", o, o_w, "bfloat16")
+    del o_w
+    bias = alibi_bias(H, L8, dev).to(torch.bfloat16)
+    b, by, _ = work_bound(attn_work(B8, L8, H, hd, 2, "attn_fwd"), "bfloat16")
+    res["attn_fwd"]["l8192"] = dict(
+        ms=time_ms(lambda: ca.flash_fwd(q, k, v, slopes), 5),
+        plain_ms=time_ms(lambda: fp.flash_fwd_plain(q, k, v, slopes), 1, warmup=1),
+        library_ms=time_ms(sdpa_fn(q, k, v, bias, False), 5), bound_ms=b, bound_by=by)
+    r = res["attn_fwd"]["l8192"]
+    log(f"  attn_fwd (bfloat16, ALiBi, {B8} x {L8}, H {H}): {r['ms']:.3f} ms; plain "
+        f"{r['plain_ms']:.1f} ms; SDPA with a {bias.numel() * 2 / 1e9:.2f} GB bias "
+        f"{r['library_ms']:.3f} ms; bound {b:.3f} ms by {by}")
+    del q, k, v, o, bias
+    torch.cuda.empty_cache()
+    return res
+
+
+def bert_base(dev, n_layer=None, seed=0):
+    from plantcaduceus_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(**dict(BERT_BASE, **({"n_layer": n_layer} if n_layer else {})))
+    return cfg, bert.build(cfg, seed=seed, device=dev)
+
+
+def phase_bert_forward(dev):
+    """The BERT-Base forward at batch 128 x 512, fp32, K7 against the
+    einsum path (4c); the steady bf16 forward rate, model resident (6c)."""
+    import torch
+
+    bs = BERT_BATCH[0]
+    log(f"phase 4c: BERT-Base forward, kernels vs plain path (fp32, batch {bs} x {BERT_L} bp)")
+    cfg, model = bert_base(dev)
+    model.eval()
+    gen = torch.Generator(device=dev).manual_seed(43)
+    ids = torch.randint(7, 11, (bs, BERT_L), generator=gen, device=dev)
+    with torch.inference_mode():
+        reset_counts()
+        got = model(ids, dtype=torch.float32)["logits"]
+        torch.cuda.synchronize()
+        c = counts()
+        want = model(ids, dtype=torch.float32, use_kernels=False)["logits"]
+        torch.cuda.synchronize()
+    if c != only(attn_fwd=cfg.n_layer):
+        fail(f"BERT forward launched {c}; expected attn_fwd={cfg.n_layer} only")
+    d = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"  logits {tuple(got.shape)}: max_abs_err={d:.3e} (max |logit| {scale:.3e}, "
+        f"tol {FORWARD_TOL:.0e} rel); launches {dict((k, v) for k, v in c.items() if v)}")
+    if not (torch.isfinite(got).all() and d <= FORWARD_TOL * scale):
+        fail("BERT forward with kernels disagrees with the plain path")
+    del got, want
+
+    log(f"phase 6c: BERT-Base steady-state forward rate (bf16, batch {bs} x {BERT_L} bp)")
+    batches = [torch.randint(7, 11, (bs, BERT_L), generator=gen, device=dev) for _ in range(12)]
+    with torch.inference_mode():
+        model(batches[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        outs = [model(b)["logits"] for b in batches]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        c = counts()
+    if c != only(attn_fwd=cfg.n_layer * len(batches)):
+        fail(f"BERT steady forward launched {c}")
+    if not all(torch.isfinite(o).all() for o in outs):
+        fail("bf16 BERT forward produced non-finite logits")
+    wps = bs * len(batches) / secs
+    log(f"  {wps:.1f} windows/s ({len(batches)} batches of {bs}, {secs * 1e3 / len(batches):.2f} "
+        f"ms per batch, bf16, model resident); K7 launches {c['attn_fwd']}")
+    return wps, c["attn_fwd"]
+
+
+def mlm_batches(bs, n, seed):
+    """``n`` seeded masked-LM batches of ``bs`` synthetic 512-bp windows (15%
+    of positions masked, the port's collator)."""
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.train import data as data_lib
+
+    seqs = data_lib.sequence_source("synthetic", window=BERT_L, synthetic_n=max(bs * n, 16),
+                                    seed=seed)
+    ds = data_lib.PretrainDataset(seqs, DnaTokenizer(), bs, seed=seed)
+    return [ds.batch_at(i) for i in range(n)]
+
+
+def phase_bert_grads(dev):
+    """One fp32 mlm_loss gradient through BERT-Base width at 2 layers, batch
+    8 x 512: K7/K8 against autograd through the einsum path (8c)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.caduceus import mlm_loss
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    bs = BERT_BATCH[2]
+    log(f"phase 8c: one fp32 mlm_loss gradient, BERT-Base width, 2 layers, batch {bs} x "
+        f"{BERT_L} bp, kernels vs plain path")
+    batch = to_device(mlm_batches(bs, 1, 45)[0], dev)
+    grads = {}
+    for use_kernels in (True, False):
+        cfg, model = bert_base(dev, n_layer=2, seed=46)
+        model.requires_grad_()
+        reset_counts()
+        logits = model(batch["input_ids"], dtype=torch.float32, use_kernels=use_kernels)
+        mlm_loss(logits["logits"], batch["labels"], batch["loss_weights"]).backward()
+        torch.cuda.synchronize()
+        c = counts()
+        want = only(attn_fwd=2, attn_bwd=2) if use_kernels else only()
+        if c != want:
+            fail(f"phase 8c (kernels={use_kernels}) launched {c}; expected {want}")
+        grads[use_kernels] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    worst, worst_name = grads_agree("phase 8c", grads[True], grads[False])
+    log(f"  {len(grads[False])} parameter gradients, worst {worst_name} at {worst:.3e} of its "
+        f"max |grad| (tol {GRAD_TOL:.0e}); launches K7 2, K8 2")
+
+
+def bert_trainer(dev, seed):
+    """BERT-Base at full depth, trainable, with the port's AdamW (lr 5e-4,
+    warmup 5): ``(cfg, model, step)``, where ``step(batch)`` runs one bf16
+    step with fp32 master weights and returns the loss on the host."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.caduceus import mlm_loss
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    cfg, model = bert_base(dev, seed=seed)
+    model.requires_grad_()
+    params = dict(model.named_parameters())
+    opt = make_optimizer(learning_rate=5e-4, warmup_steps=5, total_steps=BERT_STEPS,
+                         params=params)
+    state = opt.init(params)
+
+    def step(b):
+        for p in params.values():
+            p.grad = None
+        loss = mlm_loss(model(b["input_ids"], dtype=torch.bfloat16)["logits"], b["labels"],
+                        b["loss_weights"])
+        loss.backward()
+        opt.update({n: p.grad for n, p in params.items()}, state, params)
+        return float(loss.detach())
+
+    return cfg, model, step
+
+
+def phase_bert_train(dev):
+    """30 bf16 training steps of BERT-Base (full depth, batch 32 x 512, fp32
+    master weights, the port's AdamW), built from the port's pieces (9c)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    steps, bs, L = BERT_STEPS, BERT_BATCH[1], BERT_L
+    log(f"phase 9c: BERT-Base pre-training steps (bf16, fp32 master weights, AdamW, batch "
+        f"{bs} x {L} bp, {steps} steps)")
+    cfg, _, step = bert_trainer(dev, 47)
+    batches = [to_device(b, dev) for b in mlm_batches(bs, steps, 48)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, times = [], [time.perf_counter()]
+    for b in batches:
+        losses.append(step(b))
+        times.append(time.perf_counter())
+    c = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = only(attn_fwd=steps * cfg.n_layer, attn_bwd=steps * cfg.n_layer)
+    if c != want:
+        fail(f"phase 9c launched {c}; expected {want}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 9c: loss did not fall ({losses})")
+    step_s = (times[-1] - times[10]) / (steps - 10)
+    tps = bs * L / step_s
+    log(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}; steady (steps 11-{steps}) "
+        f"{step_s * 1e3:.2f} ms per step, {tps:.1f} tokens/s; peak memory allocated {peak} "
+        f"bytes ({peak / 2**30:.2f} GiB); launches per step K7 {cfg.n_layer}, K8 {cfg.n_layer}")
+    return c, tps, step_s, peak
+
+
+def phase_bert_profile(dev):
+    """Device time by kernel over one bf16 forward batch (128 x 512) and one
+    training step (32 x 512) of BERT-Base (10c)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    log(f"phase 10c: profile one BERT-Base bf16 forward batch ({BERT_BATCH[0]} x {BERT_L}) "
+        f"and one training step ({BERT_BATCH[1]} x {BERT_L}) (torch.profiler)")
+    _, model, step = bert_trainer(dev, 49)
+    ids = torch.randint(7, 11, (BERT_BATCH[0], BERT_L), device=dev)
+    batches = [to_device(b, dev) for b in mlm_batches(BERT_BATCH[1], 2, 50)]
+    for label, warm, run, top in (
+            ("forward batch", lambda: model(ids), lambda: model(ids), 8),
+            ("training step", lambda: step(batches[0]), lambda: step(batches[1]), 12)):
+        with torch.inference_mode(label == "forward batch"):
+            warm()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+        log(f"  {label}:")
+        report_profile(prof, wall, top)
+
+
 def main():
     import torch
 
@@ -1321,11 +1707,20 @@ def main():
     tc2, tps2, step_s2, peak2 = phase_pretrain("l20-ssd", dev, tsv, n_valid)
     phase_train_profile("l20", dev)
     phase_train_profile("l20-ssd", dev)
+    # the attention baseline last, so the earlier phases run as before it
+    torch.cuda.empty_cache()
+    ares = phase_attn_kernels(dev)
+    bwps, k7_fwd_launches = phase_bert_forward(dev)
+    phase_bert_grads(dev)
+    btc, btps, bstep_s, bpeak = phase_bert_train(dev)
+    phase_bert_profile(dev)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
         f"{step_s * 1e3:.2f} ms per step, peak {peak} bytes; l20-ssd {tps2:.1f} tokens/s, "
-        f"{step_s2 * 1e3:.2f} ms per step, peak {peak2} bytes")
+        f"{step_s2 * 1e3:.2f} ms per step, peak {peak2} bytes; BERT-Base forward {bwps:.1f} "
+        f"windows/s, training {btps:.1f} tokens/s, {bstep_s * 1e3:.2f} ms per step, peak "
+        f"{bpeak} bytes")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
@@ -1384,6 +1779,32 @@ def main():
                                          bound_ms=b32, bound_by=by32),
                             **({"pc2_small_ssd": r["pc2_small_ssd"]}
                                if "pc2_small_ssd" in r else {})))
+    # K7 and K8: bf16 ALiBi in the contract's keys (K7 at the forward shape,
+    # 128 x 512; K8 at the training shape, 32 x 512), fp32 beside; launches
+    # from phase 9c's 30 training steps.
+    for name, replaces, also in (("attn_fwd", ":63", {}), ("attn_bwd", ":103",
+                                                         {"also_replaces": ":135"})):
+        r = ares[name]
+        b, by, _ = r["bound"]["bfloat16"]
+        b32, by32, _ = r["bound"]["float32"]
+        extra = {}
+        if name == "attn_fwd":
+            t = ares["attn_fwd_train"]
+            extra = dict(forward_launches=k7_fwd_launches, l8192=r["l8192"], training_shape={
+                dn: dict(ms=t["ms"][dn], plain_ms=t["plain_ms"][dn],
+                         library_ms=t["library_ms"][dn], bound_ms=t["bound"][dn][0])
+                for dn in t["ms"]})
+        kernels.append(dict(
+            name=name, route="cuda", source=src + f"{name}.cu",
+            replaces="plantcaduceus_tpu/ops/pallas_attention.py" + replaces,
+            launches=btc[name], ms=r["ms"]["bfloat16"],
+            max_abs_err=max(r["err"], ares["attn_fwd_train"]["err"] if name == "attn_fwd" else 0),
+            plain_ms=r["plain_ms"]["bfloat16"], bound_ms=b, bound_by=by,
+            library_ms=r["library_ms"]["bfloat16"],
+            float32=dict(ms=r["ms"]["float32"], plain_ms=r["plain_ms"]["float32"],
+                         library_ms=r["library_ms"]["float32"], bound_ms=b32, bound_by=by32),
+            **{k: "plantcaduceus_tpu/ops/pallas_attention.py" + v for k, v in also.items()},
+            **extra))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""Carry weights across from the JAX package's parameter pytree.
+"""Carry weights across from the JAX package's parameter pytrees.
 
-The pytree, given as numpy arrays, is
+The Caduceus pytree, given as numpy arrays, is
 ``{"embedding", "blocks": {leaf: [n_layer, ...]}, "norm_f_weight"[, "lm_head"]}``
 — the layout of ``plantcaduceus_tpu.models.caduceus.init_params`` and of
-``plantcaduceus_tpu.compat.hf_import.import_params``.
+``plantcaduceus_tpu.compat.hf_import.import_params``. The BERT baseline's
+is that of ``plantcaduceus_tpu.models.bert.init_params`` (the JAX package
+has no HF export for it, so the pytree is the crossing).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from plantcaduceus_tpu_torch.models import bert
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, layer_keys
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
@@ -19,6 +22,11 @@ def from_jax_params(params_np: dict, cfg: CaduceusConfig) -> Caduceus:
     """Build the port's model (on the CPU, float32) from the JAX pytree's
     numpy arrays, for either SSM variant. Raises on a missing leaf."""
     keys = layer_keys(cfg)
+    return Caduceus(cfg, _torch_pytree(params_np, keys))
+
+
+def _torch_pytree(params_np: dict, keys) -> dict:
+    """The pytree's arrays as float32 tensors; raises on a missing block leaf."""
     missing = [k for k in keys if k not in params_np["blocks"]]
     if missing:
         raise KeyError(f"parameter pytree lacks block leaves {missing}")
@@ -28,19 +36,38 @@ def from_jax_params(params_np: dict, cfg: CaduceusConfig) -> Caduceus:
 
     params = {k: conv(v) for k, v in params_np.items() if k != "blocks"}
     params["blocks"] = {k: conv(params_np["blocks"][k]) for k in keys}
-    return Caduceus(cfg, params)
+    return params
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy().copy()
 
 
 def to_jax_params(model: Caduceus) -> dict:
     """The inverse of :func:`from_jax_params`: the model's weights as the JAX
     pytree of float32 numpy arrays (block leaves stacked on n_layer)."""
-    def conv(t):
-        return t.detach().float().cpu().numpy().copy()
-
-    params = {"embedding": conv(model.embedding),
-              "blocks": {k: np.stack([conv(getattr(layer, k)) for layer in model.layers])
+    params = {"embedding": _numpy(model.embedding),
+              "blocks": {k: np.stack([_numpy(getattr(layer, k)) for layer in model.layers])
                          for k in layer_keys(model.cfg)},
-              "norm_f_weight": conv(model.norm_f_weight)}
+              "norm_f_weight": _numpy(model.norm_f_weight)}
     if model.lm_head is not None:
-        params["lm_head"] = conv(model.lm_head)
+        params["lm_head"] = _numpy(model.lm_head)
+    return params
+
+
+def bert_from_jax_params(params_np: dict, cfg: bert.BertConfig) -> bert.Bert:
+    """The port's BERT baseline (on the CPU, float32) from the JAX
+    ``bert.init_params`` pytree's numpy arrays. Raises on a missing leaf."""
+    missing = [k for k in bert.TOP_KEYS if k not in params_np]
+    if missing:
+        raise KeyError(f"parameter pytree lacks leaves {missing}")
+    return bert.Bert(cfg, _torch_pytree(params_np, bert.LAYER_KEYS))
+
+
+def bert_to_jax_params(model: bert.Bert) -> dict:
+    """The inverse of :func:`bert_from_jax_params`: the JAX pytree of float32
+    numpy arrays (block leaves stacked on n_layer)."""
+    params = {k: _numpy(getattr(model, k)) for k in bert.TOP_KEYS}
+    params["blocks"] = {k: np.stack([_numpy(getattr(layer, k)) for layer in model.layers])
+                        for k in bert.LAYER_KEYS}
     return params

@@ -1,0 +1,161 @@
+// K7 — flash attention forward with a structured bias (ALiBi, local window,
+// causal), any sequence length, head dim 32, 64 or 128.
+//
+// Replaces plantcaduceus_tpu/ops/pallas_attention.py::_fwd_kernel (:63,
+// with _block_bias :43; launched at :197 by _fwd, which flash_attention and
+// its custom VJP call): q, k, v [B, L, H, hd] -> o [B, L, H, hd] in q's
+// dtype and the row logsumexp lse [B*H, L] float32, the residual K8 reads.
+// The bias is rebuilt from indices (attn_core.cuh), never read.
+//
+// A block owns one (b*h, 64-query tile) and walks the key tiles that its
+// rows can see (all of them; with causal up to its last row; with a window
+// those within reach of its rows: the tiles it skips would add exactly 0),
+// with an online softmax: running max m, sum l and accumulator in float32
+// registers, rescaled by exp(m_old - m_new) at each tile, as the TPU kernel
+// does. At the end o = acc / l (l == 0 taken as 1, :97-99) and lse = m +
+// log(l). The TPU's 128-lane lse layout [BH, L, 128] is a layout only; here
+// it is [BH, L].
+//
+// What bounds it on an H100: in bf16 the bytes of q, k, v and o (0.40 GB at
+// the scoring shape 128 x 512, H 12, hd 64: 0.12 ms) beside the two products
+// on the tensor cores (103 GFLOP: 0.10 ms) and one exp per score on the SFU;
+// in float32 the products as FMA (1.5 ms at 67 TFLOP/s). This kernel reads
+// its fragments from shared memory with 32-bit loads and mma.sync, with no
+// copy/compute overlap; wgmma and TMA are the way to the bound.
+//
+// Plain C interface for ctypes; launches on the caller's stream, allocates
+// nothing and returns cudaGetLastError().
+
+#include "attn_core.cuh"
+
+namespace pc {
+
+struct AttnFwdArgs {
+  const void *q, *k, *v;
+  long long sb, sl, sh;  // strides of q, k and v (elements)
+  const float* slopes;   // [H]
+  void* o;               // [B, L, H, hd]
+  float* lse;            // [B*H, L]
+  int H;
+  AttnMask mask;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnFwdArgs a) {
+  constexpr int LD = AttnLd<T, HD>::v;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  T* sQ = reinterpret_cast<T*>(attn_smem);
+  T* sK = sQ + kAttnTile * LD;
+  T* sV = sK + kAttnTile * LD;
+  const AttnLane ln;
+  float* scratch = reinterpret_cast<float*>(sV + kAttnTile * LD) + ln.w * 16 * kAttnPLd;
+
+  const int L = a.mask.L;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * kAttnTile;
+  AttnMask mk = a.mask;
+  mk.slope = mk.use_slopes ? a.slopes[h] : 0.f;
+  const long long off = b * a.sb + h * a.sh;
+  const T* qb = static_cast<const T*>(a.q) + off;
+  const T* kb = static_cast<const T*>(a.k) + off;
+  const T* vb = static_cast<const T*>(a.v) + off;
+  attn_load<T, HD>(sQ, qb + q0 * a.sl, a.sl, L - q0);
+
+  int lo, hi;
+  mk.span(q0, min(q0 + kAttnTile, L) - 1, false, lo, hi);
+  float m[2] = {kAttnNeg, kAttnNeg}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+  attn_zero(acc);
+  for (int kt = lo / kAttnTile; kt <= hi / kAttnTile; ++kt) {
+    const int k0 = kt * kAttnTile;
+    __syncthreads();  // the previous tile's reads are done
+    attn_load<T, HD>(sK, kb + k0 * a.sl, a.sl, L - k0);
+    attn_load<T, HD>(sV, vb + k0 * a.sl, a.sl, L - k0);
+    __syncthreads();
+    float s[8][4];
+    attn_zero(s);
+    mm_rows<HD>(s, ln, sQ, sK);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + ln.row(r);
+      float mx = kAttnNeg;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[nt][2 * r + e];
+          v = mk.score(v, i, k0 + ln.col(nt, e));
+          mx = fmaxf(mx, v);
+        }
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      const float alpha = expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[nt][2 * r + e];
+          v = expf(v - m_new);
+          sum += v;
+        }
+      l[r] = l[r] * alpha + quad_sum(sum);
+      m[r] = m_new;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        acc[nd][2 * r] *= alpha;
+        acc[nd][2 * r + 1] *= alpha;
+      }
+    }
+    mm_scores<HD>(acc, ln, s, sV, scratch);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsafe = l[r] > 0.f ? l[r] : 1.f;
+    inv[r] = 1.f / lsafe;
+    const int i = q0 + ln.row(r);
+    if (ln.t == 0 && i < L) a.lse[(long long)bh * L + i] = m[r] + logf(lsafe);
+  }
+  const long long so = (long long)a.H * HD;
+  attn_store<T, HD>(static_cast<T*>(a.o) + (long long)b * L * so + h * HD, so, acc, ln, q0, L,
+                    inv);
+}
+
+template <typename T, int HD>
+cudaError_t launch_attn_fwd(const AttnFwdArgs& a, int B, cudaStream_t s) {
+  const size_t smem = attn_smem_bytes<T, HD>(3, 0);
+  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<T, HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.mask.L + kAttnTile - 1) / kAttnTile, B * a.H);
+  attn_fwd_kernel<T, HD><<<grid, kAttnThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_attn_fwd_hd(const AttnFwdArgs& a, int B, int hd, cudaStream_t s) {
+  switch (hd) {
+    case 32: return launch_attn_fwd<T, 32>(a, B, s);
+    case 64: return launch_attn_fwd<T, 64>(a, B, s);
+    case 128: return launch_attn_fwd<T, 128>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace pc
+
+// q, k, v share the strides (sb, sl, sh) and have a unit last stride, 16-byte
+// aligned rows; o is contiguous [B, L, H, hd], lse [B*H, L]; the wrapper
+// checks all of it. window < 0: no window.
+extern "C" int pc_attn_fwd(const void* q, const void* k, const void* v, long long sb,
+                           long long sl, long long sh, const float* slopes, void* o,
+                           float* lse, int B, int L, int H, int hd, int use_slopes,
+                           int symmetric, int causal, int window, float scale, int bf16,
+                           void* stream) {
+  pc::AttnFwdArgs a{q, k, v, sb, sl, sh, slopes, o, lse, H,
+                    pc::AttnMask{scale, 0.f, L, causal, window, use_slopes, symmetric}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return pc::launch_attn_fwd_hd<__nv_bfloat16>(a, B, hd, s);
+  return pc::launch_attn_fwd_hd<float>(a, B, hd, s);
+}

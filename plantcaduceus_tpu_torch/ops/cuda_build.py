@@ -21,7 +21,8 @@ from typing import Dict, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("scan_fwd", "mixer_fwd", "scan_bwd", "ssd_fwd", "mixer2_fwd", "ssd_bwd")
+SOURCES = ("scan_fwd", "mixer_fwd", "scan_bwd", "ssd_fwd", "mixer2_fwd", "ssd_bwd", "attn_fwd",
+           "attn_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -87,6 +88,24 @@ def load(name: str) -> ctypes.CDLL:
         lib.pc_error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib
     return lib
+
+
+def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with its entry point ``fn`` typed:
+    ``argtypes`` in, a CUDA error code out."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.restype = ctypes.c_int
+        f.argtypes = argtypes
+    return lib
+
+
+def require(cond: bool, what: str, msg: str) -> None:
+    """A wrapper's input check: raise ``ValueError`` on what the kernel
+    does not take."""
+    if not cond:
+        raise ValueError(f"{what}: {msg}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

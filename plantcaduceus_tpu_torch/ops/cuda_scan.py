@@ -44,23 +44,10 @@ def scan_fwd_plain(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w=None,
 scan_bwd_plain = scan_direction_bwd
 
 
-def _lib(name: str, fn: str, argtypes) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.restype = ctypes.c_int
-        f.argtypes = argtypes
-    return lib
-
-
+_require, _lib = cuda_build.require, cuda_build.bind
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = [_P] * 10 + [_I] * 9 + [_P]
 _BWD_ARGS = [_P] * 16 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P]
-
-
-def _require(cond: bool, what: str, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"{what}: {msg}")
 
 
 def _check_scan_args(what, x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, others=()):

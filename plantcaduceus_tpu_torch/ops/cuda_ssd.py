@@ -62,18 +62,7 @@ def check_kernel_shapes(what: str, L: Optional[int], H: int, P: int, NG: int, N:
         raise ValueError(f"{what}: n_groups {NG} does not divide n_heads {H}")
 
 
-def _require(cond: bool, what: str, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"{what}: {msg}")
-
-
-def _lib(name: str, fn: str, argtypes) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.restype = ctypes.c_int
-        f.argtypes = argtypes
-    return lib
+_require, _lib = cuda_build.require, cuda_build.bind
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -572,3 +572,119 @@ def test_model2_train_kernels_match_plain_path(cuda, overrides):
     assert grads[True].keys() == grads[False].keys() and "embedding" in grads[False]
     for k, w in grads[False].items():
         _close_to_scale(grads[True][k], w, 1e-3, k)
+
+
+# K7/K8 (flash attention) cases: ALiBi symmetric and asymmetric (the latter
+# with causal), causal, window 128, ALiBi + window 128.
+ATTN_CASES = {"alibi": dict(alibi=True), "causal": dict(causal=True),
+              "window128": dict(window=128), "alibi_window128": dict(alibi=True, window=128),
+              "alibi_asym": dict(alibi=True, causal=True, symmetric=False)}
+# bfloat16: the kernel rounds the score operand of p.v (and ds, p^T of the
+# backward products) to bf16 and the outputs to bf16: 2**-7 of the scale.
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+
+
+def _attn_case(rng, dev, dtype, case, B=2, L=200, H=3, hd=64):
+    from plantcaduceus_tpu_torch.ops.attention import alibi_slopes
+
+    q, k, v, do = (_t(rng.standard_normal((B, L, H, hd)), dev, dtype) for _ in range(4))
+    kw = dict(ATTN_CASES[case])
+    slopes = alibi_slopes(H, dev) if kw.pop("alibi", False) else None
+    return (q, k, v, slopes), do, kw
+
+
+@pytest.mark.parametrize("L", [256, 200])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attn_kernels_match_plain(cuda, case, dtype, hd, L):
+    """K7 (o, lse) and K8 (dq, dk, dv) against their plain versions; L 200
+    ends in a ragged tile."""
+    from plantcaduceus_tpu_torch.ops import cuda_attention, flash_plain
+
+    args, do, kw = _attn_case(np.random.default_rng(51), cuda, dtype, case, L=L, hd=hd)
+    before = (cuda_attention.flash_fwd.launches, cuda_attention.flash_bwd.launches)
+    o, lse = cuda_attention.flash_fwd(*args, **kw)
+    grads = cuda_attention.flash_bwd(*args[:3], o, do, lse, args[3], **kw)
+    torch.cuda.synchronize()
+    assert (cuda_attention.flash_fwd.launches - before[0],
+            cuda_attention.flash_bwd.launches - before[1]) == (1, 1)
+    o_w, lse_w = flash_plain.flash_fwd_plain(*args, **kw)
+    assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (2 * 3, L)
+    _close_to_scale(o, o_w, ATTN_TOL[dtype], "o")
+    _close_to_scale(lse, lse_w, 1e-5, "lse")
+    want = flash_plain.flash_bwd_plain(*args[:3], o, do, lse, args[3], **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        _close_to_scale(g, w, ATTN_TOL[dtype], name)
+
+
+def test_attn_bwd_is_deterministic(cuda):
+    """Two K8 launches give equal bits (no atomics), for a fused-qkv view."""
+    from plantcaduceus_tpu_torch.ops import cuda_attention
+
+    rng = np.random.default_rng(53)
+    qkv = _t(rng.standard_normal((2, 192, 3 * 4, 64)), cuda, torch.bfloat16)
+    q, k, v = qkv.split(4, dim=2)
+    slopes = torch.linspace(0.5, 0.01, 4, device=cuda)
+    o, lse = cuda_attention.flash_fwd(q, k, v, slopes, window=40)
+    do = torch.randn_like(o)
+    a = cuda_attention.flash_bwd(q, k, v, o, do, lse, slopes, window=40)
+    b = cuda_attention.flash_bwd(q, k, v, o, do, lse, slopes, window=40)
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+    # the strided views give what contiguous copies give
+    o2, _ = cuda_attention.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), slopes,
+                                     window=40)
+    assert torch.equal(o, o2)
+
+
+def test_attn_wrappers_reject_bad_input(cuda):
+    from plantcaduceus_tpu_torch.ops import cuda_attention
+
+    x = torch.zeros((1, 64, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        cuda_attention.flash_fwd(x, x, x)
+    x = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_attention.flash_fwd(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="strides"):
+        cuda_attention.flash_fwd(x, x.transpose(1, 2).contiguous().transpose(1, 2), x)
+    with pytest.raises(ValueError, match="slopes"):
+        cuda_attention.flash_fwd(x, x, x, torch.zeros(3, device=cuda))
+    o, lse = cuda_attention.flash_fwd(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_attention.flash_bwd(x, x, x, o, o.transpose(1, 2).contiguous().transpose(1, 2),
+                                 lse)
+
+
+@pytest.mark.parametrize("overrides", [{}, dict(position="rope", local_window=48)],
+                         ids=["alibi", "rope_window"])
+def test_bert_kernels_match_plain_path(cuda, overrides):
+    """A 2-layer BERT of MosaicBERT-Base width (d_model 768, 12 heads):
+    forward logits through K7 against the einsum path (fp32, 1e-4 of max
+    |logit|, one K7 launch per layer), and the mlm_loss gradients through
+    K7/K8 against autograd through the einsum path (1e-3 of each max
+    |grad|, one K8 launch per layer)."""
+    from plantcaduceus_tpu_torch.models import bert
+    from plantcaduceus_tpu_torch.models.caduceus import mlm_loss
+    from plantcaduceus_tpu_torch.ops import cuda_attention
+
+    cfg = bert.BertConfig(d_model=768, n_layer=2, n_heads=12, **overrides)
+    rng = np.random.default_rng(55)
+    ids = torch.from_numpy(rng.integers(7, 11, (2, 320))).to(cuda)
+    labels = torch.where(torch.from_numpy(rng.random((2, 320)) < 0.15).to(cuda), ids, -100)
+    params = bert.init_params(cfg, seed=6)
+    out, grads = {}, {}
+    for use_kernels in (True, False):
+        model = bert.build(cfg, params, device=cuda).requires_grad_()
+        before = (cuda_attention.flash_fwd.launches, cuda_attention.flash_bwd.launches)
+        out[use_kernels] = model(ids, dtype=torch.float32, use_kernels=use_kernels)["logits"]
+        mlm_loss(out[use_kernels], labels).backward()
+        torch.cuda.synchronize()
+        n = cfg.n_layer if use_kernels else 0
+        assert (cuda_attention.flash_fwd.launches - before[0],
+                cuda_attention.flash_bwd.launches - before[1]) == (n, n)
+        grads[use_kernels] = {k: p.grad for k, p in model.named_parameters()}
+    _close_to_scale(out[True], out[False], 1e-4, "logits")
+    for k, w in grads[False].items():
+        _close_to_scale(grads[True][k], w, 1e-3, k)
