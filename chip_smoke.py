@@ -72,7 +72,10 @@ tied MLM head; vocab 16, 512-bp windows, seeded weights):
     hd 64) and both at the training shape (32 windows); the ALiBi case
     timed beside the plain version and ``scaled_dot_product_attention``
     with the ALiBi bias materialised (the library yardstick, never on the
-    path); one bf16 timing row at L 8192 (one window);
+    path), K8's time split between its dq and dk/dv kernels; then hd 16 and
+    48 through ``flash_attention`` (zero-padded to 32 and 64) and hd 128
+    through both wrappers, fp32 and bf16, against the plain versions; one
+    bf16 timing row at L 8192 (one window);
 4c. the BERT-Base forward at batch 128, fp32, K7 against the einsum path;
     K7 launches = 12;
 6c. the steady bf16 forward rate at batch 128, model resident;
@@ -82,7 +85,7 @@ tied MLM head; vocab 16, 512-bp windows, seeded weights):
     the port's AdamW: the loss falls; ms per step, tokens/s, peak memory;
     K7 and K8 12 launches per step;
 10c. device time by kernel over one bf16 forward batch and one training
-    step.
+    step, with the host-to-device copies and host synchronisations in each.
 
 Inputs and outputs of phases 6, 9 and 9b go to ``build/chip_smoke/`` in the
 checkout.
@@ -949,7 +952,8 @@ def phase_profile(cfg, dev):
 
 
 def report_profile(prof, wall, top):
-    """Device time by kernel and the device's busy share of ``wall`` ms."""
+    """Device time by kernel, the device's busy share of ``wall`` ms, and
+    the host-to-device copies and host synchronisations in the window."""
     import torch
 
     # Kernel-level entries only: operator entries also carry their kernels'
@@ -961,7 +965,12 @@ def report_profile(prof, wall, top):
     if not kernels:
         log("  the profiler recorded no device time (not measured)")
         return
-    log(f"  wall {wall:.2f} ms; device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall)")
+    ev = prof.key_averages()
+    htod = sum(e.count for e in ev if e.key.startswith("Memcpy HtoD"))
+    syncs = sum(e.count for e in ev if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                                 "cudaEventSynchronize"))
+    log(f"  wall {wall:.2f} ms; device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall); "
+        f"host-to-device copies {htod}, host synchronisations {syncs}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4} {e.key[:90]}")
 
@@ -1384,6 +1393,70 @@ def sdpa_fn(q, k, v, bias, grad):
     return lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
 
 
+def device_ms_by_kernel(fn, iters=10):
+    """Device ms per launch by kernel name over ``iters`` calls of ``fn``
+    after one warm call (torch.profiler): each kernel's total over the
+    launches the profiler recorded, so a dropped record skews nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("<")[0].split("(")[0].split()[-1].split("::")[-1]:
+            e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+# Head dims beside the model's 64: 16 and 48 reach K7/K8 through
+# flash_attention zero-padded to 32 and 64; 128 is the widest instantiation.
+ATTN_PAD_HDS = (16, 48)
+ATTN_WIDE_HD = 128
+
+
+def attn_other_head_dims(dev, slopes, gen):
+    """K7 and K8 at the other head dims, fp32 and bf16, ALiBi, 8 x 512, H
+    12, against their plain versions: flash_attention (forward and
+    autograd) at hd 16 and 48, and both wrappers at hd 128. Every kernel
+    instantiation (hd 32, 64, 128) is then held on the card."""
+    import torch
+
+    from plantcaduceus_tpu_torch.ops import cuda_attention as ca
+    from plantcaduceus_tpu_torch.ops import flash_plain as fp
+
+    H, B, L = BERT_BASE["n_heads"], 8, BERT_L
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for hd in ATTN_PAD_HDS:
+            q, k, v, do = attn_inputs(B, L, H, hd, dtype, dev, gen)
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = ca.flash_attention(*ins, alibi_slopes=slopes)
+            grads = torch.autograd.grad(o, ins, do)
+            o_w, lse_w = fp.flash_fwd_plain(q, k, v, slopes)
+            want = fp.flash_bwd_plain(q, k, v, o_w, do, lse_w, slopes)
+            torch.cuda.synchronize()
+            if o.shape != q.shape or any(g.shape != q.shape for g in grads):
+                fail(f"flash_attention at hd {hd} returned {tuple(o.shape)}")
+            for n, g_, w_ in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_w, *want)):
+                compare(f"flash_attention hd {hd} {dn} {n}", g_, w_, dn)
+        hd = ATTN_WIDE_HD
+        q, k, v, do = attn_inputs(B, L, H, hd, dtype, dev, gen)
+        o, lse = ca.flash_fwd(q, k, v, slopes)
+        o_w, lse_w = fp.flash_fwd_plain(q, k, v, slopes)
+        got = ca.flash_bwd(q, k, v, o, do, lse, slopes)
+        want = fp.flash_bwd_plain(q, k, v, o, do, lse, slopes)
+        torch.cuda.synchronize()
+        compare(f"K7 alibi hd {hd} {dn} o", o, o_w, dn)
+        compare(f"K7 alibi hd {hd} {dn} lse", lse, lse_w, dn, tol=F32_TOL)
+        for n, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            compare(f"K8 alibi hd {hd} {dn} {n}", g_, w_, dn)
+        del q, k, v, do, o, lse, o_w, lse_w, got, want
+        torch.cuda.empty_cache()
+
+
 def phase_attn_kernels(dev):
     """K7 and K8 against their plain versions in four bias cases, fp32 and
     bf16: K7 at the forward shape (128 x 512, H 12, hd 64) and both at the
@@ -1442,6 +1515,10 @@ def phase_attn_kernels(dev):
                 r["library_ms"][dn] = time_ms(sdpa_fn(q, k, v, bias, True), 10)
                 r["bound"][dn] = work_bound(attn_work(B, L, H, hd, dtype.itemsize, "attn_bwd"),
                                             dn)
+                r.setdefault("split_ms", {})[dn] = device_ms_by_kernel(
+                    lambda: ca.flash_bwd(q, k, v, o, do, lse, slopes))
+                log(f"  K8 {dn} B {B} by kernel: " + ", ".join(
+                    f"{n} {t:.3f} ms" for n, t in r["split_ms"][dn].items()))
             # the other cases' K7 times (forward shape), for the log
             if kern == "attn_fwd":
                 for case in ("causal", "window128"):
@@ -1459,6 +1536,8 @@ def phase_attn_kernels(dev):
                 f"ms; SDPA {r['library_ms'][dn]:.3f} ms; bound {b:.3f} ms by {by} (bytes "
                 f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, sfu "
                 f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)")
+
+    attn_other_head_dims(dev, slopes, gen)
 
     # PlantCAD2's context: L 8192, one window, ALiBi, bf16
     B8, L8 = 1, LONG_L
@@ -1803,6 +1882,7 @@ def main():
             library_ms=r["library_ms"]["bfloat16"],
             float32=dict(ms=r["ms"]["float32"], plain_ms=r["plain_ms"]["float32"],
                          library_ms=r["library_ms"]["float32"], bound_ms=b32, bound_by=by32),
+            **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
             **{k: "plantcaduceus_tpu/ops/pallas_attention.py" + v for k, v in also.items()},
             **extra))
     print(json.dumps({"kernels": kernels}))

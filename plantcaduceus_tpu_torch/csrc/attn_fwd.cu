@@ -7,21 +7,35 @@
 // dtype and the row logsumexp lse [B*H, L] float32, the residual K8 reads.
 // The bias is rebuilt from indices (attn_core.cuh), never read.
 //
-// A block owns one (b*h, 64-query tile) and walks the key tiles that its
-// rows can see (all of them; with causal up to its last row; with a window
-// those within reach of its rows: the tiles it skips would add exactly 0),
-// with an online softmax: running max m, sum l and accumulator in float32
-// registers, rescaled by exp(m_old - m_new) at each tile, as the TPU kernel
-// does. At the end o = acc / l (l == 0 taken as 1, :97-99) and lse = m +
-// log(l). The TPU's 128-lane lse layout [BH, L, 128] is a layout only; here
-// it is [BH, L].
+// A block (one warpgroup, 128 threads) owns one (b*h, 64-query tile) and
+// walks the key tiles that its rows can see (all of them; with causal up
+// to its last row; with a window those within reach of its rows: the tiles
+// it skips would add exactly 0), with an online softmax: running max m, sum
+// l and accumulator in float32 registers, rescaled by exp2(m_old - m_new)
+// at each tile, as the TPU kernel does (in base 2). At the end o = acc / l
+// (l == 0 taken as 1, :97-99) and lse = ln 2 * (m + log2 l). The TPU's
+// 128-lane lse layout [BH, L, 128] is a layout only; here it is [BH, L].
 //
 // What bounds it on an H100: in bf16 the bytes of q, k, v and o (0.40 GB at
 // the scoring shape 128 x 512, H 12, hd 64: 0.12 ms) beside the two products
-// on the tensor cores (103 GFLOP: 0.10 ms) and one exp per score on the SFU;
-// in float32 the products as FMA (1.5 ms at 67 TFLOP/s). This kernel reads
-// its fragments from shared memory with 32-bit loads and mma.sync, with no
-// copy/compute overlap; wgmma and TMA are the way to the bound.
+// on the tensor cores (103 GFLOP: 0.10 ms) and one exp2 per score on the
+// SFU (0.10 ms); in float32 the products as FMA (1.5 ms at 67 TFLOP/s).
+// The design against it: the Q tile is copied once and stays in shared
+// memory as a wgmma operand; K and V tiles arrive by cp.async into a ring
+// of two stages, the next pair loading while the current one computes;
+// s = q k^T is one chain of wgmma (both operands in shared memory), and
+// o += p v takes p from the accumulator registers, packed to bf16 in place,
+// with V read MN-major from the same tile; interior tiles take only the
+// ALiBi term, one FMA a score before exp2. One warpgroup of 64 query rows a
+// block, four blocks an SM at hd 64 (41 KB of shared memory, 116 registers
+// a thread): the blocks' chains of copy wait, products and softmax overlap
+// on the SM. Measured on an H100 (tools/attn_bench.py): two warpgroups a
+// block sharing each K/V tile (half the tiles' traffic from L2), a third
+// ring stage, or a register cap for five blocks an SM were each no faster;
+// what is left is each warpgroup's serial chain, which wgmma issued ahead
+// of the softmax (a later design) would overlap.
+// float32 keeps the FMA loops (no TF32) on the same ring, with 16-byte
+// reads of shared memory.
 //
 // Plain C interface for ctypes; launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError().
@@ -42,60 +56,72 @@ struct AttnFwdArgs {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnFwdArgs a) {
-  constexpr int LD = AttnLd<T, HD>::v;
-  extern __shared__ __align__(16) unsigned char attn_smem[];
-  T* sQ = reinterpret_cast<T*>(attn_smem);
-  T* sK = sQ + kAttnTile * LD;
-  T* sV = sK + kAttnTile * LD;
+  constexpr bool kWg = std::is_same<T, bf16>::value;
+  constexpr int kTB = AttnTile<T, HD>::kBytes;
+  extern __shared__ unsigned char attn_smem[];
+  unsigned char* sQ = attn_smem_base(attn_smem);
+  unsigned char* sK = sQ + kTB;  // stage st at sK + st * 2 * kTB, v after k
   const AttnLane ln;
-  float* scratch = reinterpret_cast<float*>(sV + kAttnTile * LD) + ln.w * 16 * kAttnPLd;
+  float* scratch = reinterpret_cast<float*>(sQ + (1 + 2 * kAttnStages) * kTB) +
+                   ln.w * 16 * kAttnPLd;
 
   const int L = a.mask.L;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int q0 = blockIdx.x * kAttnTile;
-  AttnMask mk = a.mask;
-  mk.slope = mk.use_slopes ? a.slopes[h] : 0.f;
+  const AttnMask mk = attn_mask2(a.mask, a.slopes, h);
   const long long off = b * a.sb + h * a.sh;
   const T* qb = static_cast<const T*>(a.q) + off;
   const T* kb = static_cast<const T*>(a.k) + off;
   const T* vb = static_cast<const T*>(a.v) + off;
-  attn_load<T, HD>(sQ, qb + q0 * a.sl, a.sl, L - q0);
 
   int lo, hi;
   mk.span(q0, min(q0 + kAttnTile, L) - 1, false, lo, hi);
+  const int kt0 = lo / kAttnTile, n = hi / kAttnTile - kt0 + 1;
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * kAttnTile;
+    attn_load_async<T, HD>(sK + st * 2 * kTB, kb + k0 * a.sl, a.sl, L - k0);
+    attn_load_async<T, HD>(sK + st * 2 * kTB + kTB, vb + k0 * a.sl, a.sl, L - k0);
+    cp_async_commit();
+  };
+  attn_load_async<T, HD>(sQ, qb + q0 * a.sl, a.sl, L - q0);
+  load_kv(kt0, 0);
+
   float m[2] = {kAttnNeg, kAttnNeg}, l[2] = {0.f, 0.f};
   float acc[HD / 8][4];
   attn_zero(acc);
-  for (int kt = lo / kAttnTile; kt <= hi / kAttnTile; ++kt) {
-    const int k0 = kt * kAttnTile;
-    __syncthreads();  // the previous tile's reads are done
-    attn_load<T, HD>(sK, kb + k0 * a.sl, a.sl, L - k0);
-    attn_load<T, HD>(sV, vb + k0 * a.sl, a.sl, L - k0);
-    __syncthreads();
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1, k0 = (kt0 + it) * kAttnTile;
+    if (it + 1 < n) load_kv(kt0 + it + 1, st ^ 1);
+    attn_stage_ready(it + 1 < n);
+    unsigned char* tK = sK + st * 2 * kTB;
+    unsigned char* tV = tK + kTB;
     float s[8][4];
     attn_zero(s);
-    mm_rows<HD>(s, ln, sQ, sK);
+    if constexpr (kWg) {
+      wg_fence();
+      wg_scores<HD>(s, smem_u32(sQ), smem_u32(tK));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(s);
+    } else {
+      mm_rows<HD>(s, ln, reinterpret_cast<const float*>(sQ),
+                  reinterpret_cast<const float*>(tK));
+    }
+    attn_scores<false>(s, ln, mk, q0, k0);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int i = q0 + ln.row(r);
       float mx = kAttnNeg;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = s[nt][2 * r + e];
-          v = mk.score(v, i, k0 + ln.col(nt, e));
-          mx = fmaxf(mx, v);
-        }
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
       const float m_new = fmaxf(m[r], quad_max(mx));
-      const float alpha = expf(m[r] - m_new);
+      const float alpha = exp2f(m[r] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& v = s[nt][2 * r + e];
-          v = expf(v - m_new);
+          v = exp2f(v - m_new);
           sum += v;
         }
       l[r] = l[r] * alpha + quad_sum(sum);
@@ -106,7 +132,19 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnFwdArgs a) {
         acc[nd][2 * r + 1] *= alpha;
       }
     }
-    mm_scores<HD>(acc, ln, s, sV, scratch);
+    if constexpr (kWg) {
+      uint32_t p[4][4];
+      wg_pack(p, s);
+      reg_fence(acc);
+      wg_fence();
+      wg_accum<HD>(acc, p, smem_u32(tV));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+    } else {
+      mm_scores<HD>(acc, ln, s, reinterpret_cast<const float*>(tV), scratch);
+    }
+    __syncthreads();  // every read of this stage is done before it is refilled
   }
 
   float inv[2];
@@ -115,7 +153,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnFwdArgs a) {
     const float lsafe = l[r] > 0.f ? l[r] : 1.f;
     inv[r] = 1.f / lsafe;
     const int i = q0 + ln.row(r);
-    if (ln.t == 0 && i < L) a.lse[(long long)bh * L + i] = m[r] + logf(lsafe);
+    if (ln.t == 0 && i < L) a.lse[(long long)bh * L + i] = (m[r] + log2f(lsafe)) * kLn2;
   }
   const long long so = (long long)a.H * HD;
   attn_store<T, HD>(static_cast<T*>(a.o) + (long long)b * L * so + h * HD, so, acc, ln, q0, L,
@@ -124,7 +162,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_fwd_kernel(AttnFwdArgs a) {
 
 template <typename T, int HD>
 cudaError_t launch_attn_fwd(const AttnFwdArgs& a, int B, cudaStream_t s) {
-  const size_t smem = attn_smem_bytes<T, HD>(3, 0);
+  const size_t smem = attn_smem_bytes<T, HD>(1 + 2 * kAttnStages, 0);
   cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<T, HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;

@@ -21,6 +21,7 @@ reaches K7.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -31,8 +32,15 @@ from plantcaduceus_tpu_torch.ops.cuda_attention import flash_attention
 
 def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
     """ALiBi head slopes ``[n_heads]`` float32 (power-of-two geometric
-    schedule, extended for non-power-of-two head counts)."""
+    schedule, extended for non-power-of-two head counts). Made once per
+    ``(n_heads, device)`` and shared by every later call, so a model's
+    forward copies no host list to the card per layer; do not modify the
+    result in place."""
+    return _alibi_slopes(n_heads, torch.device("cpu" if device is None else device))
 
+
+@functools.lru_cache(maxsize=None)
+def _alibi_slopes(n_heads: int, device: torch.device) -> torch.Tensor:
     def pow2_slopes(n):
         start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
         return [start * (start ** i) for i in range(n)]
@@ -42,7 +50,8 @@ def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
     else:
         closest = 2 ** math.floor(math.log2(n_heads))
         s = pow2_slopes(closest) + pow2_slopes(2 * closest)[0::2][: n_heads - closest]
-    return torch.tensor(s, dtype=torch.float32, device=device)
+    with torch.inference_mode(False):  # a normal tensor, usable under autograd later
+        return torch.tensor(s, dtype=torch.float32, device=device)
 
 
 def alibi_bias(n_heads: int, seq_len: int, device=None) -> torch.Tensor:

@@ -13,7 +13,9 @@ tensors they launch the kernel or raise ``ValueError``; they never fall
 back. The kernels take float32 or bfloat16, head dim 32, 64 or 128, and any
 sequence length (the TPU kernel needs L tileable by 128; the card's kernel
 masks the ragged last tile). q, k and v are read through their strides:
-views of one fused qkv projection need no copy.
+views of one fused qkv projection need no copy. :func:`flash_attention`
+takes any head dim up to 128: it zero-pads q, k and v to the next kernel
+width, as the TPU path's ``_pad_heads`` pads to 128, which is exact.
 """
 
 from __future__ import annotations
@@ -126,7 +128,8 @@ def flash_bwd(q, k, v, o, do, lse, slopes=None, causal: bool = False,
     contiguous ``[B, L, H, hd]`` in the inputs' dtype, from q, k, v and the
     bias arguments as :func:`flash_fwd`, its ``o`` and ``lse`` and the
     cotangent ``do`` (contiguous, in q's dtype). ``launches`` counts kernel
-    launches (one call: the delta, dq and dk/dv kernels)."""
+    launches (one call: the dq kernel, which computes delta first, and the
+    dk/dv kernel)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse, slopes, causal, window, symmetric, scale)
     B, L, H, hd = _check_args("flash_bwd", q, k, v, slopes, window)
@@ -181,6 +184,16 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def padded_head_dim(hd: int) -> int:
+    """The kernel width that head dim ``hd`` runs at: the next of
+    :data:`HEAD_DIMS`. Raises ``ValueError`` above the widest."""
+    for width in HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"flash_attention: head dim {hd} > {HEAD_DIMS[-1]}, the widest the "
+                     f"K7/K8 kernels take (zero-padding goes up to {HEAD_DIMS[-1]} only)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     alibi_slopes: Optional[torch.Tensor] = None, causal: bool = False,
                     local_window: Optional[int] = None, alibi_symmetric: bool = True,
@@ -189,10 +202,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``pallas_attention.flash_attention``), differentiable in q, k and v.
     ``alibi_slopes`` ``[H]``: bias ``-slope * |i - j|`` (``(i - j)`` with
     ``alibi_symmetric=False``); ``local_window`` keeps ``|i - j| <=
-    window``. K7 and K8 on the card, their plain versions on the CPU."""
+    window``; ``sm_scale`` defaults to ``1/sqrt(hd)``. K7 and K8 on the
+    card, their plain versions on the CPU. A head dim below 128 that is not
+    32, 64 or 128 runs zero-padded to the next of them, on every device
+    (zero columns add nothing to q.k and give zero output columns; the
+    scale stays that of the true hd); above 128 it raises ``ValueError``."""
+    hd = q.shape[-1]
+    width = padded_head_dim(hd)
+    sm_scale = default_scale(hd, sm_scale)  # the true hd's, not the padded one's
+    if width != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
     q, k, v = _fit(q, k, v)
     slopes = None
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()
-    return FlashAttentionFn.apply(q, k, v, slopes, causal, local_window, alibi_symmetric,
-                                  sm_scale)
+    o = FlashAttentionFn.apply(q, k, v, slopes, causal, local_window, alibi_symmetric,
+                               sm_scale)
+    return o[..., :hd]

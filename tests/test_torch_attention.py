@@ -6,10 +6,14 @@ package, on the CPU.
 ``ops/flash_plain.py`` against the Pallas kernels ``_fwd``/``_bwd`` in
 interpret mode (L 256 and window 64, so a row's first key tile is all
 masked), and ``FlashAttentionFn`` (the plain versions under autograd, as the
-CPU path runs it) against ``jax.grad`` of the JAX XLA path. Inputs from
-numpy with a seed; float32 on both sides unless stated. Tolerances are
-those of ``tests/test_pallas_attention.py``: 2e-5 for float32 outputs,
-2e-2 for bfloat16, 5e-4 for gradients; tables within 1e-6.
+CPU path runs it) against ``jax.grad`` of the JAX XLA path, and
+``flash_attention`` at head dims the kernels do not take (zero-padded to
+the next kernel width) against JAX's ``flash_attention`` in interpret mode,
+forward and gradients. Inputs from numpy with a seed; float32 on both
+sides unless stated. Tolerances are those of
+``tests/test_pallas_attention.py``: 2e-5 for float32 outputs, 2e-2 for
+bfloat16, 5e-4 for gradients; tables within 1e-6; the padded path 1e-5 of
+each output's scale.
 """
 
 import jax
@@ -30,6 +34,7 @@ TABLE_TOL = 1e-6
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
 GRAD_TOL = 5e-4
+PAD_TOL = 1e-5  # of each output's max |value|: zero columns change no sum
 
 
 def _qkv(rng, B=2, L=64, H=4, hd=32):
@@ -42,9 +47,15 @@ def _np(t):
 
 @pytest.mark.parametrize("heads", [6, 8, 12])
 def test_alibi_tables_match_jax(heads):
-    """12 heads takes the non-power-of-two extension."""
-    np.testing.assert_allclose(_np(tattn.alibi_slopes(heads)),
-                               _np(jattn.alibi_slopes(heads)), atol=TABLE_TOL, rtol=0)
+    """12 heads takes the non-power-of-two extension. The slopes are made
+    once per (heads, device): a second call returns the cached tensor, with
+    JAX's values."""
+    first = tattn.alibi_slopes(heads)
+    cached = tattn.alibi_slopes(heads, torch.device("cpu"))
+    assert cached is first
+    for got in (first, cached):
+        np.testing.assert_allclose(_np(got), _np(jattn.alibi_slopes(heads)), atol=TABLE_TOL,
+                                   rtol=0)
     np.testing.assert_allclose(_np(tattn.alibi_bias(heads, 100)),
                                _np(jattn.alibi_bias(heads, 100)), atol=TABLE_TOL, rtol=0)
     assert (_np(tattn.local_window_mask(100, heads)) ==
@@ -202,3 +213,38 @@ def test_structured_dispatch_on_cpu(rng):
         tattn.multi_head_attention(q, k, v, mask=torch.zeros(48, 48), impl="flash")
     with pytest.raises(ValueError, match="either alibi"):
         tattn.multi_head_attention(q, k, v, bias=torch.zeros(4, 48, 48), alibi=True)
+
+
+@pytest.mark.parametrize("hd", [16, 48])
+def test_padded_head_dim_matches_pallas(rng, hd):
+    """flash_attention at a head dim the kernels do not take runs zero-padded
+    to the next width (32, 64) with the scale of the true hd, and returns o,
+    dq, dk and dv at the true width: against JAX's flash_attention (which
+    pads to 128) in interpret mode, ALiBi, L 128, forward and jax.grad."""
+    q, k, v = _qkv(rng, B=1, L=128, H=2, hd=hd)
+    w = rng.standard_normal(q.shape).astype(np.float32)
+    slopes = np.array(jattn.alibi_slopes(2))
+
+    def loss(q, k, v):
+        o = jflash.flash_attention(q, k, v, alibi_slopes=jnp.asarray(slopes))
+        return jnp.sum(o * jnp.asarray(w)), o
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, o_w), g_w = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+            *(jnp.asarray(t) for t in (q, k, v)))
+    ins = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    o = cuda_attention.flash_attention(*ins, alibi_slopes=torch.from_numpy(slopes))
+    got = torch.autograd.grad((o * torch.from_numpy(w)).sum(), ins)
+    assert o.shape == q.shape and all(g.shape == q.shape for g in got)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), (o, *got), (o_w, *g_w)):
+        scale = np.abs(_np(b)).max()
+        err = np.abs(_np(a) - _np(b)).max()
+        assert err <= PAD_TOL * scale, f"{name}: {err} > {PAD_TOL} * {scale}"
+
+
+def test_head_dim_above_128_raises(rng):
+    """Above 128 the kernels have no width to pad to: ValueError, on every
+    device, naming the limit."""
+    q = torch.from_numpy(_qkv(rng, B=1, L=16, H=2, hd=160)[0])
+    with pytest.raises(ValueError, match="head dim 160 > 128"):
+        cuda_attention.flash_attention(q, q, q)

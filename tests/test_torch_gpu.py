@@ -619,6 +619,32 @@ def test_attn_kernels_match_plain(cuda, case, dtype, hd, L):
         _close_to_scale(g, w, ATTN_TOL[dtype], name)
 
 
+@pytest.mark.parametrize("hd", [16, 48, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_padded_head_dims_match_plain(cuda, dtype, hd):
+    """flash_attention at a head dim the kernels do not take (zero-padded to
+    32, 64 or 128): o and the q/k/v gradients through K7/K8 (one launch
+    each) against the plain versions at the true width; ALiBi, L 200."""
+    from plantcaduceus_tpu_torch.ops import cuda_attention, flash_plain
+
+    (q, k, v, slopes), do, _ = _attn_case(np.random.default_rng(57), cuda, dtype, "alibi",
+                                          L=200, hd=hd)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (cuda_attention.flash_fwd.launches, cuda_attention.flash_bwd.launches)
+    o = cuda_attention.flash_attention(*ins, alibi_slopes=slopes)
+    grads = torch.autograd.grad(o, ins, do)
+    torch.cuda.synchronize()
+    assert (cuda_attention.flash_fwd.launches - before[0],
+            cuda_attention.flash_bwd.launches - before[1]) == (1, 1)
+    o_w, lse_w = flash_plain.flash_fwd_plain(q, k, v, slopes)
+    want = flash_plain.flash_bwd_plain(q, k, v, o_w, do, lse_w, slopes)
+    assert o.shape == q.shape and o.dtype == dtype
+    _close_to_scale(o, o_w, ATTN_TOL[dtype], "o")
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        _close_to_scale(g, w, ATTN_TOL[dtype], name)
+
+
 def test_attn_bwd_is_deterministic(cuda):
     """Two K8 launches give equal bits (no atomics), for a fused-qkv view."""
     from plantcaduceus_tpu_torch.ops import cuda_attention
@@ -657,10 +683,12 @@ def test_attn_wrappers_reject_bad_input(cuda):
                                  lse)
 
 
-@pytest.mark.parametrize("overrides", [{}, dict(position="rope", local_window=48)],
-                         ids=["alibi", "rope_window"])
+@pytest.mark.parametrize("overrides", [{}, dict(position="rope", local_window=48),
+                                       dict(d_model=384, n_heads=8)],
+                         ids=["alibi", "rope_window", "alibi_hd48"])
 def test_bert_kernels_match_plain_path(cuda, overrides):
-    """A 2-layer BERT of MosaicBERT-Base width (d_model 768, 12 heads):
+    """A 2-layer BERT of MosaicBERT-Base width (d_model 768, 12 heads; and
+    d_model 384 with 8 heads of 48, which K7/K8 run zero-padded to 64):
     forward logits through K7 against the einsum path (fp32, 1e-4 of max
     |logit|, one K7 launch per layer), and the mlm_loss gradients through
     K7/K8 against autograd through the einsum path (1e-3 of each max
@@ -669,7 +697,7 @@ def test_bert_kernels_match_plain_path(cuda, overrides):
     from plantcaduceus_tpu_torch.models.caduceus import mlm_loss
     from plantcaduceus_tpu_torch.ops import cuda_attention
 
-    cfg = bert.BertConfig(d_model=768, n_layer=2, n_heads=12, **overrides)
+    cfg = bert.BertConfig(**{"d_model": 768, "n_layer": 2, "n_heads": 12, **overrides})
     rng = np.random.default_rng(55)
     ids = torch.from_numpy(rng.integers(7, 11, (2, 320))).to(cuda)
     labels = torch.where(torch.from_numpy(rng.random((2, 320)) < 0.15).to(cuda), ids, -100)
