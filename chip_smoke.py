@@ -317,6 +317,7 @@ def phase_train_kernels(cfg, dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
            for k in ("scan_fwd_hb", "mixer_fwd_res", "scan_bwd")}
+    res["scan_bwd"]["split_ms"] = {}
 
     def cmp(kernel, name, got, want, tol):
         res[kernel]["err"] = max(res[kernel]["err"], compare(name, got, want, None, tol))
@@ -325,6 +326,8 @@ def phase_train_kernels(cfg, dev):
         res[kernel]["ms"][dn] = time_ms(fn, 10)
         res[kernel]["plain_ms"][dn] = time_ms(plain, 1, warmup=1)
         res[kernel]["bound"][dn] = bound_ms(nbytes, flops, sfu)
+        if "split_ms" in res[kernel]:
+            res[kernel]["split_ms"][dn] = device_ms_by_kernel(fn)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -394,16 +397,9 @@ def phase_train_kernels(cfg, dev):
                                  kgot, kwant):
                 cmp("scan_bwd", f"K3 {n} {dn} fused dt {d}", g_, w_, F32_TOL)
             if g == 1:
-                # Each input read once, each output written once; per state
-                # the one exp2 of its decay and ~18 fp32 flops (recompute
-                # 3, adjoint 13, the dB/dC sums over channels 2); per
-                # (step, channel) softplus + sigmoid (3 SFU) and the dt
-                # projection, its transpose and dW (6R flops).
                 timed("scan_bwd", dn, lambda: cuda_scan.scan_bwd(*kargs),
                       lambda: cuda_scan.scan_bwd_plain(*kargs),
-                      2 * s * pts + 4 * pts + 8 * rows * L * J + hb_bytes
-                      + 8 * (D * N + 2 * D + R * D),
-                      pts * (18 * N + 6 * R + 12), pts * (N + 3))
+                      *scan_bwd_work(rows, L, D, N, R, s))
 
     for name, r in res.items():
         for dn in r["ms"]:
@@ -411,8 +407,30 @@ def phase_train_kernels(cfg, dev):
             log(f"  {name} ({dn}, one direction): {r['ms'][dn]:.3f} ms; plain "
                 f"{r['plain_ms'][dn]:.1f} ms; bound {b:.3f} ms by {by} (bytes "
                 f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, "
-                f"sfu {parts['sfu'] * 1e3:.3f} ms)")
+                f"sfu {parts['sfu'] * 1e3:.3f} ms){split_note(r, dn)}")
     return res
+
+
+def split_note(r, dn):
+    """The per-kernel split of a timed call, for its log line."""
+    split = r.get("split_ms", {}).get(dn)
+    if not split:
+        return ""
+    return "; by kernel " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms"
+
+
+def scan_bwd_work(rows, L, D, N, R, s, hbc=16):
+    """What one direction of K3 with fused dt must do, counted from the
+    shapes: bytes (each input read once, each output written once; x and
+    gy in ``s`` bytes, the residuals and outputs float32), fp32 flops and
+    special-function ops. Per state the one exp2 of its decay and ~18 fp32
+    flops (recompute 3, adjoint 13, the dB/dC sums over channels 2); per
+    (step, channel) softplus + sigmoid (3 SFU) and the dt projection, its
+    transpose and dW (6R flops)."""
+    pts, J = rows * L * D, R + 2 * N
+    hb_bytes = 4 * rows * -(-L // hbc) * D * N
+    nbytes = 2 * s * pts + 4 * pts + 8 * rows * L * J + hb_bytes + 8 * (D * N + 2 * D + R * D)
+    return nbytes, pts * (18 * N + 6 * R + 12), pts * (N + 3)
 
 
 def ssd_work(R, L, H, NG, s, K=4, mixer=False):
@@ -616,6 +634,8 @@ def phase_ssd_train_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(17)
     names = ("ssd_fwd_fentry", "mixer2_fwd_res", "ssd_bwd", "ssd_bwd_pre_silu")
     res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}} for k in names}
+    for k in ("ssd_bwd", "ssd_bwd_pre_silu"):
+        res[k]["split_ms"] = {}
     kw = dict(d_state=N, eps=cfg.norm_epsilon, chunk=cfg.chunk_size)
     T = cfg.chunk_size
 
@@ -668,6 +688,8 @@ def phase_ssd_train_kernels(dev):
             res[name]["ms"][dn] = time_ms(kern, 10)
             res[name]["plain_ms"][dn] = time_ms(plain, 2, warmup=1)
             res[name]["bound"][dn] = work_bound(ssd_train_work(rows, L, H, NG, s, name), dn)
+            if "split_ms" in res[name]:
+                res[name]["split_ms"][dn] = device_ms_by_kernel(kern)
         del calls, mixer, ssd, g
         torch.cuda.empty_cache()
     for name, r in res.items():
@@ -676,7 +698,8 @@ def phase_ssd_train_kernels(dev):
             log(f"  {name} ({dn}, one direction): {r['ms'][dn]:.3f} ms; plain "
                 f"{r['plain_ms'][dn]:.1f} ms; bound {b:.3f} ms by {by} (bytes "
                 f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, sfu "
-                f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)")
+                f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)"
+                f"{split_note(r, dn)}")
     return res
 
 
@@ -1856,6 +1879,7 @@ def main():
                             float32=dict(ms=r["ms"]["float32"],
                                          plain_ms=r["plain_ms"]["float32"],
                                          bound_ms=b32, bound_by=by32),
+                            **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
                             **({"pc2_small_ssd": r["pc2_small_ssd"]}
                                if "pc2_small_ssd" in r else {})))
     # K7 and K8: bf16 ALiBi in the contract's keys (K7 at the forward shape,

@@ -26,7 +26,8 @@ from plantcaduceus_tpu_torch.ops.selective_scan import (HB_CHUNK, scan_direction
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_STATES = (4, 8, 16, 32)
 MAX_ROWS = 65535  # grid.y
-SCAN_THREADS = 128  # channels per block (kScanThreads in csrc/scan_core.cuh)
+BWD_THREADS = 512  # threads per block of K3, one a (channel, state) (kBwdThreads, scan_bwd.cu)
+MAX_HB_CHUNK = 16   # steps a K3 lane keeps in registers (kMaxHbChunk, scan_bwd.cu)
 
 
 def scan_fwd_plain(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w=None,
@@ -156,11 +157,13 @@ def scan_bwd(x: torch.Tensor, gy: torch.Tensor, dt: torch.Tensor, A: torch.Tenso
     _require(hb.device == x.device and hb.dtype == torch.float32 and hb.is_contiguous()
              and tuple(hb.shape) == (rows, -(-L // hb_chunk), D, N), "scan_bwd",
              f"hb must be contiguous float32 [rows, ceil(L/{hb_chunk}), D, N]")
+    _require(1 <= hb_chunk <= MAX_HB_CHUNK, "scan_bwd",
+             f"hb_chunk {hb_chunk} outside 1..{MAX_HB_CHUNK}")
     lib = _lib("scan_bwd", "pc_scan_bwd", _BWD_ARGS)
     Rk = R if fuse else 0
     J = Rk + 2 * N
     P = D * N + 2 * D + Rk * D
-    ntiles = -(-D // SCAN_THREADS)
+    ntiles = -(-D // (BWD_THREADS // N))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((rows, L, D), **f32)
     ddt = None if fuse else torch.empty((rows, L, D), **f32)

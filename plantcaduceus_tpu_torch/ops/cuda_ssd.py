@@ -67,7 +67,7 @@ _require, _lib = cuda_build.require, cuda_build.bind
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 9 + [_I] * 6 + [_P]
-_BWD_ARGS = [_P] * 19 + [_I] * 7 + [_P]
+_BWD_ARGS = [_P] * 22 + [_I] * 7 + [_P]
 
 
 def _check_ssd_args(what, x, dt, A, Bm, Cm, Dskip, dt_bias, chunk, others=()):
@@ -158,14 +158,20 @@ def ssd_dir_bwd(x, dt, A, Bm, Cm, Dskip, dt_bias, fentry, g, chunk: int, reverse
     dx, dB, dC, ddt, dmass = f32(R, L, HP), f32(R, L, NG, N), f32(R, L, NG, N), f32(R, L, H), \
         f32(R, L, H)
     gx, dtp = (f32(R, L, H), f32(R, L, H)) if pre_silu else (None, None)
-    dBh, dCh, m_intra = f32(R, L, H, N), f32(R, L, H, N), f32(R, L, H)   # scratch
+    # scratch: the per-head dB and dC, the cotangent state entering each
+    # chunk (fentry's layout), each chunk's total decay and, with pre_silu,
+    # SiLU of B and C
+    dBh, dCh = f32(R, L, H, N), f32(R, L, H, N)
+    rv, tot = f32(R, L // SSD_TILE, N, HP), f32(R, L // SSD_TILE, H)
+    Ba, Ca = (f32(R, L, NG, N), f32(R, L, NG, N)) if pre_silu else (None, None)
     rc = lib.pc_ssd_bwd(
         x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), g.data_ptr(),
         fentry.data_ptr(), A.data_ptr(), Dskip.data_ptr(), dt_bias.data_ptr(), dx.data_ptr(),
         dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), dmass.data_ptr(),
         gx.data_ptr() if pre_silu else None, dtp.data_ptr() if pre_silu else None,
-        dBh.data_ptr(), dCh.data_ptr(), m_intra.data_ptr(), R, L, H, NG, int(bool(reverse)),
-        int(bool(pre_silu)), int(x.dtype == torch.bfloat16),
+        dBh.data_ptr(), dCh.data_ptr(), rv.data_ptr(), tot.data_ptr(),
+        Ba.data_ptr() if pre_silu else None, Ca.data_ptr() if pre_silu else None, R, L, H, NG,
+        int(bool(reverse)), int(bool(pre_silu)), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, rc, "ssd_dir_bwd")
     if pre_silu:

@@ -131,13 +131,17 @@ def test_scan_hb_matches_plain(cuda, dtype, fuse, reverse):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fuse", [True, False])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_scan_bwd_kernel_matches_plain(cuda, dtype, fuse, reverse):
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("L", [200, 512])
+def test_scan_bwd_kernel_matches_plain(cuda, dtype, fuse, reverse, N, L):
     """K3 against its plain version on the same inputs and hb: every output
-    float32, within 1e-4 of its scale (only the order of sums differs)."""
+    float32, within 1e-4 of its scale (only the order of sums differs).
+    Every state size the kernel takes; a ragged last hb chunk (L 200) and
+    the model's 512 steps; 160 channels, a ragged last channel tile."""
     from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
 
     rng = np.random.default_rng(4)
-    x, dt, A, Bm, Cm, Ds, dtb, w = _scan_case(rng, cuda, dtype, fuse)
+    x, dt, A, Bm, Cm, Ds, dtb, w = _scan_case(rng, cuda, dtype, fuse, L=L, N=N)
     gy = _t(rng.standard_normal(tuple(x.shape)), cuda, dtype)
     _, hb = cuda_scan.scan_fwd_plain(x, dt, A, Bm, Cm, Ds, dtb, w, reverse, HB_CHUNK)
     before = cuda_scan.scan_bwd.launches
@@ -454,14 +458,15 @@ def test_mixer2_res_kernel_matches_plain(cuda, dtype, reverse):
         _close_to_scale(g, w, tol, name)
 
 
-def _ssd_bwd_case(rng, dev, dtype, pre_silu, reverse, NG=1):
-    """K6's arguments: _ssd_case's, the plain forward's entry states (from
-    SiLU of the accumulators in pre_silu mode) and a cotangent."""
+def _ssd_bwd_case(rng, dev, dtype, pre_silu, reverse, NG=1, H=None, L=256):
+    """K6's arguments: _ssd_case's (H defaults to two heads a group), the
+    plain forward's entry states (from SiLU of the accumulators in pre_silu
+    mode) and a cotangent."""
     import torch.nn.functional as F
 
     from plantcaduceus_tpu_torch.ops import cuda_ssd
 
-    x, dt, A, Bm, Cm, Ds, dtb = _ssd_case(rng, dev, dtype, H=2 * NG, NG=NG)
+    x, dt, A, Bm, Cm, Ds, dtb = _ssd_case(rng, dev, dtype, L=L, H=H or 2 * NG, NG=NG)
     act = (lambda t: F.silu(t.float()).to(dtype)) if pre_silu else (lambda t: t)
     _, fe = cuda_ssd.ssd_dir_plain(act(x), dt, A, act(Bm), act(Cm), Ds, dtb, 128, reverse,
                                    emit_fentry=True)
@@ -473,14 +478,18 @@ def _ssd_bwd_case(rng, dev, dtype, pre_silu, reverse, NG=1):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("pre_silu", [False, True])
 @pytest.mark.parametrize("ng", [1, 2])
-def test_ssd_bwd_kernel_matches_plain(cuda, dtype, reverse, pre_silu, ng):
+@pytest.mark.parametrize("heads, L", [(None, 256), (6, 512)], ids=["small", "l20ssd"])
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, reverse, pre_silu, ng, heads, L):
     """K6 in both modes against its plain version (ops/ssd_bwd.py), every
     output: float32, 1e-3 of each output's scale; bfloat16 inputs, 2**-7
     (both round the same product operands; an operand whose float32 value
-    lies near a rounding boundary can round the other way)."""
+    lies near a rounding boundary can round the other way). Two layouts:
+    two heads a group over two chunks, and l20-ssd's six heads over four
+    chunks, so the cotangent state crosses three chunk boundaries."""
     from plantcaduceus_tpu_torch.ops import cuda_ssd
 
-    args = _ssd_bwd_case(np.random.default_rng(23 + ng), cuda, dtype, pre_silu, reverse, ng)
+    args = _ssd_bwd_case(np.random.default_rng(23 + ng), cuda, dtype, pre_silu, reverse, ng,
+                         H=heads, L=L)
     counter = "pre_silu_launches" if pre_silu else "launches"
     before = getattr(cuda_ssd.ssd_dir_bwd, counter)
     got = cuda_ssd.ssd_dir_bwd(*args, 128, reverse, pre_silu=pre_silu)
