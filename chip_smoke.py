@@ -317,7 +317,8 @@ def phase_train_kernels(cfg, dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
            for k in ("scan_fwd_hb", "mixer_fwd_res", "scan_bwd")}
-    res["scan_bwd"]["split_ms"] = {}
+    for k in ("mixer_fwd_res", "scan_bwd"):
+        res[k]["split_ms"] = {}
 
     def cmp(kernel, name, got, want, tol):
         res[kernel]["err"] = max(res[kernel]["err"], compare(name, got, want, None, tol))
@@ -634,7 +635,7 @@ def phase_ssd_train_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(17)
     names = ("ssd_fwd_fentry", "mixer2_fwd_res", "ssd_bwd", "ssd_bwd_pre_silu")
     res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}} for k in names}
-    for k in ("ssd_bwd", "ssd_bwd_pre_silu"):
+    for k in ("mixer2_fwd_res", "ssd_bwd", "ssd_bwd_pre_silu"):
         res[k]["split_ms"] = {}
     kw = dict(d_state=N, eps=cfg.norm_epsilon, chunk=cfg.chunk_size)
     T = cfg.chunk_size

@@ -27,7 +27,7 @@ from plantcaduceus_tpu_torch.ops.cuda_scan import (KERNEL_DTYPES, KERNEL_STATES,
                                                    scan_bwd)
 from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK, scan_direction
 
-MAX_PROJ = 128  # R + 2N: x_proj outputs a block keeps in registers
+MAX_PROJ = 128  # R + 2N: the widest register tiling of K2's x_proj
 MAX_TAPS = 8
 
 
@@ -50,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("mixer_fwd")
     if lib.pc_mixer_fwd.argtypes is None:
         lib.pc_mixer_fwd.restype = ctypes.c_int
-        lib.pc_mixer_fwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.pc_mixer_fwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return lib
 
 
@@ -98,8 +98,11 @@ def mixer_fwd(xi: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
     _require(0 < Bn <= MAX_ROWS, f"rows {Bn} outside 1..{MAX_ROWS}")
 
     lib = _lib()
-    wx = torch.cat([w_dtlr, w_B, w_C], dim=1).contiguous()          # [D, R+2N]
-    xg = torch.empty((Bn, L, D), dtype=torch.float32, device=xi.device)
+    # [D, 64] (R + 2N <= 64) or [D, 128], zero past R + 2N: the kernel's
+    # register tiling of the x_proj reads whole 16-byte rows
+    J = R + 2 * N
+    wx = torch.zeros((D, 64 if J <= 64 else MAX_PROJ), dtype=torch.float32, device=xi.device)
+    wx[:, :J] = torch.cat([w_dtlr, w_B, w_C], dim=1)
     dbc = torch.empty((Bn, L, R + 2 * N), dtype=torch.float32, device=xi.device)
     y = torch.empty_like(xi)
     acc = torch.empty_like(xi) if emit_res else None
@@ -108,7 +111,7 @@ def mixer_fwd(xi: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
     rc = lib.pc_mixer_fwd(
         xi.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), wx.data_ptr(),
         dt_proj_w.data_ptr(), dt_bias.data_ptr(), A.data_ptr(), Dskip.data_ptr(),
-        xg.data_ptr(), dbc.data_ptr(), y.data_ptr(),
+        dbc.data_ptr(), y.data_ptr(),
         acc.data_ptr() if emit_res else None, hb.data_ptr() if emit_res else None,
         Bn, L, D, N, R, K, int(reverse), int(xi.dtype == torch.bfloat16), HB_CHUNK,
         torch.cuda.current_stream(xi.device).cuda_stream)

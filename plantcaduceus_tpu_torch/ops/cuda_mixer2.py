@@ -3,9 +3,9 @@ gradient.
 
 Counterpart of ``plantcaduceus_tpu.ops.pallas_mixer2``.
 ``mamba2_mixer_interior`` runs ``csrc/mixer2_fwd.cu`` for one direction:
-the depthwise convs of x, B and C with SiLU, K4's chunk core
-(``csrc/ssd_core.cuh``) and the gated RMS norm; its training variant
-(``emit_residuals``) also returns what the backward needs.
+the depthwise convs of x, B and C with SiLU, K4's chunk math
+(``csrc/ssd_core.cuh``) run chunk-parallel, and the gated RMS norm; its
+training variant (``emit_residuals``) also returns what the backward needs.
 ``mamba2_mixer_interior_plain`` is the plain PyTorch version of the same
 function (JAX ``_interior_xla``), computed in the kernel's types: conv taps
 and biases rounded to xi's dtype and summed in float32, the SSD output y
@@ -36,7 +36,7 @@ from plantcaduceus_tpu_torch.ops.selective_scan import softplus
 from plantcaduceus_tpu_torch.ops.ssd import chunk_scan, fit_chunk
 
 MAX_TAPS = 8  # kMaxTaps in csrc/mixer2_fwd.cu
-SSD_PARTS = 2  # partial sums of u^2 per (row, t, head): kSsdParts in csrc/ssd_core.cuh
+SSD_PARTS = 2  # sums of v^2 per (row, t, head), at most: TileFrag::kParts in csrc/mixer2_fwd.cu
 
 
 def mamba2_mixer_interior_plain(xi, z, Braw, Craw, dt, cxw, cxb, cbw, cbb, ccw, ccb, nw,
@@ -131,32 +131,38 @@ def mamba2_mixer_interior(xi, z, Braw, Craw, dt, cxw, cxb, cbw, cbb, ccw, ccb, n
         _require(t.is_floating_point(), f"{name} dtype {t.dtype} is not a float type")
         _require(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
 
-    def f32(t, rounded=False):  # float32, contiguous; taps rounded to xi's dtype first
-        return (t.to(xi.dtype) if rounded else t).float().contiguous()
+    def f32(t):  # float32, contiguous (the kernel rounds the taps to xi's dtype)
+        return t.float().contiguous()
 
-    taps = [f32(t, rounded=True) for t in (cxw, cxb, cbw, cbb, ccw, ccb)]
+    taps = [f32(t) for t in (cxw, cxb, cbw, cbb, ccw, ccb)]
     nw32, A32, D32, dtb32 = (f32(t) for t in (nw, A, Dsk, dtb))
     lib = _lib()
-    # float32 scratch: the conv outputs, the gated y and the partial sums of u^2
-    xc, u = (torch.empty((R, L, di), dtype=torch.float32, device=xi.device) for _ in range(2))
-    Bc, Cc = (torch.empty((R, L, NGN), dtype=torch.float32, device=xi.device) for _ in range(2))
-    part = torch.empty((R, L, H, SSD_PARTS), dtype=torch.float32, device=xi.device)
+    kw32 = dict(dtype=torch.float32, device=xi.device)
+    nc = L // SSD_TILE
+    # the chunk states (fentry itself in the training variant); float32
+    # scratch: the chunks' total decays, the gated y and its sums of squares;
+    # SiLU of the B and C convs in xi's dtype
+    fe = torch.empty((R, nc, d_state, di), **kw32)
+    tot = torch.empty((R, nc, H), **kw32)
+    u = torch.empty((R, L, di), **kw32)
+    part = torch.empty((R, L, H, SSD_PARTS), **kw32)
+    Ba, Ca = torch.empty_like(Braw), torch.empty_like(Craw)
     out = torch.empty_like(xi)
     res = ((torch.empty_like(xi), torch.empty_like(Braw), torch.empty_like(Craw),
-            torch.empty((R, L // SSD_TILE, d_state, di), dtype=torch.float32,
-                        device=xi.device), torch.empty_like(xi))
-           if emit_residuals else (None,) * 5)
+            torch.empty_like(xi)) if emit_residuals else (None,) * 4)
     rc = lib.pc_mixer2_fwd(
         xi.data_ptr(), z.data_ptr(), Braw.data_ptr(), Craw.data_ptr(), dt.data_ptr(),
         *(t.data_ptr() for t in taps), nw32.data_ptr(), A32.data_ptr(), D32.data_ptr(),
-        dtb32.data_ptr(), xc.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), u.data_ptr(),
-        part.data_ptr(), out.data_ptr(), *(t.data_ptr() if t is not None else None for t in res),
+        dtb32.data_ptr(),
+        *(t.data_ptr() for t in (fe, tot, u, part, Ba, Ca, out)),
+        *(t.data_ptr() if t is not None else None for t in res),
         R, L, H, NG, K, int(bool(reverse)), float(eps), int(xi.dtype == torch.bfloat16),
         torch.cuda.current_stream(xi.device).cuda_stream)
     cuda_build.check(lib, rc, "mamba2_mixer_interior")
     if emit_residuals:
         mamba2_mixer_interior.res_launches += 1
-        return (out, *res)
+        accx, accB, accC, y = res
+        return out, accx, accB, accC, fe, y
     mamba2_mixer_interior.launches += 1
     return out
 

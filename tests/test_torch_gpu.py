@@ -203,6 +203,54 @@ def test_mixer_res_kernel_matches_plain(cuda, dtype, reverse):
         _close_to_scale(g, w, 1e-4, name)
 
 
+@pytest.mark.parametrize("emit_res", [False, True], ids=["fwd", "res"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N", [4, 32])
+@pytest.mark.parametrize("L", [1, 17, 200, 513])
+def test_mixer_kernel_ragged_lengths(cuda, L, N, reverse, dtype, emit_res):
+    """K2 and K2-res at lengths ragged against the 16-step hb groups, the
+    scan's chunk (max(16, N) steps) and the x_proj's 64-step time tile, at
+    N 4 and 32 (the reduce-scatter's narrowest and widest groups; J = R + 2N
+    takes both register tilings of the x_proj), D ragged against every
+    channel tile."""
+    rng = np.random.default_rng(40 + L + N)
+    B, D, R, K = 2, 72, 8, 4
+    f = lambda *s: _t(rng.standard_normal(s) * 0.3, cuda)
+    xi = _t(rng.standard_normal((B, L, D)), cuda, dtype)
+    args = (f(D, K), f(D), f(D, R), f(D, N), f(D, N), f(R, D), f(D),
+            -torch.abs(f(D, N)) - 0.3, f(D))
+    got = cuda_mixer.mixer_fwd(xi, *args, reverse=reverse, emit_res=emit_res)
+    torch.cuda.synchronize()
+    want = cuda_mixer.mixer_fwd_plain(xi, *args, reverse=reverse, emit_res=emit_res)
+    got, want = (got, want) if emit_res else ((got,), (want,))
+    rtol, atol = TOL[dtype]
+    for name, g, w in zip(["y", "acc"], got[:2], want[:2]):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol, msg=name)
+    for name, g, w in zip(["dt_lr", "B", "C", "hb"], got[2:], want[2:]):
+        assert g.shape == w.shape, name
+        _close_to_scale(g, w, 1e-4, name)
+
+
+@pytest.mark.parametrize("emit_res", [False, True], ids=["fwd", "res"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer_kernel_is_deterministic(cuda, dtype, emit_res):
+    """Two launches of K2 (each variant) give equal bits: every sum has one
+    order (no atomics)."""
+    rng = np.random.default_rng(44)
+    B, L, D, N, R, K = 2, 300, 160, 16, 24, 4
+    f = lambda *s: _t(rng.standard_normal(s) * 0.3, cuda)
+    xi = _t(rng.standard_normal((B, L, D)), cuda, dtype)
+    args = (f(D, K), f(D), f(D, R), f(D, N), f(D, N), f(R, D), f(D),
+            -torch.abs(f(D, N)) - 0.3, f(D))
+    for rev in (False, True):
+        a = cuda_mixer.mixer_fwd(xi, *args, reverse=rev, emit_res=emit_res)
+        b = cuda_mixer.mixer_fwd(xi, *args, reverse=rev, emit_res=emit_res)
+        for u, v in zip(*((a, b) if emit_res else ((a,), (b,)))):
+            assert torch.equal(u, v)
+
+
 def test_autograd_functions_match_plain_autograd(cuda):
     """SelectiveScanFn (both dt modes) and BimambaMixerFn gradients on the
     card against autograd through the plain versions, float32."""
@@ -456,6 +504,43 @@ def test_mixer2_res_kernel_matches_plain(cuda, dtype, reverse):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         tol = SSD_TOL[dtype] if (dtype == torch.bfloat16 or name != "fentry") else F32_TOL
         _close_to_scale(g, w, tol, name)
+
+
+@pytest.mark.parametrize("emit", [False, True], ids=["fwd", "res"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("L", [128, 1024])
+def test_mixer2_kernel_chunk_counts(cuda, L, reverse, dtype, emit):
+    """K5 and K5-res at one chunk (no state enters any chunk: the pass only
+    writes zeros) and at eight (the state passed across seven boundaries),
+    with H 4 in NG 2 groups (the group's first head writes accB and accC)."""
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2
+
+    args, kw = _mixer2_case(np.random.default_rng(50 + L), cuda, dtype, L=L, H=4, NG=2)
+    got = cuda_mixer2.mamba2_mixer_interior(*args, **kw, reverse=reverse, emit_residuals=emit)
+    torch.cuda.synchronize()
+    want = cuda_mixer2.mamba2_mixer_interior_plain(*args, **kw, reverse=reverse,
+                                                   emit_residuals=emit)
+    names = ("u", "accx", "accB", "accC", "fentry", "y")
+    for name, g, w in zip(names, *((got, want) if emit else ((got,), (want,)))):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = SSD_TOL[dtype] if (dtype == torch.bfloat16 or name != "fentry") else F32_TOL
+        _close_to_scale(g, w, tol, name)
+
+
+@pytest.mark.parametrize("emit", [False, True], ids=["fwd", "res"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer2_kernel_is_deterministic(cuda, dtype, emit):
+    """Two launches of K5 (each variant) give equal bits: the pass chains
+    the states in one order, the norm sums the heads in order."""
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2
+
+    args, kw = _mixer2_case(np.random.default_rng(56), cuda, dtype, L=512, H=4, NG=2)
+    for rev in (False, True):
+        a = cuda_mixer2.mamba2_mixer_interior(*args, **kw, reverse=rev, emit_residuals=emit)
+        b = cuda_mixer2.mamba2_mixer_interior(*args, **kw, reverse=rev, emit_residuals=emit)
+        for u, v in zip(*((a, b) if emit else ((a,), (b,)))):
+            assert torch.equal(u, v)
 
 
 def _ssd_bwd_case(rng, dev, dtype, pre_silu, reverse, NG=1, H=None, L=256):

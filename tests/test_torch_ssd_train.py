@@ -5,7 +5,8 @@
   in interpret mode: both modes, both directions, NG = 1 and 2, every
   output (dmass, ∂L/∂ log-decay, has no counterpart in JAX's XLA path).
 * K4's ``emit_fentry`` and K5's ``emit_residuals`` (plain versions) against
-  the Pallas kernels' residual outputs in interpret mode.
+  the Pallas kernels' residual outputs in interpret mode (K5 also at four
+  chunks, L 512, with two groups).
 * ``SsdDirFn`` and ``Mamba2InteriorFn`` gradients of every input against
   ``jax.grad`` of ``ssd_dir_xla`` and ``_interior_xla``.
 
@@ -123,6 +124,26 @@ def test_mixer2_residuals_match_pallas(reverse):
     assert len(got) == len(want) == 6
     for name, gv, wv in zip(("u", "accx", "accB", "accC", "fentry", "y"), got, want):
         assert gv.dtype == (torch.float32), name
+        _close(gv, wv, RES_TOL, name)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_mixer2_residuals_match_pallas_four_chunks(reverse):
+    """K5's training variant at four chunks (L 512), two heads in two groups
+    (each head its own B and C): every chunk but the first starts from a
+    state passed across a chunk boundary, the path of K5's chunk-parallel
+    state pass; against ``_interior_pallas_call(emit_residuals=True)``."""
+    a = _mixer2_case(45 + reverse, R=1, L=512, H=2, NG=2)
+    with pltpu.force_tpu_interpret_mode():
+        want = jmix2._interior_pallas_call(*(jnp.asarray(v) for v in a.values()), N=128,
+                                           eps=1e-5, chunk=128, reverse=reverse,
+                                           emit_residuals=True)
+    got = cuda_mixer2.mamba2_mixer_interior(
+        *(torch.from_numpy(v) for v in a.values()), d_state=128, eps=1e-5, chunk=128,
+        reverse=reverse, emit_residuals=True)
+    assert got[4].shape == (1, 4, 128, 256)
+    for name, gv, wv in zip(("u", "accx", "accB", "accC", "fentry", "y"), got, want):
+        assert gv.dtype == torch.float32, name
         _close(gv, wv, RES_TOL, name)
 
 
