@@ -12,9 +12,11 @@ and training of the ALiBi attention baseline:
 2. build the kernels (one nvcc per source, in parallel);
 3. each kernel against its plain PyTorch version at the main paths' shapes,
    both directions, fp32 and bf16, with its time on the card, the plain
-   version's time and its bound: K1 and K2 at the scoring shape (l20: 256
-   rows x 512 x 768, N=16, R=24); then (3b) K1's hb variant, K2's residual
-   variant and K3 (fused and full-width dt) at the training shape (64 rows);
+   version's time and its bound: K1 (fused dt and dt given) and K2 at the
+   scoring shape (l20: 256 rows x 512 x 768, N=16, R=24), and K1's h0/hfin
+   options (two half-length calls chained give one call's bits); then (3b)
+   K1's hb variant, K2's residual variant and K3 (fused and full-width dt)
+   at the training shape (64 rows);
 4. the full l20 forward (batch 128 windows of 512 bp, seeded weights) with
    the kernels against the plain path in fp32; K2 launches = 2 * n_layer;
 5. a small untied and a unidirectional config through the general mixer
@@ -276,22 +278,46 @@ def phase_kernels(cfg, dev):
                 res["scan_fwd"]["err"] = max(res["scan_fwd"]["err"], compare(
                     f"K1 scan_fwd {dn} fuse={int(fuse)} {'rev' if rev else 'fwd'}",
                     got, want, dn))
-                if dtype == torch.bfloat16 and fuse and rev:
-                    res["scan_fwd"]["ms"] = time_ms(
-                        lambda: cuda_scan.scan_fwd(*args, reverse=True), 10)
-                    res["scan_fwd"]["plain_ms"] = time_ms(
+                if dtype == torch.bfloat16 and rev:
+                    # fused dt in the contract's keys, dt given beside it
+                    r = res["scan_fwd"] if fuse else res["scan_fwd"].setdefault("dt_given", {})
+                    r["ms"] = time_ms(lambda: cuda_scan.scan_fwd(*args, reverse=True), 10)
+                    r["plain_ms"] = time_ms(
                         lambda: cuda_scan.scan_fwd_plain(*args, reverse=True), 2, warmup=1)
-                    s = x.element_size()
-                    nbytes = s * rows * L * (2 * D + R + 2 * N) + 4 * (D * (N + 2) + R * D)
-                    pts = rows * L * D
-                    res["scan_fwd"]["bound"] = bound_ms(
-                        nbytes, pts * (2 * R + 6 * N + 10), pts * (N + 2))
-    for name, r in res.items():
+                    r["bound"] = bound_ms(*scan_fwd_work(rows, L, D, N, R if fuse else 0,
+                                                         x.element_size()))
+                if dtype == torch.bfloat16 and fuse:
+                    scan_chain_check(args, rev, L // 2)
+    for name, r in [*res.items(), ("scan_fwd dt given", res["scan_fwd"]["dt_given"])]:
         b, by, parts = r["bound"]
         log(f"  {name} (bf16, one direction): {r['ms']:.3f} ms; plain {r['plain_ms']:.1f} ms; "
             f"bound {b:.3f} ms by {by} (bytes {parts['bytes'] * 1e3:.3f}, fp32 flops "
             f"{parts['flops'] * 1e3:.3f}, sfu {parts['sfu'] * 1e3:.3f} ms)")
     return res
+
+
+def scan_chain_check(args, rev, split):
+    """K1's carry options at the scan's own shapes: the sequence in two
+    calls chained hfin -> h0 (the later part first for ``rev``) gives the
+    one-call y and final state bit for bit."""
+    import torch
+
+    from plantcaduceus_tpu_torch.ops import cuda_scan
+
+    x, dt, A, Bm, Cm, Dskip, dt_bias, wdt = args
+    L = x.shape[1]
+    full_y, full_h = cuda_scan.scan_fwd(*args, reverse=rev, emit_hfin=True)
+    spans = [(split, L), (0, split)] if rev else [(0, split), (split, L)]
+    h, ys = None, {}
+    for a, b in spans:
+        part = [t[:, a:b].contiguous() for t in (x, dt, Bm, Cm)]
+        ys[a], h = cuda_scan.scan_fwd(part[0], part[1], A, part[2], part[3], Dskip, dt_bias, wdt,
+                                      reverse=rev, h0=h, emit_hfin=True)
+    same = torch.equal(torch.cat([ys[0], ys[split]], 1), full_y) and torch.equal(h, full_h)
+    log(f"  K1 h0/hfin {'rev' if rev else 'fwd'}: {split} + {L - split} steps chained "
+        f"{'equal' if same else 'DIFFER from'} one call bit for bit")
+    if not same:
+        fail("K1's chained halves differ from the one-call scan")
 
 
 def phase_train_kernels(cfg, dev):
@@ -362,9 +388,7 @@ def phase_train_kernels(cfg, dev):
                     timed("scan_fwd_hb", dn,
                           lambda: cuda_scan.scan_fwd(*args, hb_chunk=HB_CHUNK),
                           lambda: cuda_scan.scan_fwd_plain(*args, hb_chunk=HB_CHUNK),
-                          s * rows * L * (2 * D + R + 2 * N) + hb_bytes
-                          + 4 * (D * (N + 2) + R * D),
-                          pts * (2 * R + 6 * N + 10), pts * (N + 2))
+                          *scan_fwd_work(rows, L, D, N, R, s, HB_CHUNK))
 
         # K2-res: y and acc in xi's dtype; dt_lr | B | C and hb float32.
         for g in (0, 1):
@@ -418,6 +442,20 @@ def split_note(r, dn):
     if not split:
         return ""
     return "; by kernel " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms"
+
+
+def scan_fwd_work(rows, L, D, N, R, s, hbc=None):
+    """What one direction of K1 must do, counted from the shapes: bytes
+    (x, dt, B, C read once in ``s`` bytes, y written once; A, Dskip,
+    dt_bias and W_dt float32; with ``hbc`` the float32 states every
+    ``hbc`` steps), fp32 flops and special-function ops (per state its
+    exp2; per (step, channel) softplus's exp and log1p). ``R`` is the dt
+    rank when dt is fused, 0 when dt is given at full width."""
+    pts = rows * L * D
+    nbytes = s * rows * L * (2 * D + (R or D) + 2 * N) + 4 * (D * (N + 2) + R * D)
+    if hbc:
+        nbytes += 4 * rows * -(-L // hbc) * D * N
+    return nbytes, pts * (2 * R + 6 * N + 10), pts * (N + 2)
 
 
 def scan_bwd_work(rows, L, D, N, R, s, hbc=16):
@@ -511,7 +549,7 @@ def phase_ssd_kernels(dev):
     log(f"phase 3c: SSD kernels vs plain versions (l20-ssd: {rows} rows x {L} x "
         f"{cfg.d_inner}, H {cfg.n_heads}, P = N = chunk = 128)")
     gen = torch.Generator(device=dev).manual_seed(13)
-    res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}}
+    res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}, "split_ms": {}}
            for k in ("ssd_fwd", "mixer2_fwd")}
     kw = dict(d_state=cfg.d_state, eps=cfg.norm_epsilon, chunk=cfg.chunk_size)
 
@@ -546,6 +584,7 @@ def phase_ssd_kernels(dev):
                 del got, want
             args = make(1)
             res[name]["ms"][dn] = time_ms(lambda: kern(args, True), 10)
+            res[name]["split_ms"][dn] = device_ms_by_kernel(lambda: kern(args, True))
             res[name]["plain_ms"][dn] = time_ms(lambda: plain(args, True), 2, warmup=1)
             res[name]["bound"][dn] = work_bound(
                 ssd_work(rows, L, cfg.n_heads, cfg.n_groups, dtype.itemsize, mixer=mixer), dn)
@@ -555,7 +594,8 @@ def phase_ssd_kernels(dev):
             log(f"  {name} ({dn}, one direction): {r['ms'][dn]:.3f} ms; plain "
                 f"{r['plain_ms'][dn]:.1f} ms; bound {b:.3f} ms by {by} (bytes "
                 f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, sfu "
-                f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)")
+                f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)"
+                f"{split_note(r, dn)}")
 
     # K4's own entry point, one launch per direction, counted (no model path
     # of the port launches K4: its core runs inside every K5 launch).
@@ -635,7 +675,7 @@ def phase_ssd_train_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(17)
     names = ("ssd_fwd_fentry", "mixer2_fwd_res", "ssd_bwd", "ssd_bwd_pre_silu")
     res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "bound": {}} for k in names}
-    for k in ("mixer2_fwd_res", "ssd_bwd", "ssd_bwd_pre_silu"):
+    for k in ("ssd_fwd_fentry", "mixer2_fwd_res", "ssd_bwd", "ssd_bwd_pre_silu"):
         res[k]["split_ms"] = {}
     kw = dict(d_state=N, eps=cfg.norm_epsilon, chunk=cfg.chunk_size)
     T = cfg.chunk_size
@@ -1865,9 +1905,14 @@ def main():
     for name in ("mixer_fwd", "scan_fwd"):
         r = kres[name]
         b, by, _ = r["bound"]
+        extra = {}
+        if "dt_given" in r:  # K1 with dt given at full width, beside the fused mode
+            g = r["dt_given"]
+            extra["dt_given"] = dict(ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound"][0],
+                                     bound_by=g["bound"][1])
         kernels.append(dict(name=name, route="cuda", **meta[name], max_abs_err=r["err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b, bound_by=by,
-                            library_ms=None))
+                            library_ms=None, **extra))
     # The training variants and K3: the bf16 numbers (the trainer's dtype)
     # in the contract's keys, the fp32 ones beside them.
     for name, r in [(n, tres[n]) for n in ("mixer_fwd_res", "scan_fwd_hb", "scan_bwd")] + \

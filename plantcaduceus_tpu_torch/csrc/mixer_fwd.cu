@@ -22,31 +22,28 @@
 //      (two 16-byte shared loads per 4 TN FMAs). Float32 FMA products (the
 //      TPU's float32 dot, no TF32); each output is summed by one thread over
 //      D in order, so results are deterministic (no atomics).
-//  (b) mix_scan_kernel: one thread per channel with its N states in
-//      registers, walking time in processing order (L-1 -> 0 for `reverse`,
-//      no flipped copies) in chunks of 8 steps. Per chunk the thread first
-//      computes the chunk's per-step inputs in registers, with no dependence
-//      between steps: xg by the conv from a window of xi taps carried across
-//      chunks, dt = dt_lr . W_dt[:, d] as an outer product over r (the
-//      chunk's dt_lr rows staged transposed, one 16-byte load serving four
-//      steps); then runs the recurrence. The B, C and dt_lr rows of the next
-//      chunk are loaded while this one computes (two buffers, one barrier a
-//      chunk).
+//  (b) scan_core.cuh's scan_fwd_kernel, the forward scan K1 also runs,
+//      with this file's MixConvSrc as its input policy: one thread per
+//      channel with its N states in registers, walking time in processing
+//      order (L-1 -> 0 for `reverse`, no flipped copies) in chunks of 8
+//      steps. Per chunk the thread first computes the chunk's per-step
+//      inputs in registers, with no dependence between steps: xg by the conv
+//      from a window of xi taps carried across chunks, dt = dt_lr . W_dt[:, d]
+//      as an outer product over r; then runs the recurrence. The B, C and
+//      dt_lr rows of the next chunk are loaded while this one computes.
 // Every sum runs in one fixed order: the conv's bias first and then its
 // taps, the dt projection over r, the x_proj over D, and the recurrence and
-// readout of scan_core.cuh's scan_step (K1's), so K3 recomputes the same
-// states. A lane per (channel, state) with the readout deferred to a
-// reduce-scatter (K3's layout) issues about twice the instructions per state
-// and step: at l20 training it ran this scan at 0.86 ms against this
-// layout's 0.54 ms (PERF.md).
+// readout of scan_core.cuh, so K3 recomputes the same states. A lane per
+// (channel, state) with the readout deferred to a reduce-scatter (K3's
+// layout) issues about twice the instructions per state and step: at l20
+// training it ran this scan at 0.86 ms against this layout's 0.54 ms
+// (PERF.md).
 //
 // What bounds it on an H100: the scan's exp2 per state (1.6e9 at l20,
 // 256x512x768x16: about 0.4 ms on the special-function units) ahead of the
 // fp32 FMAs (~2.2e10 flops with the x_proj product: 0.33 ms at 67 TFLOP/s)
-// and of the bytes xi and y must move (0.13 ms in bf16). The scan issues
-// about 250 instructions per (step, channel) (16 states, the softplus, the
-// dt projection) at 12 warps an SM, so issue and latency, not the exp2
-// alone, set its pace.
+// and of the bytes xi and y must move (0.13 ms in bf16). The scan's issue
+// rate and latency, not the exp2 alone, set its pace (scan_core.cuh).
 //
 // Plain C interface for ctypes; launches on the caller's stream, allocates
 // nothing (the dbc scratch comes from the wrapper) and returns
@@ -61,8 +58,6 @@ constexpr int kXpThreads = 256;
 constexpr int kXpT = 64;        // time steps per block of (a)
 constexpr int kXpTld = kXpT + 4;  // row stride of the transposed xg tile (16-byte rows)
 constexpr int kXpC = 32;        // channels per pass of (a)
-constexpr int kMsThreads = 128;  // channels per block of (b)
-constexpr int kMsT = 8;          // steps per chunk of (b), its scalars in registers
 
 // (a) shared memory: the xi window [kXpT + K - 1][kXpC], xg^T [kXpC][kXpTld]
 // and the W pass [kXpC][16 TN].
@@ -167,120 +162,62 @@ struct MixScanArgs {
   const float* conv_w;   // [D, K]
   const float* conv_b;   // [D]
   const float* dbc;      // [rows, L, J]: dt_lr | B | C, J = R + 2N
-  const float* wdt;      // [R, D]
-  const float* dt_bias;  // [D]
-  const float* A;        // [D, N]
-  const float* Dskip;    // [D]
-  void* y;               // [rows, L, D]
-  float* hb;             // [rows, ceil(L/hbc), D, N] chunk-entry states, or nullptr
-  int L, D, R, K, reverse, hbc;
+  int K, J;
 };
 
-// (b) shared memory: two buffers of a chunk's rows (B [kMsT][N], C [kMsT][N],
-// dt_lr^T [R][kMsT]) and the block's W_dt columns [R][kMsThreads].
-__host__ __device__ inline int ms_buf_floats(int N, int R) { return kMsT * (2 * N + R); }
-inline size_t ms_smem_bytes(int N, int R) {
-  return sizeof(float) * (2 * ms_buf_floats(N, R) + (size_t)R * kMsThreads);
-}
-
-// KT: registers for the conv taps (K <= KT; the K given taps in the conv's
-// order, zero taps around them, which leaves every sum as it is).
-template <typename T, int N, int KT, bool HB>
-__global__ void __launch_bounds__(kMsThreads, 4) mix_scan_kernel(MixScanArgs a) {
-  constexpr int TC = kMsT;
-  constexpr int NR = 8;  // row values a thread stages: kMsT (2N + R) <= 1024 as R + 2N <= 128
-  extern __shared__ float4 ms_smem4[];
-  const int L = a.L, D = a.D, R = a.R, K = a.K, J = R + 2 * N;
-  const int RW = ms_buf_floats(N, R);
-  float* sbuf = reinterpret_cast<float*>(ms_smem4);  // [2][RW]
-  float* sW = sbuf + 2 * RW;                         // [R][kMsThreads]
-  const int tid = threadIdx.x;
-  const long long row = blockIdx.y;
-  const int d0 = blockIdx.x * kMsThreads, d = d0 + tid;
-  const bool live = d < D;
-  const T* x = static_cast<const T*>(a.xi) + row * (long long)L * D;
-  T* y = static_cast<T*>(a.y) + row * (long long)L * D;
-  const float* dbc = a.dbc + row * (long long)L * J;
-  auto time_of = [&](int p) { return a.reverse ? L - 1 - p : p; };
-  for (int i = tid; i < R * kMsThreads; i += kMsThreads) {
-    const int c = d0 + i % kMsThreads;
-    sW[i] = c < D ? a.wdt[(long long)(i / kMsThreads) * D + c] : 0.f;
-  }
-  float A[N], h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    A[n] = live ? a.A[(long long)d * N + n] : 0.f;
-    h[n] = 0.f;
-  }
-  const float bias = live ? a.dt_bias[d] : 0.f;
-  const float dsk = live ? a.Dskip[d] : 0.f;
-  const float cb = live ? a.conv_b[d] : 0.f;
+// (b)'s input policy for scan_core.cuh's scan_fwd_kernel: xg by the conv
+// from a window of xi taps carried across chunks, the B | C | dt_lr rows
+// from (a)'s dbc. KT: registers for the conv taps (K <= KT; the K given taps
+// in the conv's order, zero taps around them, which leaves every sum as it
+// is).
+template <typename T, int KT>
+struct MixConvSrc {
+  using Args = MixScanArgs;
+  using Raw = float;
+  static constexpr bool kFuse = true;
+  static constexpr int TC = kFwdT;
+  const T* x;
+  const float* dbc;
+  int L, D, J, d, reverse;
+  bool live;
+  float cb;
   // Taps in window order: the window's slot KT - 1 + k is this chunk's step
   // k in processing order (u[p] = x[time_of(p)], 0 before the start), so a
   // causal step reads slots k .. k + KT - 1 oldest first and a reverse step
   // reads them newest first, each in the conv's order.
-  float wt[KT];
+  float wt[KT], win[KT - 1 + TC];
+  __device__ MixConvSrc(const Args& m, const ScanFwdArgs& a, long long row, int d_, bool live_)
+      : L(a.L), D(a.D), J(m.J), d(d_), reverse(a.reverse), live(live_) {
+    x = static_cast<const T*>(m.xi) + row * L * D;
+    dbc = m.dbc + row * L * J;
+    const int K = m.K;
+    cb = live ? m.conv_b[d] : 0.f;
 #pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    float v = 0.f;
-    if (live) {
-      if (!a.reverse && j >= KT - K) v = a.conv_w[(long long)d * K + j - (KT - K)];
-      if (a.reverse && j < K) v = a.conv_w[(long long)d * K + K - 1 - j];
-    }
-    wt[j] = v;
-  }
-  float* hb = HB ? a.hb + row * (long long)((L + a.hbc - 1) / a.hbc) * D * N : nullptr;
-  const int hmask = a.hbc - 1;  // hbc a power of two <= 16
-
-  // A chunk's B | C | dt_lr^T rows: element i of a buffer, for the chunk at p0.
-  float rr[NR];
-  auto load_rows = [&](int p0) {
-#pragma unroll
-    for (int u = 0; u < NR; ++u) {
-      const int i = tid + u * kMsThreads;
-      int k, col;
-      if (i < 2 * TC * N) {
-        k = (i % (TC * N)) / N;
-        col = R + (i >= TC * N ? N : 0) + i % N;
-      } else {
-        k = (i - 2 * TC * N) % TC;
-        col = (i - 2 * TC * N) / TC;
+    for (int j = 0; j < KT; ++j) {
+      float v = 0.f;
+      if (live) {
+        if (!reverse && j >= KT - K) v = m.conv_w[(long long)d * K + j - (KT - K)];
+        if (reverse && j < K) v = m.conv_w[(long long)d * K + K - 1 - j];
       }
-      const int p = p0 + k;
-      rr[u] = (i < RW && p < L) ? dbc[(long long)time_of(p) * J + col] : 0.f;
+      wt[j] = v;
     }
-  };
-  auto store_rows = [&](float* buf) {
 #pragma unroll
-    for (int u = 0; u < NR; ++u)
-      if (tid + u * kMsThreads < RW) buf[tid + u * kMsThreads] = rr[u];
-  };
-
-  float win[KT - 1 + TC];
-#pragma unroll
-  for (int j = 0; j < KT - 1; ++j) win[j] = 0.f;
-  load_rows(0);
-  store_rows(sbuf);
-  const int nchunks = (L + TC - 1) / TC;
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int p0 = ci * TC;
-    const float* sB = sbuf + (ci & 1) * RW;  // [TC][N]
-    const float* sC = sB + TC * N;           // [TC][N]
-    const float* sdt = sC + TC * N;          // [R][TC]
-    __syncthreads();  // this chunk's rows are staged; the other buffer is free
-    if (ci + 1 < nchunks) load_rows(p0 + TC);
-    // The chunk's inputs and per-step scalars, in registers: xg by the conv,
-    // dt = dt_lr . W_dt[:, d] (each step's sum over r in order), dt'.
+    for (int j = 0; j < KT - 1; ++j) win[j] = 0.f;
+  }
+  __device__ float row(long long t, int j) const { return dbc[t * J + j]; }
+  __device__ void prefetch(int) {}
+  // The chunk's xg: the conv of each step in order, then the window moves on.
+  __device__ void x_chunk(int p0, float (&xv)[TC]) {
 #pragma unroll
     for (int k = 0; k < TC; ++k) {
       const int p = p0 + k;
-      win[KT - 1 + k] = (live && p < L) ? to_f(x[(long long)time_of(p) * D + d]) : 0.f;
+      win[KT - 1 + k] =
+          (live && p < L) ? to_f(x[(long long)(reverse ? L - 1 - p : p) * D + d]) : 0.f;
     }
-    float xv[TC], dv[TC];
 #pragma unroll
     for (int k = 0; k < TC; ++k) {
       float s = cb;
-      if (!a.reverse) {
+      if (!reverse) {
 #pragma unroll
         for (int j = 0; j < KT; ++j) s = fmaf(win[k + j], wt[j], s);
       } else {
@@ -288,74 +225,11 @@ __global__ void __launch_bounds__(kMsThreads, 4) mix_scan_kernel(MixScanArgs a) 
         for (int j = 0; j < KT; ++j) s = fmaf(win[k + KT - 1 - j], wt[j], s);
       }
       xv[k] = silu_xg(s);
-      dv[k] = 0.f;
-    }
-#pragma unroll 2
-    for (int r = 0; r < R; ++r) {
-      const float w = sW[r * kMsThreads + tid];
-#pragma unroll
-      for (int k = 0; k < TC; k += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(sdt + r * TC + k);
-        dv[k] = fmaf(q.x, w, dv[k]);
-        dv[k + 1] = fmaf(q.y, w, dv[k + 1]);
-        dv[k + 2] = fmaf(q.z, w, dv[k + 2]);
-        dv[k + 3] = fmaf(q.w, w, dv[k + 3]);
-      }
-    }
-    // The recurrence and readout: scan_core.cuh's scan_step, its arithmetic
-    // and order.
-#pragma unroll
-    for (int k = 0; k < TC; ++k) {
-      const int p = p0 + k;
-      if constexpr (HB) {
-        if ((p & hmask) == 0 && p < L && live)
-          store_state<N>(hb + ((long long)(p / a.hbc) * D + d) * N, h);
-      }
-      const float dtp = p < L ? softplus(dv[k] + bias) : 0.f;
-      const float dtl = dtp * kLog2e, dtx = dtp * xv[k];
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < N; n += 4) {
-        const float4 b4 = *reinterpret_cast<const float4*>(sB + k * N + n);
-        const float4 c4 = *reinterpret_cast<const float4*>(sC + k * N + n);
-        const float bv[4] = {b4.x, b4.y, b4.z, b4.w}, cv[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          h[n + e] = fmaf(exp2f(dtl * A[n + e]), h[n + e], bv[e] * dtx);
-          acc = fmaf(cv[e], h[n + e], acc);
-        }
-      }
-      if (live && p < L) y[(long long)time_of(p) * D + d] = from_f<T>(fmaf(xv[k], dsk, acc));
     }
 #pragma unroll
     for (int j = 0; j < KT - 1; ++j) win[j] = win[TC + j];
-    if (ci + 1 < nchunks) store_rows(sbuf + ((ci + 1) & 1) * RW);
   }
-}
-
-template <typename T, int N, int KT>
-cudaError_t launch_mix_scan_n(const MixScanArgs& a, int rows, cudaStream_t s) {
-  const size_t smem = ms_smem_bytes(N, a.R);
-  auto kern = a.hb ? mix_scan_kernel<T, N, KT, true> : mix_scan_kernel<T, N, KT, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<dim3((a.D + kMsThreads - 1) / kMsThreads, rows), kMsThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, int KT>
-cudaError_t launch_mix_scan(const MixScanArgs& a, int N, int rows, cudaStream_t s) {
-  switch (N) {
-    case 4: return launch_mix_scan_n<T, 4, KT>(a, rows, s);
-    case 8: return launch_mix_scan_n<T, 8, KT>(a, rows, s);
-    case 16: return launch_mix_scan_n<T, 16, KT>(a, rows, s);
-    case 32: return launch_mix_scan_n<T, 32, KT>(a, rows, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
+};
 
 template <typename T>
 cudaError_t launch_mixer(const void* xi, const float* conv_w, const float* conv_b,
@@ -380,11 +254,13 @@ cudaError_t launch_mixer(const void* xi, const float* conv_w, const float* conv_
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  MixScanArgs a;
-  a.xi = xi; a.conv_w = conv_w; a.conv_b = conv_b; a.dbc = dbc; a.wdt = wdt;
-  a.dt_bias = dt_bias; a.A = A; a.Dskip = Dskip; a.y = y; a.hb = hb;
-  a.L = L; a.D = D; a.R = R; a.K = K; a.reverse = reverse; a.hbc = hbc > 0 ? hbc : 1;
-  return K <= 4 ? launch_mix_scan<T, 4>(a, N, Bn, s) : launch_mix_scan<T, kMaxK>(a, N, Bn, s);
+  ScanFwdArgs a;
+  a.y = y; a.A = A; a.Dskip = Dskip; a.dt_bias = dt_bias; a.wdt = wdt;
+  a.hb = hb; a.h0 = nullptr; a.hfin = nullptr;
+  a.L = L; a.D = D; a.R = R; a.reverse = reverse; a.hbc = hbc > 0 ? hbc : 1;
+  const MixScanArgs m{xi, conv_w, conv_b, dbc, K, J};
+  return K <= 4 ? launch_scan_fwd<T, MixConvSrc<T, 4>>(a, m, N, Bn, s)
+                : launch_scan_fwd<T, MixConvSrc<T, kMaxK>>(a, m, N, Bn, s);
 }
 
 }  // namespace pc

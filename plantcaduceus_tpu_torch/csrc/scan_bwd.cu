@@ -74,6 +74,17 @@ constexpr int kMaxHbChunk = 16;  // steps whose decays and states a lane keeps i
 
 template <int N> __host__ __device__ constexpr int bwd_channels() { return kBwdThreads / N; }
 
+// Fused dt of one step: the dt_lr row (shared) against this channel's
+// column of the W_dt tile (shared, row stride `wstride`), summed over r in
+// order from 0, the order of the forward's outer product (scan_core.cuh), so
+// the recomputed states are the forward's bit for bit.
+__device__ __forceinline__ float fused_dt(const float* sdt_row, const float* sW,
+                                          int R, int wstride, int tid) {
+  float v = 0.f;
+  for (int r = 0; r < R; ++r) v = fmaf(sdt_row[r], sW[r * wstride + tid], v);
+  return v;
+}
+
 // One level of group_reduce_scatter: lanes with bit M set keep the upper
 // half of v[0..2H), the others the lower half, each adding its partner's.
 template <int M, int H, int V>

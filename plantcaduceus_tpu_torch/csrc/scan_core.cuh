@@ -1,24 +1,57 @@
-// Selective-scan forward, shared device code of K1 (scan_fwd.cu) and the
-// scan half of K2 (mixer_fwd.cu).
+// Selective-scan forward: the device routine of K1 (scan_fwd.cu) and of the
+// scan half of K2 (mixer_fwd.cu), one kernel template over an input policy.
 //
 // Math (per row, channel d, state n), the same as
 // plantcaduceus_tpu/ops/pallas_scan.py::_fwd_kernel:
-//   dt'  = softplus(dt + dt_bias)     dt = dt_lr . W_dt[:, d] when FUSE
+//   dt'  = softplus(dt + dt_bias)     dt = dt_lr . W_dt[:, d] when fused
 //   h_n  = exp2(dt' * log2e * A[d,n]) * h_n + B[t,n] * dt' * x[t,d]
 //   y    = sum_n C[t,n] * h_n + Dskip[d] * x[t,d]
 //
 // Layout (that of the mamba_ssm forward, not the TPU kernel's block walk):
-// a block owns (row, tile of kScanThreads channels); each thread owns one
-// channel and keeps its N fp32 states in registers while it walks time in
-// order, L-1 down to 0 when `reverse` is set, so no flipped copy of any
-// tensor exists. B, C (and dt_lr) rows of each time chunk are shared by
-// every channel, so the block stages them in shared memory once per chunk;
-// the W_dt tile sits in shared memory for the whole run.
+// a block owns (row, kFwdThreads channels); each thread owns one channel,
+// keeps its N float32 states in registers and walks time in processing
+// order (L-1 down to 0 for `reverse`, no flipped copy of any tensor) in
+// chunks of kFwdT steps. Per chunk it first forms the chunk's per-step
+// inputs in registers, with no dependence between steps: x (the policy's:
+// K1 loads it, prefetched a chunk ahead; K2 convolves it from xi's taps),
+// dt (the policy's, or dt_lr . W_dt[:, d] as an outer product over r: the
+// chunk's dt_lr rows staged transposed, one 16-byte shared load serving
+// four steps, the block's W_dt columns in shared memory), dt' and its two
+// products; then it runs the recurrence over the chunk's steps. The B, C
+// (and dt_lr) rows of a chunk are shared by every channel: the block stages
+// them in shared memory, read back as float4, and loads the next chunk's
+// rows into registers while this one computes (two buffers, one barrier a
+// chunk).
 //
-// Training variant (hb != nullptr): before processing step p (counted in
-// processing order) with p % hbc == 0, the thread stores its N states to
-// hb[row][p / hbc][d][:], as pallas_scan.py's emit_hb (hb [rows, L/chunk,
-// D, N], processing order). K3 (scan_bwd.cu) recomputes each chunk from it.
+// Every sum runs in one fixed order, the recurrence and readout
+// h = fmaf(exp2f(dtl * A), h, B * dtx), acc = fmaf(C, h, acc) over n in
+// order, the dt projection over r in order from 0, so K3 (scan_bwd.cu)
+// recomputes the same states from hb, and K1 and K2 give the bits of their
+// earlier single-purpose kernels. exp2f is MUFU.EX2 with a fix-up around it
+// for arguments below -126 (halve, MUFU.EX2, square: three more
+// instructions, issued for every state and step). A chunk whose smallest
+// argument, dtl_max * A_min, is not below -126 in every lane of the warp
+// takes MUFU.EX2 alone (ex2.approx.ftz.f32), which gives the same bits
+// there; a warp with any steeper lane runs that chunk through exp2f as it
+// is, so no warp issues both recurrences. (With the initialiser's weights
+// no chunk is that steep: a state that decays more than 2^-126 in one step
+// is forgotten. How often trained weights give such chunks is not measured.)
+//
+// Options (null pointers when unused): hb, the training variant's
+// chunk-entry states, stored before processing step p (counted in
+// processing order) when p % hbc == 0 to hb[row][p / hbc][d][:] (the
+// layout of pallas_scan.py's emit_hb, which K3 recomputes from); h0
+// [rows, D, N] seeds the states before the first processed step, and hfin
+// [rows, D, N] receives them after the last (pallas_scan.py:93-95, 179).
+//
+// What bounds it on an H100: one exp2 per (row, step, channel, state) on
+// the special-function units (1.6e9 at the l20 scoring shape 256 x 512 x
+// 768 x 16: ~0.4 ms at 16 a clock per SM), against ~0.13 ms of bytes in
+// bf16. The recurrence issues about six instructions per state and step
+// (the exponent's product, MUFU.EX2, B * dt' x, two FMAs, a 16-byte shared
+// load per four B and four C values) plus the per-step work spread over
+// the N states (softplus, the dt projection, x, y), so issue and latency
+// set its pace next to the exp2 rate.
 
 #pragma once
 
@@ -26,11 +59,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pc {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kScanThreads = 128;  // channels per block
-constexpr int kScanChunk = 64;     // time steps staged per shared-memory pass
+constexpr int kFwdThreads = 128;  // channels per block, one a thread
+constexpr int kFwdT = 8;          // steps per chunk, their scalars in registers
+// Blocks an SM (__launch_bounds__): the inference variant at most 128
+// registers a thread; the training variant (hb), whose grid at the l20
+// training shape fills three blocks an SM anyway, at most 168.
+constexpr int kFwdMinBlocks = 4;
+constexpr int kFwdMinBlocksHb = 3;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -45,36 +85,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // jax.nn.softplus to float32 rounding.
 __device__ __forceinline__ float softplus(float x) { return x > 20.f ? x : log1pf(expf(x)); }
 
-// Fused dt: the dt_lr row of one step (shared) against this channel's
-// column of the W_dt tile (shared, row stride `wstride`). Forward and
-// backward call this one function, so the backward's recomputed states are
-// bit-identical to the forward's.
-__device__ __forceinline__ float fused_dt(const float* sdt_row, const float* sW,
-                                          int R, int wstride, int tid) {
-  float v = 0.f;
-  for (int r = 0; r < R; ++r) v = fmaf(sdt_row[r], sW[r * wstride + tid], v);
-  return v;
-}
-
-// One step of the recurrence for one channel: h = exp2(dt'*log2e*A) * h +
-// B*dt'*x. With Y, also returns the readout sum_n C[n]*h[n], in the same
-// loop (the forward); without, returns 0 (K3's recompute).
-template <int N, bool Y>
-__device__ __forceinline__ float scan_step(float (&h)[N], const float (&A)[N],
-                                           const float* sBrow, const float* sCrow,
-                                           float dtp, float xv) {
-  const float dtl = dtp * kLog2e;
-  const float dtx = dtp * xv;
-  float acc = 0.f;
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    h[n] = fmaf(exp2f(dtl * A[n]), h[n], sBrow[n] * dtx);
-    if constexpr (Y) acc = fmaf(sCrow[n], h[n], acc);
-  }
-  return acc;
-}
-
-// N fp32 states to / from hb (N % 4 == 0; each thread's N floats are 16-byte aligned).
+// N float32 states to or from memory (N % 4 == 0; 16-byte aligned).
 template <int N>
 __device__ __forceinline__ void store_state(float* dst, const float (&h)[N]) {
 #pragma unroll
@@ -91,119 +102,223 @@ __device__ __forceinline__ void load_state(float (&h)[N], const float* src) {
   }
 }
 
-struct ScanArgs {
-  const void* x;      // [rows, L, D]
-  const void* dt;     // dt [rows, L, D], or dt_lr with R columns when FUSE
-  const void* B;      // B[t, n] at B + row*bc_row + t*bc_step + n
-  const void* C;
-  const float* A;     // [D, N]
-  const float* Dskip; // [D]
-  const float* dt_bias;  // [D]
-  const float* wdt;   // [R, D] when FUSE
-  void* y;            // [rows, L, D]
-  float* hb;          // [rows, ceil(L/hbc), D, N] chunk-entry states, or nullptr
-  int L, D, R, reverse, hbc;
-  long long dt_row, dt_step, bc_row, bc_step;  // element strides
-};
-
-inline size_t scan_smem_bytes(int N, int R, bool fuse) {
-  return sizeof(float) *
-         (2 * kScanChunk * N + (fuse ? kScanChunk * R + R * kScanThreads : 0));
+// MUFU.EX2 alone: exp2f's bits for arguments >= -126.
+__device__ __forceinline__ float ex2_ftz(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
 }
 
-// HB: the training variant, chosen at launch from a.hb, so the inference
-// kernel carries no per-step test for it.
-template <typename Tx, typename Tb, typename Ty, int N, bool FUSE, bool HB>
-__global__ void __launch_bounds__(kScanThreads) scan_kernel(ScanArgs a) {
-  extern __shared__ float smem[];
-  float* sB = smem;                   // [kScanChunk][N]
-  float* sC = sB + kScanChunk * N;    // [kScanChunk][N]
-  float* sdt = sC + kScanChunk * N;   // [kScanChunk][R]
-  float* sW = sdt + kScanChunk * a.R; // [R][kScanThreads]
+struct ScanFwdArgs {
+  void* y;               // [rows, L, D] in the input dtype
+  const float* A;        // [D, N]
+  const float* Dskip;    // [D]
+  const float* dt_bias;  // [D]
+  const float* wdt;      // [R, D] when dt is fused
+  float* hb;             // [rows, ceil(L/hbc), D, N] chunk-entry states, or null
+  const float* h0;       // [rows, D, N] initial states, or null (zeros)
+  float* hfin;           // [rows, D, N] final states, or null
+  int L, D, R, reverse, hbc;  // R = 0 when dt is given per channel
+};
+
+// A chunk's shared rows: B [kFwdT][N], C [kFwdT][N], dt_lr^T [R][kFwdT].
+__host__ __device__ inline int fwd_row_floats(int N, int R) { return kFwdT * (2 * N + R); }
+// Two buffers of rows and the block's W_dt columns [R][kFwdThreads].
+inline size_t fwd_smem_bytes(int N, int R) {
+  return sizeof(float) * (2 * fwd_row_floats(N, R) + (size_t)R * kFwdThreads);
+}
+
+// The forward scan over one (row, block of channels). Src, the input
+// policy, is built per thread as Src(args, a, row, d, live) and gives:
+//   kFuse                      dt = dt_lr . W_dt[:, d] (a.R columns) or given;
+//   Raw, row(t, j)             element j of step t's shared row (j < R:
+//                              dt_lr, then B's N, then C's N) as loaded
+//                              (Raw: float or bfloat16); made float only
+//                              when it is stored to shared memory, at the
+//                              chunk's end (a bfloat16 converted at its load
+//                              stalled every chunk on device memory: bf16
+//                              K1-hb 13% behind fp32 on the H100, PERF.md);
+//   x_chunk(p0, xv)            x of processing steps p0 .. p0+kFwdT-1 (0 past
+//                              L), called once a chunk, in order;
+//   dt_chunk(p0, dv)           dt of those steps (unfused), likewise;
+//   prefetch(p0)               start loading what x_chunk / dt_chunk of the
+//                              chunk at p0 (the next one) need.
+// HB: the training variant, chosen at launch, so the inference kernel
+// carries no per-step test for it.
+template <typename T, int N, bool HB, class Src>
+__global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlocks)
+    scan_fwd_kernel(ScanFwdArgs a, typename Src::Args sa) {
+  // Row values a thread prefetches: all of them (16N) when dt is given; with
+  // fused dt those of 2N + R <= 64 (N <= 16) or <= 128 columns, the rest
+  // loaded as they are stored.
+  constexpr int TC = kFwdT;
+  constexpr int NR = !Src::kFuse ? (N >= 8 ? N / 8 : 1) : N <= 16 ? 4 : 8;
+  extern __shared__ float4 fwd_smem4[];
+  const int L = a.L, D = a.D, R = Src::kFuse ? a.R : 0;
+  const int RW = fwd_row_floats(N, R);
+  float* sbuf = reinterpret_cast<float*>(fwd_smem4);  // [2][RW]
+  float* sW = sbuf + 2 * RW;                          // [R][kFwdThreads]
   const int tid = threadIdx.x;
   const long long row = blockIdx.y;
-  const int d0 = blockIdx.x * kScanThreads;
-  const int d = d0 + tid;
-  const bool live = d < a.D;
-  const long long xrow = row * (long long)a.L * a.D;
-  const Tx* x = static_cast<const Tx*>(a.x) + xrow;
-  Ty* y = static_cast<Ty*>(a.y) + xrow;
-  const Tb* dt = static_cast<const Tb*>(a.dt) + row * a.dt_row;
-  const Tb* Bm = static_cast<const Tb*>(a.B) + row * a.bc_row;
-  const Tb* Cm = static_cast<const Tb*>(a.C) + row * a.bc_row;
-
-  if (FUSE) {
-    for (int i = tid; i < a.R * kScanThreads; i += kScanThreads) {
-      const int r = i / kScanThreads, c = d0 + i % kScanThreads;
-      sW[i] = c < a.D ? a.wdt[(long long)r * a.D + c] : 0.f;
-    }
+  const int d0 = blockIdx.x * kFwdThreads, d = d0 + tid;
+  const bool live = d < D;
+  Src src(sa, a, row, d, live);
+  T* y = static_cast<T*>(a.y) + row * (long long)L * D;
+  auto time_of = [&](int p) { return a.reverse ? L - 1 - p : p; };
+  for (int i = tid; i < R * kFwdThreads; i += kFwdThreads) {
+    const int c = d0 + i % kFwdThreads;
+    sW[i] = c < D ? a.wdt[(long long)(i / kFwdThreads) * D + c] : 0.f;
   }
   float A[N], h[N];
+  float amin = 0.f;  // min(A[d, :], 0): dtl * amin is the chunk's smallest exponent
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     A[n] = live ? a.A[(long long)d * N + n] : 0.f;
+    amin = fminf(amin, A[n]);
     h[n] = 0.f;
   }
+  if (a.h0 && live) load_state<N>(h, a.h0 + (row * D + d) * N);
   const float bias = live ? a.dt_bias[d] : 0.f;
   const float dsk = live ? a.Dskip[d] : 0.f;
-  float* hb = HB ? a.hb + row * (long long)((a.L + a.hbc - 1) / a.hbc) * a.D * N : nullptr;
+  float* hb = HB ? a.hb + row * (long long)((L + a.hbc - 1) / a.hbc) * D * N : nullptr;
 
-  const int nchunks = (a.L + kScanChunk - 1) / kScanChunk;
+  // Element i of the rows of the chunk at p0 (zero past L).
+  using Raw = typename Src::Raw;
+  auto elem = [&](int i, int p0) -> Raw {
+    int k, col;
+    if (i < 2 * TC * N) {
+      k = (i % (TC * N)) / N;
+      col = R + (i >= TC * N ? N : 0) + i % N;
+    } else {
+      k = (i - 2 * TC * N) % TC;
+      col = (i - 2 * TC * N) / TC;
+    }
+    const int p = p0 + k;
+    return p < L ? src.row(time_of(p), col) : from_f<Raw>(0.f);
+  };
+  Raw rr[NR];
+  auto load_rows = [&](int p0) {
+#pragma unroll
+    for (int u = 0; u < NR; ++u) {
+      const int i = tid + u * kFwdThreads;
+      rr[u] = i < RW ? elem(i, p0) : from_f<Raw>(0.f);
+    }
+  };
+  auto store_rows = [&](float* buf, int p0) {
+#pragma unroll
+    for (int u = 0; u < NR; ++u)
+      if (tid + u * kFwdThreads < RW) buf[tid + u * kFwdThreads] = to_f(rr[u]);
+    // rows past the prefetch's reach, loaded as they are stored
+    for (int i = tid + NR * kFwdThreads; i < RW; i += kFwdThreads) buf[i] = to_f(elem(i, p0));
+  };
+
+  load_rows(0);
+  store_rows(sbuf, 0);
+  src.prefetch(0);
+  const int nchunks = (L + TC - 1) / TC;
   for (int ci = 0; ci < nchunks; ++ci) {
-    const int t0 = (a.reverse ? nchunks - 1 - ci : ci) * kScanChunk;
-    const int tn = min(kScanChunk, a.L - t0);
-    __syncthreads();  // every reader of the previous chunk is done
-    for (int i = tid; i < tn * N; i += kScanThreads) {
-      const long long off = (long long)(t0 + i / N) * a.bc_step + i % N;
-      sB[i] = to_f(Bm[off]);
-      sC[i] = to_f(Cm[off]);
-    }
-    if (FUSE) {
-      for (int i = tid; i < tn * a.R; i += kScanThreads)
-        sdt[i] = to_f(dt[(long long)(t0 + i / a.R) * a.dt_step + i % a.R]);
-    }
-    __syncthreads();
-    if (!live) continue;  // idle lanes still reach every barrier above
-    for (int k = 0; k < tn; ++k) {
-      const int tt = a.reverse ? tn - 1 - k : k;
-      const long long t = t0 + tt;
-      const float xv = to_f(x[t * a.D + d]);
-      const float dtv = FUSE ? fused_dt(sdt + tt * a.R, sW, a.R, kScanThreads, tid)
-                             : to_f(dt[t * a.dt_step + d]);
-      if constexpr (HB) {
-        const int p = a.reverse ? a.L - 1 - (int)t : (int)t;
-        if (p % a.hbc == 0) store_state<N>(hb + ((long long)(p / a.hbc) * a.D + d) * N, h);
+    const int p0 = ci * TC;
+    const float* sB = sbuf + (ci & 1) * RW;  // [TC][N]
+    const float* sC = sB + TC * N;           // [TC][N]
+    const float* sdt = sC + TC * N;          // [R][TC]
+    __syncthreads();  // this chunk's rows are staged; the other buffer is free
+    if (ci + 1 < nchunks) load_rows(p0 + TC);
+    float xv[TC], dv[TC];
+    src.x_chunk(p0, xv);
+    if constexpr (Src::kFuse) {
+#pragma unroll
+      for (int k = 0; k < TC; ++k) dv[k] = 0.f;
+#pragma unroll 2
+      for (int r = 0; r < R; ++r) {
+        const float w = sW[r * kFwdThreads + tid];
+#pragma unroll
+        for (int k = 0; k < TC; k += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(sdt + r * TC + k);
+          dv[k] = fmaf(q.x, w, dv[k]);
+          dv[k + 1] = fmaf(q.y, w, dv[k + 1]);
+          dv[k + 2] = fmaf(q.z, w, dv[k + 2]);
+          dv[k + 3] = fmaf(q.w, w, dv[k + 3]);
+        }
       }
-      const float acc =
-          scan_step<N, true>(h, A, sB + tt * N, sC + tt * N, softplus(dtv + bias), xv);
-      y[t * a.D + d] = from_f<Ty>(fmaf(xv, dsk, acc));
+    } else {
+      src.dt_chunk(p0, dv);
     }
+    if (ci + 1 < nchunks) src.prefetch(p0 + TC);
+    // dt' of every step of the chunk (in dv's registers), then the
+    // recurrence. dtl = dt' log2e is monotone in dt', so the chunk's largest
+    // is that of its largest dt'.
+    float dtmax = 0.f;
+#pragma unroll
+    for (int k = 0; k < TC; ++k) {
+      dv[k] = p0 + k < L ? softplus(dv[k] + bias) : 0.f;
+      dtmax = fmaxf(dtmax, dv[k]);
+    }
+    int kh = 0;  // the chunk's first step that stores hb
+    if constexpr (HB) {
+      kh = p0 % a.hbc;
+      kh = kh ? a.hbc - kh : 0;
+    }
+    auto run = [&](auto fast) {
+#pragma unroll
+      for (int k = 0; k < TC; ++k) {
+        const int p = p0 + k;
+        if constexpr (HB) {
+          if (k == kh) {
+            if (p < L && live) store_state<N>(hb + ((long long)(p / a.hbc) * D + d) * N, h);
+            kh += a.hbc;
+          }
+        }
+        const float dtl = dv[k] * kLog2e, dtx = dv[k] * xv[k];
+        float acc = 0.f;
+#pragma unroll
+        for (int n = 0; n < N; n += 4) {
+          const float4 b4 = *reinterpret_cast<const float4*>(sB + k * N + n);
+          const float4 c4 = *reinterpret_cast<const float4*>(sC + k * N + n);
+          const float bv[4] = {b4.x, b4.y, b4.z, b4.w}, cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float arg = dtl * A[n + e];
+            const float dec = decltype(fast)::value ? ex2_ftz(arg) : exp2f(arg);
+            h[n + e] = fmaf(dec, h[n + e], bv[e] * dtx);
+            acc = fmaf(cv[e], h[n + e], acc);
+          }
+        }
+        if (live && p < L) y[(long long)time_of(p) * D + d] = from_f<T>(fmaf(xv[k], dsk, acc));
+      }
+    };
+    // One path for the whole warp (every thread of the block reaches here).
+    if (__all_sync(0xffffffffu, dtmax * kLog2e * amin >= -126.f))
+      run(std::true_type{});
+    else
+      run(std::false_type{});
+    if (ci + 1 < nchunks) store_rows(sbuf + ((ci + 1) & 1) * RW, p0 + TC);
   }
+  if (a.hfin && live) store_state<N>(a.hfin + (row * D + d) * N, h);
 }
 
-template <typename Tx, typename Tb, typename Ty, int N, bool FUSE>
-cudaError_t launch_scan_t(const ScanArgs& a, int rows, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(N, a.R, FUSE);
-  auto kern = a.hb ? scan_kernel<Tx, Tb, Ty, N, FUSE, true>
-                   : scan_kernel<Tx, Tb, Ty, N, FUSE, false>;
+template <typename T, int N, class Src>
+cudaError_t launch_scan_fwd_n(const ScanFwdArgs& a, const typename Src::Args& sa, int rows,
+                              cudaStream_t s) {
+  const size_t smem = fwd_smem_bytes(N, Src::kFuse ? a.R : 0);
+  auto kern = a.hb ? scan_fwd_kernel<T, N, true, Src> : scan_fwd_kernel<T, N, false, Src>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((a.D + kScanThreads - 1) / kScanThreads, rows);
-  kern<<<grid, kScanThreads, smem, stream>>>(a);
+  kern<<<dim3((a.D + kFwdThreads - 1) / kFwdThreads, rows), kFwdThreads, smem, s>>>(a, sa);
   return cudaGetLastError();
 }
 
 // The wrappers admit N in {4, 8, 16, 32} only.
-template <typename Tx, typename Tb, typename Ty, bool FUSE>
-cudaError_t launch_scan(const ScanArgs& a, int N, int rows, cudaStream_t stream) {
+template <typename T, class Src>
+cudaError_t launch_scan_fwd(const ScanFwdArgs& a, const typename Src::Args& sa, int N, int rows,
+                            cudaStream_t s) {
   switch (N) {
-    case 4: return launch_scan_t<Tx, Tb, Ty, 4, FUSE>(a, rows, stream);
-    case 8: return launch_scan_t<Tx, Tb, Ty, 8, FUSE>(a, rows, stream);
-    case 16: return launch_scan_t<Tx, Tb, Ty, 16, FUSE>(a, rows, stream);
-    case 32: return launch_scan_t<Tx, Tb, Ty, 32, FUSE>(a, rows, stream);
+    case 4: return launch_scan_fwd_n<T, 4, Src>(a, sa, rows, s);
+    case 8: return launch_scan_fwd_n<T, 8, Src>(a, sa, rows, s);
+    case 16: return launch_scan_fwd_n<T, 16, Src>(a, sa, rows, s);
+    case 32: return launch_scan_fwd_n<T, 32, Src>(a, sa, rows, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,6 @@
-// SSD (Mamba-2) chunk core, shared device code of K4 (ssd_fwd.cu) and the
-// SSD half of K5 (mixer2_fwd.cu); K6 (ssd_bwd.cu) builds on its block
-// products, tiles and decay vectors.
+// SSD (Mamba-2) chunk math, shared device code of K4 (ssd_fwd.cu) and K5
+// (mixer2_fwd.cu) through ssd_chunk.cuh, and of K6 (ssd_bwd.cu): the float32
+// block products, the tile layout they read and the per-chunk decay vectors.
 //
 // Math (one row, one head h of group g; chunk of T steps), the same as
 // plantcaduceus_tpu/ops/pallas_ssd.py::ssd_chunk_core:
@@ -15,33 +15,20 @@
 // The segment sums are masked before the exponent, as the TPU kernel does:
 // a masked-out seg can be large and positive, and exp2 of it times 0 is nan.
 //
-// Numerics: every decay, the state S and every sum are float32. The four
+// Numerics: every decay, the state S and every sum are float32. The
 // products take their operands in E, the kernel's product type (bfloat16
 // when the inputs are bfloat16, else float32): C, B, the scores, x*dt', the
 // decayed x and the state (rounded to E only as an operand of C @ S), with
 // float32 accumulation, as the TPU's MXU products with
 // preferred_element_type=float32.
 //
-// Layout. The TPU kernel keeps the whole state S [N, H*P] of a row in VMEM
-// (384 KB at l20-ssd); a GPU block has at most 227 KB of shared memory. So a
-// block owns one (row, head): its state [N, P] float32 (64 KB) lives in
-// shared memory while the block walks the L/T chunks in processing order
-// (0 -> nc-1, or nc-1 -> 0 for reverse, with no flipped copy of anything).
-// C @ B^T belongs to the group; each head's block computes it again (T*T*N
-// multiply-adds, a quarter of the block's products).
-//
-// Each product is a 128 x 128 x 128 block product over shared-memory tiles,
-// 256 threads, each owning 4 rows x 16 columns of the output in the layout
-// of mma.m16n8k16's accumulators (struct Tile). bfloat16: mma.sync on the
-// tensor cores, fragments read from the tiles with 32-bit loads (or two
-// 16-bit loads where the pair runs across rows). float32: FMA loops on the
-// same ownership, so both types share every epilogue. Shared memory per
-// block: S (66 KB, rows padded to 132 floats), two [128][LD] tiles of E and
-// four [128] decay vectors; 197 KB in float32 (one block per SM), 136 KB in
-// bfloat16 (one block per SM). The tiles are reused: C then x*dt' in the
-// first; B, then the scores, then B again in the second. Values are drawn
-// from a source object (plain loads for K4; the float32 conv outputs for
-// K5), so the same core serves both kernels.
+// Each product here is a 128 x 128 x 128 block product over shared-memory
+// tiles [128][LD], 256 threads, each owning 4 rows x 16 columns of the
+// output in the layout of mma.m16n8k16's accumulators (struct Tile).
+// float32: FMA loops (the float32 kernels of K4, K5 and K6); bfloat16:
+// mma.sync on the tensor cores, fragments read from the tiles with 32-bit
+// loads (K6's local kernel; the other bfloat16 products run on wgmma,
+// ssd_sm90.cuh).
 
 #pragma once
 
@@ -57,8 +44,6 @@ constexpr int kSsdT = 128;        // chunk length
 constexpr int kSsdP = 128;        // head dim
 constexpr int kSsdN = 128;        // state size
 constexpr int kSsdThreads = 256;  // 8 warps, each a 32 x 64 part of every product
-constexpr int kSsdLdS = kSsdP + 4;  // row stride of S (floats)
-constexpr int kSsdParts = 2;      // warps that share an output row
 
 // Row stride (elements) of the [128][LD] tiles: odd in 32-bit words for
 // float32 (the FMA loops' strided reads), 68 words for bfloat16 (the
@@ -66,13 +51,6 @@ constexpr int kSsdParts = 2;      // warps that share an output row
 template <typename E> struct SsdLd;
 template <> struct SsdLd<float> { static constexpr int v = 129; };
 template <> struct SsdLd<__nv_bfloat16> { static constexpr int v = 136; };
-
-// S, four decay vectors and the total, the two tiles.
-template <typename E>
-inline size_t ssd_smem_bytes() {
-  return sizeof(float) * (kSsdN * kSsdLdS + 4 * kSsdT + 32) +
-         2 * sizeof(E) * kSsdT * SsdLd<E>::v;
-}
 
 template <typename E>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<E>(v)); }
@@ -91,7 +69,7 @@ struct Tile {
   }
   __device__ int row(int i) const { return rb + (i >> 1) * 16 + (i & 1) * 8 + g; }
   __device__ int col(int j) const { return cb + (j >> 1) * 8 + 2 * q + (j & 1); }
-  __device__ int part() const { return cb >> 6; }  // which of the kSsdParts row halves
+  __device__ int part() const { return cb >> 6; }  // which of the two warps of a row
 };
 
 __device__ __forceinline__ void zero(float (&acc)[4][16]) {
@@ -202,16 +180,6 @@ __device__ __forceinline__ void block_mm(float (&acc)[4][16], const Tile& tl, co
     block_mm_fma<AT, BT, RB>(acc, tl, a, lda, b, ldb);
 }
 
-// Fill a [128][LD] tile with f(t, c) for t, c < 128, rounded to E.
-template <typename E, class F>
-__device__ __forceinline__ void fill_tile(E* tile, F f) {
-#pragma unroll 4
-  for (int e = threadIdx.x; e < kSsdT * 128; e += kSsdThreads) {
-    const int r = e >> 7, c = e & 127;
-    tile[r * SsdLd<E>::v + c] = from_f<E>(f(r, c));
-  }
-}
-
 // dt' and the decay vectors of the chunk at t0, for threads < kSsdT (one
 // step each; every thread of the block calls it): dtp = softplus(dt +
 // dt_bias), the inclusive cumsum `cum` of la = dtp * al (an inclusive scan in
@@ -264,97 +232,6 @@ __device__ __forceinline__ void chunk_decays(const Src& src, int t0, float al, f
     if (tid == 0) total_s[0] = total;
   }
   __syncthreads();
-}
-
-// The whole run of one (row, head) block. `src` supplies, for absolute time
-// step t: x(t, p), b(t, n), c(t, n) (float32 values, rounded to E here),
-// dt(t) (raw, before bias and softplus), and out(acc, t0, tl), which
-// receives the block's y tile without the D-skip for the chunk at t0
-// (acc[i][j] at chunk row tl.row(i), column tl.col(j)). With kFentry, the
-// state each chunk starts from is written to fe (the row's [L/T, N, fe_ld]
-// float32 chunk-entry states, at the head's first column) by chunk index,
-// as the TPU kernel's emit_fentry: each thread stores its own elements of S
-// just before it advances them (step 8).
-template <typename E, bool kFentry, class Src>
-__device__ void ssd_head(const Src& src, float A_h, float dtb_h, int L, int reverse,
-                         unsigned char* smem_raw, float* fe = nullptr, int fe_ld = 0) {
-  constexpr int LD = SsdLd<E>::v;
-  float* S = reinterpret_cast<float*>(smem_raw);  // [N][kSsdLdS]
-  float* dtp = S + kSsdN * kSsdLdS;               // [T] dt'
-  float* segb = dtp + kSsdT;                      // [T] sb
-  float* into_e = segb + kSsdT;                   // [T] exp2(into)
-  float* scale = into_e + kSsdT;                  // [T] exp2(outof)
-  float* total_s = scale + kSsdT;                 // [1] total
-  E* buf1 = reinterpret_cast<E*>(total_s + 32);   // [T][LD]: C, then x*dt' / decayed x
-  E* buf2 = buf1 + kSsdT * LD;                    // [T][LD]: B, then the scores, then B
-  const int tid = threadIdx.x;
-  const Tile tl;
-  const float al = A_h * kLog2e;
-  for (int i = tid; i < kSsdN * kSsdLdS; i += kSsdThreads) S[i] = 0.f;
-
-  const int nc = L / kSsdT;
-  float acc[4][16];
-  for (int ci = 0; ci < nc; ++ci) {
-    const int t0 = (reverse ? nc - 1 - ci : ci) * kSsdT;
-    // 1. the C and B tiles; dt' and the decay vectors.
-    fill_tile<E>(buf1, [&](int r, int c) { return src.c(t0 + r, c); });
-    fill_tile<E>(buf2, [&](int r, int c) { return src.b(t0 + r, c); });
-    chunk_decays(src, t0, al, dtb_h, reverse, dtp, segb, into_e, scale, total_s);
-
-    // 2. GBC = C @ B^T
-    zero(acc);
-    block_mm<false, true, float>(acc, tl, buf1, LD, buf2, LD);
-    __syncthreads();  // every read of B is done
-    // 3. scores = GBC * exp2(masked seg) into the second tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = tl.row(i);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int s = tl.col(j);
-        const bool keep = reverse ? t <= s : t >= s;
-        const float seg = keep ? segb[t] - segb[s] : __uint_as_float(0xff800000u);  // -inf
-        buf2[t * LD + s] = from_f<E>(acc[i][j] * exp2f(seg));
-      }
-    }
-    // 4. y = (C @ S) * exp2(into)
-    zero(acc);
-    block_mm<false, false, E>(acc, tl, buf1, LD, S, kSsdLdS);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float f = into_e[tl.row(i)];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] *= f;
-    }
-    __syncthreads();  // every read of C is done; the scores are written
-    // 5. x * dt' into the first tile
-    fill_tile<E>(buf1, [&](int r, int p) { return src.x(t0 + r, p) * dtp[r]; });
-    __syncthreads();
-    // 6. y += scores @ (x * dt'); the epilogue
-    block_mm<false, false, float>(acc, tl, buf2, LD, buf1, LD);
-    src.out(acc, t0, tl);
-    __syncthreads();  // every read of the scores and of x * dt' is done
-    // 7. B again, and the decayed x: x * dt' * exp2(outof)
-    fill_tile<E>(buf2, [&](int r, int c) { return src.b(t0 + r, c); });
-    fill_tile<E>(buf1, [&](int r, int p) { return src.x(t0 + r, p) * dtp[r] * scale[r]; });
-    __syncthreads();
-    // 8. S = exp2(total) * S + B^T @ (decayed x); each thread its own tile of S
-    zero(acc);
-    block_mm<true, false, float>(acc, tl, buf2, LD, buf1, LD);
-    const float tot_e = exp2f(total_s[0]);
-    float* fec = kFentry ? fe + (long long)(t0 / kSsdT) * kSsdN * fe_ld : nullptr;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* srow = S + tl.row(i) * kSsdLdS;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        float* sp = srow + tl.col(j);
-        if constexpr (kFentry) fec[(long long)tl.row(i) * fe_ld + tl.col(j)] = *sp;
-        *sp = tot_e * *sp + acc[i][j];
-      }
-    }
-    __syncthreads();  // before the next chunk rewrites the tiles and vectors
-  }
 }
 
 }  // namespace pc

@@ -31,13 +31,14 @@ MAX_HB_CHUNK = 16   # steps a K3 lane keeps in registers (kMaxHbChunk, scan_bwd.
 
 
 def scan_fwd_plain(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w=None,
-                   reverse: bool = False, hb_chunk: Optional[int] = None):
+                   reverse: bool = False, hb_chunk: Optional[int] = None,
+                   h0: Optional[torch.Tensor] = None, emit_hfin: bool = False):
     """Plain version of :func:`scan_fwd`: same arguments, same result."""
     if dt_proj_w is not None:
         dt = dt.float() @ dt_proj_w.float()
-    out = scan_direction(x, dt, A, Bm, Cm, Dskip, dt_bias, reverse, hb_chunk)
-    if hb_chunk:
-        return out[0].to(x.dtype), out[1]
+    out = scan_direction(x, dt, A, Bm, Cm, Dskip, dt_bias, reverse, hb_chunk, h0, emit_hfin)
+    if isinstance(out, tuple):
+        return (out[0].to(x.dtype),) + out[1:]
     return out.to(x.dtype)
 
 
@@ -47,7 +48,7 @@ scan_bwd_plain = scan_direction_bwd
 
 _require, _lib = cuda_build.require, cuda_build.bind
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD_ARGS = [_P] * 10 + [_I] * 9 + [_P]
+_FWD_ARGS = [_P] * 12 + [_I] * 8 + [_P]
 _BWD_ARGS = [_P] * 16 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P]
 
 
@@ -97,40 +98,55 @@ def _check_scan_args(what, x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, others=(
 def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, Dskip: torch.Tensor,
              dt_bias: torch.Tensor, dt_proj_w: Optional[torch.Tensor] = None,
-             reverse: bool = False, hb_chunk: Optional[int] = None):
+             reverse: bool = False, hb_chunk: Optional[int] = None,
+             h0: Optional[torch.Tensor] = None, emit_hfin: bool = False):
     """One scan direction over rows (K1).
 
     x: [rows, L, D]; dt: [rows, L, D], or the low-rank ``dt_lr [rows, L, R]``
     when ``dt_proj_w [R, D]`` is given (then projected up inside the
     kernel); Bm, Cm: [rows, L, N]; A: [D, N] (negative); Dskip, dt_bias: [D].
     x, dt, Bm, Cm share one dtype (float32 or bfloat16); A, Dskip, dt_bias
-    and dt_proj_w are float32. ``reverse`` scans from L-1 down to 0. Returns
-    y [rows, L, D] in x's dtype; with ``hb_chunk`` the training variant also
-    returns the float32 chunk-entry states ``hb [rows, ceil(L/hb_chunk), D,
-    N]`` in processing order (``launches`` counts the inference variant,
-    ``hb_launches`` the training one)."""
+    and dt_proj_w are float32. ``reverse`` scans from L-1 down to 0. ``h0
+    [rows, D, N]`` float32 seeds the states before the first processed
+    step (zeros when None). Returns y [rows, L, D] in x's dtype; with
+    ``hb_chunk`` (the training variant) also the float32 chunk-entry states
+    ``hb [rows, ceil(L/hb_chunk), D, N]`` in processing order; with
+    ``emit_hfin`` also the float32 states after the last processed step,
+    ``hfin [rows, D, N]``: ``(y, hb, hfin)`` in that order, JAX
+    ``_pallas_scan_group``'s. ``launches`` counts the calls without hb,
+    ``hb_launches`` those with."""
     if x.device.type == "cpu":
-        return scan_fwd_plain(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, reverse, hb_chunk)
+        return scan_fwd_plain(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, reverse, hb_chunk,
+                              h0, emit_hfin)
     fuse, rows, L, D, N, R = _check_scan_args("scan_fwd", x, dt, A, Bm, Cm, Dskip,
                                               dt_bias, dt_proj_w)
     _require(dt.is_contiguous() and Bm.is_contiguous() and Cm.is_contiguous(), "scan_fwd",
              "dt, Bm and Cm must be contiguous")
+    if h0 is not None:
+        _require(h0.device == x.device and h0.dtype == torch.float32 and h0.is_contiguous()
+                 and tuple(h0.shape) == (rows, D, N), "scan_fwd",
+                 f"h0 must be contiguous float32 {(rows, D, N)} on {x.device}")
+        # the kernel reads each channel's N states as float4s
+        _require(h0.data_ptr() % 16 == 0, "scan_fwd", "h0 must be 16-byte aligned")
     lib = _lib("scan_fwd", "pc_scan_fwd", _FWD_ARGS)
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    hb = (torch.empty((rows, -(-L // hb_chunk), D, N), dtype=torch.float32, device=x.device)
-          if hb_chunk else None)
+    hb = torch.empty((rows, -(-L // hb_chunk), D, N), **f32) if hb_chunk else None
+    hfin = torch.empty((rows, D, N), **f32) if emit_hfin else None
+    ptr = lambda t: t.data_ptr() if t is not None else None
     rc = lib.pc_scan_fwd(
         x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
-        Dskip.data_ptr(), dt_bias.data_ptr(), dt_proj_w.data_ptr() if fuse else None,
-        y.data_ptr(), hb.data_ptr() if hb_chunk else None, rows, L, D, N,
-        R if fuse else 0, int(fuse), int(reverse), int(x.dtype == torch.bfloat16),
-        hb_chunk or 0, torch.cuda.current_stream(x.device).cuda_stream)
+        Dskip.data_ptr(), dt_bias.data_ptr(), ptr(dt_proj_w), y.data_ptr(), ptr(hb), ptr(h0),
+        ptr(hfin), rows, L, D, N, R if fuse else 0, int(reverse),
+        int(x.dtype == torch.bfloat16), hb_chunk or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, rc, "scan_fwd")
     if hb_chunk:
         scan_fwd.hb_launches += 1
-        return y, hb
-    scan_fwd.launches += 1
-    return y
+    else:
+        scan_fwd.launches += 1
+    out = (y,) + ((hb,) if hb_chunk else ()) + ((hfin,) if emit_hfin else ())
+    return out if len(out) > 1 else y
 
 
 scan_fwd.launches = 0

@@ -2,9 +2,10 @@
 CUDA kernels.
 
 Counterpart of ``plantcaduceus_tpu.ops.pallas_ssd``. ``ssd_dir`` (K4) runs
-``csrc/ssd_fwd.cu`` (device code in ``csrc/ssd_core.cuh``, which K5 shares)
-on the flat contract of JAX ``ssd_dir``; with ``emit_fentry`` (the training
-variant) it also returns the chunk-entry states. ``ssd_dir_bwd`` (K6) runs
+``csrc/ssd_fwd.cu`` (the chunk-parallel kernels of ``csrc/ssd_chunk.cuh``,
+which K5 shares) on the flat contract of JAX ``ssd_dir``; with
+``emit_fentry`` (the training variant) it also returns the chunk-entry
+states. ``ssd_dir_bwd`` (K6) runs
 ``csrc/ssd_bwd.cu``, the adjoint of one direction, in plain or ``pre_silu``
 mode. ``ssd_dir_plain`` and ``ssd_dir_bwd_plain`` (``ops/ssd_bwd.py``) are
 the plain PyTorch versions of the same functions, and :class:`SsdDirFn`
@@ -66,7 +67,7 @@ _require, _lib = cuda_build.require, cuda_build.bind
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P] * 9 + [_I] * 6 + [_P]
+_FWD_ARGS = [_P] * 10 + [_I] * 6 + [_P]
 _BWD_ARGS = [_P] * 22 + [_I] * 7 + [_P]
 
 
@@ -111,17 +112,20 @@ def ssd_dir(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor
     R, L, H, NG = _check_ssd_args("ssd_dir", x, dt, A, Bm, Cm, Dskip, dt_bias, chunk)
     lib = _lib("ssd_fwd", "pc_ssd_fwd", _FWD_ARGS)
     y = torch.empty_like(x)
-    fentry = (torch.empty((R, L // SSD_TILE, SSD_TILE, x.shape[-1]), dtype=torch.float32,
-                          device=x.device) if emit_fentry else None)
+    # the chunk-entry states (fentry itself in the training variant, scratch
+    # otherwise) and each chunk's total decay (scratch), float32
+    f32 = dict(dtype=torch.float32, device=x.device)
+    fe = torch.empty((R, L // SSD_TILE, SSD_TILE, x.shape[-1]), **f32)
+    tot = torch.empty((R, L // SSD_TILE, H), **f32)
     rc = lib.pc_ssd_fwd(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                         A.data_ptr(), Dskip.data_ptr(), dt_bias.data_ptr(), y.data_ptr(),
-                        fentry.data_ptr() if emit_fentry else None,
-                        R, L, H, NG, int(bool(reverse)), int(x.dtype == torch.bfloat16),
+                        fe.data_ptr(), tot.data_ptr(), R, L, H, NG, int(bool(reverse)),
+                        int(x.dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, rc, "ssd_dir")
     if emit_fentry:
         ssd_dir.fentry_launches += 1
-        return y, fentry
+        return y, fe
     ssd_dir.launches += 1
     return y
 

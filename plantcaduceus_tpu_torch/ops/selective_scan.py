@@ -109,20 +109,25 @@ def _processing_order(L: int, reverse: bool):
 
 
 def scan_direction(x, dt, A, Bm, Cm, Dskip, dt_bias, reverse: bool,
-                   hb_chunk: Optional[int] = None):
+                   hb_chunk: Optional[int] = None, h0: Optional[torch.Tensor] = None,
+                   emit_hfin: bool = False):
     """One direction of the scan over rows, in the order of the CUDA kernels'
     arithmetic: ``x [R, L, D]``, full-width ``dt [R, L, D]`` (pre-bias),
     ``A [D, N]``, ``Bm, Cm [R, L, N]``, ``Dskip, dt_bias [D]``. Decay is
-    ``exp2(dt' * log2e * A)``. ``reverse`` walks from L-1 down to 0. Returns
-    fp32 ``[R, L, D]``; with ``hb_chunk`` also the fp32 state at the entry of
-    every ``hb_chunk``-step chunk, ``hb [R, ceil(L/hb_chunk), D, N]``, in
-    processing order (chunk c starts at processing step c * hb_chunk)."""
+    ``exp2(dt' * log2e * A)``. ``reverse`` walks from L-1 down to 0. ``h0
+    [R, D, N]`` seeds the states before the first processed step (zeros
+    when None). Returns fp32 ``y [R, L, D]``, then with ``hb_chunk`` the fp32
+    state at the entry of every ``hb_chunk``-step chunk, ``hb [R,
+    ceil(L/hb_chunk), D, N]``, in processing order (chunk c starts at
+    processing step c * hb_chunk), then with ``emit_hfin`` the fp32 state
+    after the last processed step, ``hfin [R, D, N]``; a tuple when more
+    than y is asked for (JAX ``_pallas_scan_group``'s outputs)."""
     x, dt, A, Bm, Cm = (t.float() for t in (x, dt, A, Bm, Cm))
     dtp = softplus(dt + dt_bias.float())
     dtl = dtp * LOG2E
     dtx = dtp * x
     R, L, D = x.shape
-    h = x.new_zeros((R, D, A.shape[-1]))
+    h = (h0.float().clone() if h0 is not None else x.new_zeros((R, D, A.shape[-1])))
     hb = (x.new_empty((R, -(-L // hb_chunk), D, A.shape[-1]))
           if hb_chunk else None)
     ys = [None] * L
@@ -133,7 +138,8 @@ def scan_direction(x, dt, A, Bm, Cm, Dskip, dt_bias, reverse: bool,
         h = a * h + Bm[:, t, None, :] * dtx[:, t, :, None]
         ys[t] = torch.einsum("rdn,rn->rd", h, Cm[:, t])
     y = torch.stack(ys, dim=1) + x * Dskip.float()
-    return (y, hb) if hb is not None else y
+    out = (y,) + ((hb,) if hb is not None else ()) + ((h,) if emit_hfin else ())
+    return out if len(out) > 1 else y
 
 
 def scan_direction_bwd(x, gy, dt, A, Bm, Cm, Dskip, dt_bias, hb=None,

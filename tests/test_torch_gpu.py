@@ -810,3 +810,160 @@ def test_bert_kernels_match_plain_path(cuda, overrides):
     _close_to_scale(out[True], out[False], 1e-4, "logits")
     for k, w in grads[False].items():
         _close_to_scale(grads[True][k], w, 1e-3, k)
+
+
+# ---------------------------------------------------------------------------
+# K1 (scan_core.cuh's forward scan with K1's load policy) at its edges, its
+# carry options, and K4 (ssd_chunk.cuh's chunk-parallel kernels with K4's
+# policy) at one chunk and at eight.
+
+
+@pytest.mark.parametrize("hb", [False, True], ids=["fwd", "hb"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("N", [4, 32])
+@pytest.mark.parametrize("L", [1, 7, 513])
+def test_scan_kernel_ragged_lengths(cuda, L, N, fuse, reverse, dtype, hb):
+    """K1 and K1-hb at lengths ragged against the 8-step chunk and the
+    16-step hb chunk, N 4 and 32 (at N 32 with R 12 the rows exceed the
+    row prefetch's 1024 values), D ragged against the 128-channel block."""
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    args = _scan_case(np.random.default_rng(60 + L + N), cuda, dtype, fuse, rows=2, L=L, D=136,
+                      N=N)
+    kw = dict(reverse=reverse, hb_chunk=HB_CHUNK if hb else None)
+    got = cuda_scan.scan_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = cuda_scan.scan_fwd_plain(*args, **kw)
+    got, want = (got, want) if hb else ((got,), (want,))
+    rtol, atol = TOL[dtype]
+    assert got[0].dtype == dtype and got[0].shape == want[0].shape
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=rtol, atol=atol)
+    if hb:
+        assert got[1].shape == want[1].shape
+        _close_to_scale(got[1], want[1], 1e-4, "hb")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_scan_kernel_steep_decays(cuda, dtype, fuse):
+    """K1 where some chunks' decay exponents fall below -126 (dt' up to ~30
+    against |A| up to ~10), so those chunks take exp2f's full path and the
+    others the bare MUFU.EX2: both against the plain version."""
+    rng = np.random.default_rng(61)
+    x, dt, A, Bm, Cm, Ds, dtb, w = _scan_case(rng, cuda, dtype, fuse, rows=2, L=160, D=130)
+    dtb = dtb + _t(np.where(np.arange(130) % 3 == 0, 25.0, 0.0), cuda)
+    A = A * 3
+    for reverse in (False, True):
+        got = cuda_scan.scan_fwd(x, dt, A, Bm, Cm, Ds, dtb, w, reverse=reverse)
+        want = cuda_scan.scan_fwd_plain(x, dt, A, Bm, Cm, Ds, dtb, w, reverse=reverse)
+        rtol, atol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("L, split", [(512, 256), (513, 200)])
+def test_scan_carry_chains_bit_for_bit(cuda, L, split, fuse, dtype):
+    """K1's h0 / emit_hfin: two calls chained hfin -> h0 give the full
+    call's y and hfin bit for bit, in both directions (reverse: the later
+    part of the sequence first); with hb too, whose chunks line up where the
+    split is a multiple of 16. h0 seeds the plain version alike."""
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    x, dt, A, Bm, Cm, Ds, dtb, w = _scan_case(np.random.default_rng(62), cuda, dtype, fuse,
+                                              rows=2, L=L, D=136)
+    hbc = HB_CHUNK if split % HB_CHUNK == 0 else None
+    part = lambda t, a, b: t[:, a:b].contiguous()
+    for reverse in (False, True):
+        full = cuda_scan.scan_fwd(x, dt, A, Bm, Cm, Ds, dtb, w, reverse, hbc, emit_hfin=True)
+        spans = [(0, split), (split, L)]
+        if reverse:
+            spans = spans[::-1]
+        h, ys, hbs = None, {}, []
+        for a, b in spans:
+            out = cuda_scan.scan_fwd(part(x, a, b), part(dt, a, b), A, part(Bm, a, b),
+                                     part(Cm, a, b), Ds, dtb, w, reverse, hbc, h0=h,
+                                     emit_hfin=True)
+            ys[a], h = out[0], out[-1]
+            if hbc:
+                hbs.append(out[1])
+        assert torch.equal(torch.cat([ys[0], ys[split]], 1), full[0])
+        assert torch.equal(h, full[-1])
+        if hbc:
+            assert torch.equal(torch.cat(hbs, 1), full[1])
+        torch.cuda.synchronize()
+        want = cuda_scan.scan_fwd_plain(part(x, *spans[1]), part(dt, *spans[1]), A,
+                                        part(Bm, *spans[1]), part(Cm, *spans[1]), Ds, dtb, w,
+                                        reverse, h0=cuda_scan.scan_fwd_plain(
+                                            part(x, *spans[0]), part(dt, *spans[0]), A,
+                                            part(Bm, *spans[0]), part(Cm, *spans[0]), Ds, dtb,
+                                            w, reverse, emit_hfin=True)[1], emit_hfin=True)
+        rtol, atol = TOL[dtype]
+        torch.testing.assert_close(ys[spans[1][0]].float(), want[0].float(), rtol=rtol,
+                                   atol=atol)
+        _close_to_scale(h, want[1], 1e-4, "hfin")
+
+
+@pytest.mark.parametrize("hb", [False, True], ids=["fwd", "hb"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_is_deterministic(cuda, dtype, hb):
+    """Two launches of K1 (each variant, both dt modes and directions, with
+    h0 and hfin) give equal bits."""
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    rng = np.random.default_rng(63)
+    for fuse in (True, False):
+        args = _scan_case(rng, cuda, dtype, fuse, rows=2, L=300, D=136)
+        h0 = _t(rng.standard_normal((2, 136, 16)), cuda)
+        for rev in (False, True):
+            kw = dict(reverse=rev, hb_chunk=HB_CHUNK if hb else None, h0=h0, emit_hfin=True)
+            for u, v in zip(cuda_scan.scan_fwd(*args, **kw), cuda_scan.scan_fwd(*args, **kw)):
+                assert torch.equal(u, v)
+
+
+def test_scan_rejects_misaligned_h0(cuda):
+    """h0 is read as float4s: a contiguous view that starts one float into
+    its buffer is refused before the launch."""
+    args = _scan_case(np.random.default_rng(64), cuda, torch.float32, False, rows=2, L=16,
+                      D=136)
+    h0 = torch.zeros(2 * 136 * 16 + 1, device=cuda)[1:].view(2, 136, 16)
+    assert h0.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_scan.scan_fwd(*args, h0=h0)
+
+
+@pytest.mark.parametrize("emit", [False, True], ids=["fwd", "fentry"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("L", [128, 1024])
+def test_ssd_kernel_chunk_counts(cuda, L, reverse, dtype, emit):
+    """K4 and K4-fentry at one chunk (no state enters any chunk: the pass
+    only writes zeros) and at eight (the state passed across seven
+    boundaries), H 4 in NG 2 groups."""
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    args = _ssd_case(np.random.default_rng(70 + L), cuda, dtype, L=L, H=4, NG=2)
+    got = cuda_ssd.ssd_dir(*args, 128, reverse, emit_fentry=emit)
+    torch.cuda.synchronize()
+    want = cuda_ssd.ssd_dir_plain(*args, 128, reverse, emit_fentry=emit)
+    got, want = (got, want) if emit else ((got,), (want,))
+    for name, g, w in zip(("y", "fentry"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = SSD_TOL[dtype] if (dtype == torch.bfloat16 or name == "y") else F32_TOL
+        _close_to_scale(g, w, tol, name)
+
+
+@pytest.mark.parametrize("emit", [False, True], ids=["fwd", "fentry"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_variants_are_deterministic(cuda, dtype, emit):
+    """Two launches of K4 (each variant, both directions) give equal bits."""
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    args = _ssd_case(np.random.default_rng(71), cuda, dtype, L=512, H=4, NG=2)
+    for rev in (False, True):
+        a = cuda_ssd.ssd_dir(*args, 128, rev, emit_fentry=emit)
+        b = cuda_ssd.ssd_dir(*args, 128, rev, emit_fentry=emit)
+        for u, v in zip(*((a, b) if emit else ((a,), (b,)))):
+            assert torch.equal(u, v)

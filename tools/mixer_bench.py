@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""K2 and K5 (the fused Mamba-1 and Mamba-2 mixers) on the card, split by
-kernel, with the scoring rates and training steps they carry, for one
-checkout.
+"""The forward kernels K1, K2, K4 and K5 on the card, split by kernel, with
+the scoring rates and training steps they carry, for one checkout.
 
     python3 tools/mixer_bench.py [--repo DIR] [--label NAME] [--skip-steps]
+                                 [--only k1,k2,k4,k5] [--variant NAME] [--sass]
+                                 [--sass-of SRC,...] [--no-ptxas]
 
 Imports ``plantcaduceus_tpu_torch`` from DIR (default: the checkout this
 script sits in), builds its sources and measures, on one CUDA card (CUDA
 events over 10 launches after 2 warm-up; the split by kernel from
 torch.profiler over 10 calls, each kernel's device time per call):
 
+* K1 (``scan_fwd``), dt given and fused, at phase 3's shape (256 rows x
+  512 x 768, N 16, R 24) and K1-hb (``hb_chunk`` 16) at phase 3b's (64
+  rows), both directions, bf16 and fp32, each beside its bound; and K1 at
+  64 rows with steep decays (a third of the channels' dt' near 25), where
+  chunks take exp2f's full path;
+* K4 (``ssd_dir``) at phase 3c's shape (256 rows x 512, H 6, P = N = chunk
+  = 128) and K4-fentry (``emit_fentry``) at phase 3d's (64 rows), likewise;
 * K2 (``mixer_fwd``) at ``chip_smoke.py`` phase 3's shape (256 rows x 512 x
   768, N 16, R 24) and K2-res (``emit_res``) at phase 3b's (64 rows), both
   directions, bf16 and fp32, each beside its bound;
@@ -21,9 +29,24 @@ torch.profiler over 10 calls, each kernel's device time per call):
   state);
 * the l20 and l20-ssd training steps (bf16, batch 32 x 512, remat; the
   mean of 8 and one profiled step, as ``tools/scan_bench.py``);
-* ``nvcc -Xptxas -v`` of ``mixer_fwd.cu`` and ``mixer2_fwd.cu`` (and of the
-  sources that share their headers): registers, shared memory and spills per
-  kernel instantiation.
+* ``nvcc -Xptxas -v`` of ``scan_fwd.cu``, ``mixer_fwd.cu``, ``ssd_fwd.cu``
+  and ``mixer2_fwd.cu``: registers, shared memory and spills per kernel
+  instantiation;
+* with ``--sass``, the SASS of the forward scans (``cuobjdump -sass``): for
+  each N = 16 instantiation, the instructions of the innermost loop that
+  holds the recurrence's ``MUFU.EX2``, by opcode, and per ``MUFU.EX2``;
+* with ``--sass-of SRC,...``, every kernel of those sources whole: its
+  instructions by opcode, its local-memory ones, and for each global load
+  the instructions until its value is first read (none when it is read in
+  a later pass of the loop: loaded ahead), beside its ``-Xptxas -v``.
+
+Every timed call's outputs are hashed (SHA-256 of their bytes) and the call
+is made twice: two checkouts' JSON lines show whether they give the same
+bits, and ``same_twice`` whether two launches do. ``--only`` picks the
+kernels; ``--variant NAME`` first copies the port of ``--repo`` into
+``build/variant_NAME/`` with one of the named diagnostic edits of
+``VARIANTS`` applied (e.g. the recurrence without its exp2) and measures
+that copy.
 
 Run it for two checkouts in one call (parent, change, change, parent) to
 compare them on one card. Prints the card's name and power limit, then one
@@ -35,11 +58,15 @@ script's checkout.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
@@ -70,9 +97,259 @@ def split_per_call(fn, iters=10):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
 
 
+# Diagnostic copies: name -> the edits (source file under csrc/, text,
+# replacement) that make it. Each changes one part of a kernel's work or
+# layout, so its time shows that part's share; the outputs of the ones that
+# drop work are wrong on purpose.
+VARIANTS = {
+    # the shared forward scan (scan_core.cuh scan_fwd_kernel, K1 and K2)
+    "fwd_noexp2": [("scan_core.cuh", "decltype(fast)::value ? ex2_ftz(arg) : exp2f(arg)",
+                    "arg")],
+    "fwd_nosoftplus": [("scan_core.cuh", "softplus(dv[k] + bias)", "(dv[k] + bias)")],
+    "fwd_nodt": [("scan_core.cuh", "for (int r = 0; r < R; ++r) {",
+                  "for (int r = 0; r < 0; ++r) {")],
+    "fwd_exp2f": [("scan_core.cuh",
+                   "if (__all_sync(0xffffffffu, dtmax * kLog2e * amin >= -126.f))",
+                   "if (false)")],
+    # without the store of y (kept only where acc is -1.2345e-30, so its sum
+    # stays), or of hb: what each store costs in each dtype
+    "fwd_noystore": [("scan_core.cuh", "if (live && p < L) y[",
+                      "if (live && p < L && acc == -1.2345e-30f) y[")],
+    "fwd_nohbstore": [("scan_core.cuh", "if (p < L && live) store_state<N>(hb",
+                       "if (false) store_state<N>(hb")],
+}
+
+
+# The source of each kernel's library.
+SOURCE = dict(k1="scan_fwd", k2="mixer_fwd", k4="ssd_fwd", k5="mixer2_fwd")
+
+
+def make_variant(repo: Path, name: str) -> Path:
+    """A copy of ``repo``'s port under ``build/variant_<name>/`` with the
+    edits ``VARIANTS[name]`` applied; raises if a text is not there."""
+    dst = HERE / "build" / f"variant_{name}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(repo / "plantcaduceus_tpu_torch", dst / "plantcaduceus_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for fname, old, new in VARIANTS[name]:
+        f = dst / "plantcaduceus_tpu_torch" / "csrc" / fname
+        text = f.read_text()
+        if old not in text:
+            raise SystemExit(f"variant {name}: {old!r} not in {fname}")
+        f.write_text(text.replace(old, new))
+    return dst
+
+
+def digest(out):
+    """SHA-256 (first 16 hex digits) of the bytes of every tensor of ``out``."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def timed(cs, fn, work):
     b, by, _ = work
-    return dict(ms=cs.time_ms(fn, 10), bound_ms=b, bound_by=by, split_ms=split_per_call(fn))
+    d = digest(fn())
+    return dict(ms=cs.time_ms(fn, 10), bound_ms=b, bound_by=by, split_ms=split_per_call(fn),
+                digest=d, same_twice=digest(fn()) == d)
+
+
+def k1(cs, dev):
+    """K1 at phase 3's shape, K1-hb at phase 3b's; dt given and fused,
+    both directions."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_scan
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    cfg = CaduceusConfig.preset("l20")
+    D, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
+    w = cs.layer_weights(cfg, 1, dev)
+    A = -torch.exp(w["A_log"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, rows, hbc in (("scan_fwd", 256, None), ("scan_fwd_hb", cs.TRAIN_ROWS, HB_CHUNK)):
+        L = 512
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            r = lambda *s, sc=1.0: (torch.randn(s, generator=gen, device=dev) * sc).to(dtype)
+            x, Bm, Cm = r(rows, L, D), r(rows, L, N), r(rows, L, N)
+            for fuse in (True, False):
+                dt = r(rows, L, R if fuse else D, sc=0.5)
+                bound = cs.bound_ms(*cs.scan_fwd_work(rows, L, D, N, R if fuse else 0,
+                                                      dtype.itemsize, hbc))
+                for g in (0, 1):
+                    args = (x, dt, A[g], Bm, Cm, w["D"][g], w["dt_proj_b"][g],
+                            w["dt_proj_w"][g] if fuse else None, g == 1)
+
+                    def fn(a=args):
+                        return cuda_scan.scan_fwd(*a, hb_chunk=hbc)
+
+                    out.setdefault(name, {}).setdefault(dn, {}).setdefault(
+                        "fused" if fuse else "dt_given", {})["rev" if g else "fwd"] = timed(
+                        cs, fn, bound)
+                del dt
+            del x, Bm, Cm
+            torch.cuda.empty_cache()
+    # Steep decays at the training shape: every third channel's dt' near 25,
+    # so chunks whose exponents fall below -126 take exp2f's full path.
+    rows, L = cs.TRAIN_ROWS, 512
+    steep = w["dt_proj_b"][0] + 25.0 * (torch.arange(D, device=dev) % 3 == 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        r = lambda *s, sc=1.0: (torch.randn(s, generator=gen, device=dev) * sc).to(dtype)
+        x, Bm, Cm, dt = r(rows, L, D), r(rows, L, N), r(rows, L, N), r(rows, L, D, sc=0.5)
+        bound = cs.bound_ms(*cs.scan_fwd_work(rows, L, D, N, 0, dtype.itemsize))
+        for g in (0, 1):
+            def fn(a=(x, dt, A[0], Bm, Cm, w["D"][0], steep, None, g == 1)):
+                return cuda_scan.scan_fwd(*a)
+
+            out.setdefault("scan_fwd_steep", {}).setdefault(dn, {})["rev" if g else "fwd"] = \
+                timed(cs, fn, bound)
+    return out
+
+
+def k4(cs, dev):
+    """K4 at phase 3c's shape, K4-fentry at phase 3d's; both directions."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_ssd
+
+    cfg = CaduceusConfig.preset("l20-ssd")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for name, rows, fentry in (("ssd_fwd", 256, False), ("ssd_fwd_fentry", cs.TRAIN_ROWS, True)):
+        L = 512
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            _, ssd = cs.ssd_inputs(cfg, rows, L, dtype, dev, gen, 21)
+            if fentry:
+                work = cs.ssd_train_work(rows, L, cfg.n_heads, cfg.n_groups, dtype.itemsize,
+                                         "ssd_fwd_fentry")
+            else:
+                work = cs.ssd_work(rows, L, cfg.n_heads, cfg.n_groups, dtype.itemsize)
+            bound = cs.work_bound(work, dn)
+            for g in (0, 1):
+                def fn(a=ssd(g), r=g == 1):
+                    return cuda_ssd.ssd_dir(*a, cfg.chunk_size, r, emit_fentry=fentry)
+
+                out.setdefault(name, {}).setdefault(dn, {})["rev" if g else "fwd"] = timed(
+                    cs, fn, bound)
+            del ssd
+            torch.cuda.empty_cache()
+    return out
+
+
+def sass_functions(cuda_build, name):
+    """{kernel: [(address, instruction)]} of one source's library, from
+    ``cuobjdump -sass``."""
+    tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    lib = cuda_build.build_all((name,))[name]
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        out[fn.split("\n", 1)[0].strip()] = [
+            (int(m.group(1), 16), m.group(2))
+            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(\S.*?);", fn)]
+    return out
+
+
+def _opcode(t):
+    return re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+
+
+def _back_branch(a, t):
+    m = re.search(r"\bBRA\S*\s.*?0x([0-9a-f]+)", t)
+    return m is not None and int(m.group(1), 16) < a
+
+
+def load_use(ins):
+    """For each global load of ``ins``: the instructions until the first one
+    that reads its destination, or None when a backward branch comes first
+    (the value is used in a later pass of the loop, i.e. loaded ahead)."""
+    out = []
+    for i, (_, t) in enumerate(ins):
+        op = _opcode(t)
+        if not op.startswith("LDG"):
+            continue
+        m = re.search(r"\bLDG\S*\s+R(\d+)", t)
+        if not m:
+            continue
+        w = 4 if ".128" in op else 2 if ".64" in op else 1
+        regs = {f"R{int(m.group(1)) + k}" for k in range(w)}
+        dist = None
+        for j in range(i + 1, len(ins)):
+            a, u = ins[j]
+            if set(re.findall(r"\bR\d+\b", u.split(",", 1)[1] if "," in u else "")) & regs or (
+                    _opcode(u).startswith("ST") and set(re.findall(r"\bR\d+\b", u)) & regs):
+                dist = j - i
+                break
+            if _back_branch(a, u):
+                break
+        out.append(dist)
+    return out
+
+
+def sass_kernels(cuda_build, names):
+    """Per kernel of these sources: its SASS instructions, by opcode, the
+    local-memory ones, and for its global loads how soon each is used."""
+    out = {}
+    for n in names:
+        for kname, ins in sass_functions(cuda_build, n).items():
+            ops = Counter(_opcode(t) for _, t in ins)
+            use = load_use(ins)
+            near = sorted(d for d in use if d is not None)
+            out[kname] = dict(
+                instructions=len(ins), opcodes=dict(ops.most_common(24)),
+                local=sum(v for k, v in ops.items() if k.startswith(("LDL", "STL"))),
+                ldg=len(use), ldg_ahead=use.count(None),
+                ldg_use_median=near[len(near) // 2] if near else None,
+                ldg_use_min=near[0] if near else None)
+    return out
+
+
+def sass_loops(cuda_build, names=("scan_fwd", "mixer_fwd")):
+    """For each N = 16 kernel of these sources that holds MUFU.EX2: the
+    innermost loop (the shortest span closed by a backward branch) that
+    holds them, its instructions by opcode and per MUFU.EX2, and how soon
+    its global loads are used (``load_use``)."""
+    out = {}
+    for n in names:
+        for kname, ins in sass_functions(cuda_build, n).items():
+            if "Li16E" not in kname:
+                continue
+            ex2 = [a for a, t in ins if "MUFU.EX2" in t]
+            if not ex2:
+                continue
+            best = None
+            for a, t in ins:
+                m = re.search(r"\bBRA\S*\s.*?0x([0-9a-f]+)", t)
+                if m and int(m.group(1), 16) < a:
+                    lo = int(m.group(1), 16)
+                    if any(lo <= e <= a for e in ex2) and (best is None or a - lo < best[1] - best[0]):
+                        best = (lo, a)
+            if best is None:  # no loop found: the whole function
+                best = (ins[0][0], ins[-1][0])
+            body = [t for a, t in ins if best[0] <= a <= best[1]]
+            ops = Counter(_opcode(t) for t in body)
+            n_ex2 = ops.get("MUFU.EX2", 0)
+            use = load_use(ins)
+            near = sorted(d for d in use if d is not None)
+            out[kname] = dict(loop_instructions=len(body), mufu_ex2=n_ex2,
+                              per_ex2=len(body) / max(n_ex2, 1),
+                              predicated=sum(t.startswith("@") for t in body),
+                              fsetp=sorted({t.strip() for t in body if "FSETP" in t})[:6],
+                              opcodes=dict(ops.most_common(14)),
+                              instructions=len(ins), ldg=len(use), ldg_ahead=use.count(None),
+                              ldg_use_median=near[len(near) // 2] if near else None)
+    return out
 
 
 def k2(cs, dev):
@@ -187,8 +464,18 @@ def main():
     ap.add_argument("--label", default="", help="name of this run in the JSON line")
     ap.add_argument("--skip-steps", action="store_true",
                     help="kernel timings only (no scoring rates or training steps)")
+    ap.add_argument("--only", default="k1,k2,k4,k5", help="kernels to time, comma-separated")
+    ap.add_argument("--variant", choices=sorted(VARIANTS), help="measure a diagnostic copy")
+    ap.add_argument("--sass", action="store_true", help="count the forward scans' SASS")
+    ap.add_argument("--sass-of", default="",
+                    help="sources (e.g. mixer2_fwd,scan_fwd) whose kernels' SASS to count, "
+                         "each kernel whole, with their -Xptxas -v")
+    ap.add_argument("--no-ptxas", action="store_true", help="skip the -Xptxas -v compiles")
     a = ap.parse_args()
-    sys.path.insert(0, str(Path(a.repo).resolve()))
+    repo = Path(a.repo).resolve()
+    if a.variant:
+        repo = make_variant(repo, a.variant)
+    sys.path.insert(0, str(repo))
     import torch
 
     cs = _module("chip_smoke", HERE / "chip_smoke.py")
@@ -203,13 +490,24 @@ def main():
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     cs.log(card)
+    only = [k for k in a.only.split(",") if k]
+    sass_of = [n for n in a.sass_of.split(",") if n]
+    sources = [SOURCE[k] for k in only] + (["mixer_fwd"] if a.sass else []) + sass_of
     t = time.perf_counter()
-    cuda_build.build_all()
+    cuda_build.build_all(tuple(dict.fromkeys(sources)) if a.skip_steps else cuda_build.SOURCES)
     build_s = time.perf_counter() - t
-    ptxas = sb.ptxas_reports(cuda_build, ("mixer_fwd", "mixer2_fwd"))
+    ptxas = {} if a.no_ptxas else sb.ptxas_reports(
+        cuda_build, tuple(dict.fromkeys([SOURCE[k] for k in only] + sass_of)))
     dev = torch.device("cuda")
-    res = dict(label=a.label, repo=str(Path(a.repo).resolve()), card=card, build_s=build_s,
-               ptxas=ptxas, k2=k2(cs, dev), k5=k5(cs, dev))
+    res = dict(label=a.label, repo=str(repo), variant=a.variant, card=card, build_s=build_s,
+               ptxas=ptxas)
+    if a.sass:
+        res["sass"] = sass_loops(cuda_build)
+    if sass_of:
+        res["sass_kernels"] = sass_kernels(cuda_build, sass_of)
+    benches = dict(k1=k1, k2=k2, k4=k4, k5=k5)
+    for k in only:
+        res[k] = benches[k](cs, dev)
     if not a.skip_steps:
         res["scoring_wps"] = {p: scoring_rate(p, dev) for p in ("l20", "l20-ssd")}
         res["steps"] = {p: sb.train_step(cs, p, dev) for p in ("l20", "l20-ssd")}
