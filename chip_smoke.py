@@ -89,8 +89,31 @@ tied MLM head; vocab 16, 512-bp windows, seeded weights):
 10c. device time by kernel over one bf16 forward batch and one training
     step, with the host-to-device copies and host synchronisations in each.
 
-Inputs and outputs of phases 6, 9 and 9b go to ``build/chip_smoke/`` in the
-checkout.
+and the AR Mamba LM (``models/mamba_lm.py``, ``cli/ar_lm.py``) at the l20
+widths (d_model 384, 20 layers, vocab 256, batch 32 x 512 tokens), then the
+PlantCAD2 zero-shot evaluation (``cli/zero_shot_eval.py``):
+
+11. Mamba-1 (d_state 16): the fp32 forward with K1 (dt given at full
+    width) against the plain path, one fp32 ``nll_loss`` gradient (2
+    layers, 4 rows) with K1-hb and K3 against autograd through the plain
+    versions, ``ar_lm train`` on SURVEY.md's bytes for 30 bf16 steps
+    (in-process, counted and timed: bits/dim falls), a profiled training
+    step, ``python -m ... sample`` from its checkpoint (greedy, equal to the
+    in-process decode), the decode rate at batch 1 and a profiled decode
+    step;
+11b. the same for Mamba-2 at the SSD kernels' shapes (head_dim = d_state =
+    chunk = 128, 6 heads): K4 in the forward, K4-fentry and K6 in plain
+    mode under grad;
+12. the four ``zero_shot_eval`` subcommands with pc2-small (24 layers,
+    d_model 768, random seeded weights) on seeded 8192-bp TSVs of 32 rows,
+    batch 16 (in-process, counted and timed), the ``--save-logits`` /
+    ``--logits-path`` round trip and a second core_noncore run through
+    ``python -m`` (the same metrics exactly), the steady rate, a profiled
+    batch, K2 at that shape (32 rows x 8192 x 1536) against its plain
+    version with time and bound, and evo_cons with pc2-small-ssd (K5).
+
+Inputs and outputs of phases 6, 9, 9b, 11, 11b and 12 go to
+``build/chip_smoke/`` in the checkout.
 
 Every failure exits non-zero; no phase's failure is caught. Without CUDA it
 exits 1 and prints no result. The last two lines of standard output are the
@@ -233,7 +256,6 @@ def phase_kernels(cfg, dev):
     log("phase 3: kernels vs plain versions (l20 shapes)")
     rows, L = 256, 512
     D, N, R, K = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
-    J = R + 2 * N
     w = layer_weights(cfg, 1, dev)
     A = -torch.exp(w["A_log"])
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -256,12 +278,8 @@ def phase_kernels(cfg, dev):
                     lambda: cuda_mixer.mixer_fwd(*args, reverse=True), 10)
                 res["mixer_fwd"]["plain_ms"] = time_ms(
                     lambda: cuda_mixer.mixer_fwd_plain(*args, reverse=True), 2, warmup=1)
-                s = xi.element_size()
-                nbytes = 2 * rows * L * D * s + 4 * (D * (K + 1 + J + N + 2) + R * D)
-                pts = rows * L * D
-                flops = pts * (2 * K + 2 * J + 2 * R + 6 * N + 10)
-                sfu = pts * (N + 3)  # exp2 per state; silu exp; softplus exp+log1p
-                res["mixer_fwd"]["bound"] = bound_ms(nbytes, flops, sfu)
+                res["mixer_fwd"]["bound"] = bound_ms(*mixer_fwd_work(rows, L, D, N, R, K,
+                                                                    xi.element_size()))
 
         x = torch.randn((rows, L, D), generator=gen, device=dev).to(dtype)
         Bm = torch.randn((rows, L, N), generator=gen, device=dev).to(dtype)
@@ -442,6 +460,17 @@ def split_note(r, dn):
     if not split:
         return ""
     return "; by kernel " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + " ms"
+
+
+def mixer_fwd_work(rows, L, D, N, R, K, s):
+    """K2's inference variant: (bytes, fp32 flops, SFU ops) for xi in, y out
+    (``s`` bytes each) and the float32 weights read once."""
+    J = R + 2 * N
+    nbytes = 2 * rows * L * D * s + 4 * (D * (K + 1 + J + N + 2) + R * D)
+    pts = rows * L * D
+    flops = pts * (2 * K + 2 * J + 2 * R + 6 * N + 10)
+    sfu = pts * (N + 3)  # exp2 per state; silu exp; softplus exp+log1p
+    return nbytes, flops, sfu
 
 
 def scan_fwd_work(rows, L, D, N, R, s, hbc=None):
@@ -1158,16 +1187,21 @@ def phase_grads(dev):
     return hb_launches
 
 
-def grads_agree(what, got, want):
-    """Every parameter's gradient through the kernels within GRAD_TOL of its
+def rel_gap(got, want):
+    """max |got - want| over max |want|."""
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    return err / scale if scale else err
+
+
+def grads_agree(what, got, want, tol=GRAD_TOL):
+    """Every parameter's gradient through the kernels within ``tol`` of its
     max |gradient| through the plain path; returns (worst, its name)."""
     worst, worst_name = 0.0, ""
     for n, gp in want.items():
-        scale = gp.abs().max().item()
-        err = (got[n] - gp).abs().max().item()
-        rel = err / scale if scale else err
-        if not (math.isfinite(err) and rel <= GRAD_TOL):
-            fail(f"{what}: gradient of {n} off by {rel:.3e} of its max (tol {GRAD_TOL:.0e})")
+        rel = rel_gap(got[n], gp)
+        if not (math.isfinite(rel) and rel <= tol):
+            fail(f"{what}: gradient of {n} off by {rel:.3e} of its max (tol {tol:.1e})")
         if rel >= worst:
             worst, worst_name = rel, n
     return worst, worst_name
@@ -1815,6 +1849,434 @@ def phase_bert_profile(dev):
         report_profile(prof, wall, top)
 
 
+# ---------------------------------------------------------------------------
+# The AR Mamba LM (models/mamba_lm.py, cli/ar_lm.py) at the l20 widths:
+# d_model 384, 20 layers, batch 32 x 512 tokens, byte-level (vocab 256).
+AR_WIDTHS = dict(d_model=384, n_layer=20, vocab_size=256)
+AR_BATCH, AR_L, AR_STEPS = 32, 512, 30
+AR_PROMPT, AR_NEW = 32, 256  # decode: prompt and new tokens at batch 1
+# Per variant: the phase, its config, the CLI's flags, and the kernels its
+# forward (no grad) and its training step launch, once per layer each.
+AR_VARIANTS = {
+    "mamba1": ("11", dict(d_state=16), ["--d-state", "16"], ("scan_fwd",),
+               ("scan_fwd_hb", "scan_bwd")),
+    "mamba2": ("11b", dict(ssm_variant="mamba2", d_state=128, head_dim=128, chunk_size=128),
+               ["--ssm-variant", "mamba2", "--d-state", "128", "--head-dim", "128",
+                "--chunk-size", "128"], ("ssd_fwd",), ("ssd_fwd_fentry", "ssd_bwd")),
+}
+
+
+def phase_ar_lm(variant, dev):
+    """The AR Mamba LM: the fp32 forward at full depth and ``nll_loss``
+    gradients at the trainer's batch (2 layers; fp32, and bf16 for Mamba-2)
+    with the kernels against the plain path; the ``ar_lm train`` CLI (in-process, counted and timed), a
+    profiled training step, ``python -m ... sample`` from its checkpoint
+    and the decode rate at batch 1. Returns (launches by kernel, figures)."""
+    import dataclasses
+    import logging
+
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import ar_lm
+    from plantcaduceus_tpu_torch.compat.params import mamba_lm_from_jax_params
+    from plantcaduceus_tpu_torch.models import mamba_lm
+
+    phase, kw, flags, k_fwd, k_train = AR_VARIANTS[variant]
+    cfg = mamba_lm.MambaLmConfig(**AR_WIDTHS, **kw)
+    log(f"phase {phase}: AR Mamba LM, {variant} ({cfg.n_layer} layers, d_model {cfg.d_model}, "
+        f"{kw}), batch {AR_BATCH} x {AR_L} tokens")
+    launches = dict.fromkeys(k_fwd + k_train, 0)
+    ids = torch.randint(0, 256, (AR_BATCH, AR_L), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(11))
+    model = mamba_lm.MambaLm(cfg, mamba_lm.init_params(cfg, seed=11)).to(dev)
+    with torch.inference_mode():
+        reset_counts()
+        got = model(ids, dtype=torch.float32)["logits"]
+        torch.cuda.synchronize()
+        c = counts()
+        want = model(ids, dtype=torch.float32, use_kernels=False)["logits"]
+    if c != only(**{k: cfg.n_layer for k in k_fwd}):
+        fail(f"phase {phase} forward launched {c}; expected {k_fwd} {cfg.n_layer} each")
+    launches.update({k: launches[k] + c[k] for k in k_fwd})
+    d, scale = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"  fp32 logits {tuple(got.shape)}: max_abs_err={d:.3e} (max |logit| {scale:.3e}, "
+        f"tol {FORWARD_TOL:.0e} rel); launches {c[k_fwd[0]]} {k_fwd[0]}")
+    if not (torch.isfinite(got).all() and d <= FORWARD_TOL * scale):
+        fail(f"phase {phase}: the forward with kernels disagrees with the plain path")
+    del model, got, want
+
+    # nll_loss gradients at the trainer's batch (AR_BATCH x AR_L), 2 layers,
+    # kernels against the plain path: fp32 within GRAD_TOL, and for Mamba-2
+    # bf16 too (the trainer's dtype; the Mamba-1 mixer casts the scan's
+    # inputs to fp32, so K1-hb and K3 run in fp32 whatever the compute
+    # dtype). A bf16 gradient through two layers carries bf16's rounding of
+    # every product, not one output's: the plain path's own bf16 gradient
+    # is ~3e-2 of a leaf's max from its fp32 one. So the bf16 tolerance is
+    # measured in the run: with `gap` that worst leaf, a kernel path no
+    # further than `gap` from the fp32 gradient lies within 2 * gap of the
+    # plain path (triangle inequality); both distances are logged.
+    gcfg = dataclasses.replace(cfg, n_layer=2)
+    params = mamba_lm.init_params(gcfg, seed=13)
+    dtypes = (torch.float32, torch.bfloat16) if variant == "mamba2" else (torch.float32,)
+    grads = {}
+    for dtype in dtypes:
+        for use_kernels in (True, False):
+            m = mamba_lm.MambaLm(gcfg, params).to(dev).requires_grad_()
+            names, ps = zip(*m.named_parameters())
+            reset_counts()
+            loss = mamba_lm.nll_loss(m, ids, dtype=dtype, use_kernels=use_kernels)
+            grads[dtype, use_kernels] = dict(zip(names, torch.autograd.grad(loss, ps)))
+            torch.cuda.synchronize()
+            c = counts()
+            want = only(**{k: gcfg.n_layer for k in k_train}) if use_kernels else only()
+            if c != want:
+                fail(f"phase {phase} {dtype} gradient (kernels={use_kernels}) launched {c}; "
+                     f"expected {want}")
+            if use_kernels:
+                launches.update({k: launches[k] + c[k] for k in k_train})
+        dn = str(dtype).split(".")[-1]
+        tol, note = GRAD_TOL, ""
+        if dtype != torch.float32:
+            ref = grads[torch.float32, False]
+            gap = max(rel_gap(grads[dtype, False][n], g) for n, g in ref.items())
+            k_gap = max(rel_gap(grads[dtype, True][n], g) for n, g in ref.items())
+            tol = 2 * gap
+            note = (f"; against the fp32 gradient: plain path {gap:.3e}, kernels {k_gap:.3e} "
+                    f"(worst leaf)")
+        worst, worst_name = grads_agree(f"phase {phase} {dn}", grads[dtype, True],
+                                        grads[dtype, False], tol)
+        log(f"  {dn} nll_loss gradient (2 layers, {AR_BATCH} rows x {AR_L}): "
+            f"{len(grads[dtype, False])} parameters, worst {worst_name} at {worst:.3e} of its "
+            f"max |grad| (tol {tol:.3e}){note}; launches "
+            f"{', '.join(f'{k} {gcfg.n_layer}' for k in k_train)}")
+    del grads
+
+    tmp = REPO / "build" / "chip_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
+    ckpt = tmp / f"ar_lm_{variant}.npz"
+    args = ["train", "--data", str(REPO / "SURVEY.md"), "--seq-len", str(AR_L), "--batch",
+            str(AR_BATCH), "--steps", str(AR_STEPS), "--d-model", str(cfg.d_model),
+            "--n-layer", str(cfg.n_layer), "--log-every", "1", "--output", str(ckpt), *flags]
+    steps = []  # (step, bits/dim, host time once the step's loss reached the host)
+
+    class StepLog(logging.Handler):
+        def emit(self, record):
+            if isinstance(record.msg, str) and record.msg.startswith("step "):
+                steps.append((record.args[0], record.args[1], time.perf_counter()))
+
+    handler = StepLog()
+    cli_log = logging.getLogger("plantcaduceus_tpu_torch.cli.ar_lm")
+    cli_log.addHandler(handler)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t = time.perf_counter()
+    ar_lm.main(args)
+    wall = time.perf_counter() - t
+    c = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    cli_log.removeHandler(handler)
+    bpd = [s[1] for s in steps]
+    if [s[0] for s in steps] != list(range(1, AR_STEPS + 1)) or not all(map(math.isfinite, bpd)):
+        fail(f"phase {phase}: bad step log {steps}")
+    if not bpd[-1] < bpd[0]:
+        fail(f"phase {phase}: bits/dim did not fall ({bpd[0]} -> {bpd[-1]})")
+    want = only(**{k: AR_STEPS * cfg.n_layer for k in k_train})
+    if c != want:
+        fail(f"phase {phase} ar_lm train launched {c}; expected {want}")
+    launches.update({k: launches[k] + c[k] for k in k_train})
+    times = {s[0]: s[2] for s in steps}
+    step_s = (times[AR_STEPS] - times[10]) / (AR_STEPS - 10)
+    tps = AR_BATCH * AR_L / step_s
+    log(f"  ar_lm train (bf16, SURVEY.md bytes, {AR_STEPS} steps): {wall:.1f} s in all; bits/dim "
+        f"{bpd[0]:.4f} -> {bpd[-1]:.4f}; steps 11-{AR_STEPS}: {step_s * 1e3:.2f} ms per step, "
+        f"{tps:.1f} tokens/s; peak memory allocated {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"launches {', '.join(f'{k} {c[k]}' for k in k_train)}")
+    ar_step_profile(cfg, dev, ids)
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.ar_lm", "sample",
+                          str(ckpt), "--prompt-len", str(AR_PROMPT), "--n-new", "64"], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"ar_lm sample exited {res.returncode}:\n{res.stderr[-4000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    if len(out["prompt"]) != AR_PROMPT or len(out["generated"]) != 64 or \
+            not all(0 <= t < 256 for t in out["generated"]):
+        fail(f"ar_lm sample printed {out}")
+
+    targs, tree = ar_lm._load_ckpt(ckpt)
+    model = mamba_lm_from_jax_params(tree, ar_lm._config(targs)).to(dev)
+    prompt = torch.tensor(out["prompt"], device=dev)[None]
+    toks = mamba_lm.generate(model, prompt, 64)  # the CLI's greedy decode, bf16
+    if toks[0].tolist() != out["generated"]:
+        fail("greedy decode in-process differs from python -m ... sample")
+    mamba_lm.generate(model, prompt, 8)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mamba_lm.generate(model, prompt, AR_NEW)
+    torch.cuda.synchronize()
+    dec = time.perf_counter() - t
+    n_steps = AR_PROMPT + AR_NEW - 1  # prefill steps, then one per new token but the last
+    log(f"  python -m ... sample: greedy, 64 tokens after a {AR_PROMPT}-token prompt, equal "
+        f"to the in-process decode; decode at batch 1: {n_steps} steps in {dec:.3f} s, "
+        f"{dec / n_steps * 1e3:.2f} ms per step, {n_steps / dec:.1f} tokens/s")
+    decode_step_profile(model, prompt)
+    return launches, dict(tps=tps, step_ms=step_s * 1e3, peak=peak,
+                          decode_tps=n_steps / dec, bpd=(bpd[0], bpd[-1]))
+
+
+def decode_step_profile(model, prompt):
+    """Device time by kernel over one decode step at batch 1 (bf16), and
+    the host's share: the device is idle while Python issues the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plantcaduceus_tpu_torch.models import mamba_lm
+
+    with torch.inference_mode():
+        cache = mamba_lm.init_cache(model.cfg, 1, device=prompt.device)
+        logits, cache = mamba_lm.step(model, cache, prompt[:, 0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            mamba_lm.step(model, cache, prompt[:, 1])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    log(f"  profile of one decode step (batch 1, bf16): {n} kernel launches")
+    report_profile(prof, wall, 5)
+
+
+def ar_step_profile(cfg, dev, ids):
+    """Device time by kernel over one bf16 training step of the AR LM (the
+    CLI's loop body: nll_loss, its gradient, AdamW)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plantcaduceus_tpu_torch.models import mamba_lm
+    from plantcaduceus_tpu_torch.train.optimizer import AdamW, make_schedule
+
+    model = mamba_lm.MambaLm(cfg, mamba_lm.init_params(cfg, seed=14)).to(dev).requires_grad_()
+    params = dict(model.named_parameters())
+    opt = AdamW(make_schedule("constant_with_warmup", 3e-3), weight_decay=1e-4)
+    state = opt.init(params)
+
+    def train_step():
+        loss = mamba_lm.nll_loss(model, ids)
+        opt.update(dict(zip(params, torch.autograd.grad(loss, list(params.values())))),
+                   state, params)
+        return loss.item()
+
+    train_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        train_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    log("  profile of one training step (bf16):")
+    report_profile(prof, wall, 10)
+
+
+# ---------------------------------------------------------------------------
+# PlantCAD2 zero-shot evaluation (cli/zero_shot_eval.py) with pc2-small
+# (d_model 768, 24 layers, d_inner 1536, N 16, R 48; random seeded weights)
+# at 8192 bp on seeded synthetic TSVs.
+EVAL_L, EVAL_ROWS, EVAL_BATCH = 8192, 32, 16
+EVAL_CENTER = EVAL_L // 2 - 1
+EVAL_MOTIF = f"{EVAL_CENTER - 1},{EVAL_CENTER},{EVAL_CENTER + 1}"
+
+
+def write_eval_inputs(tmp: Path):
+    """The four subcommands' TSVs: 32 rows of 8192 bp each, labels 0/1
+    alternating; one motif row with an N inside the motif."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    bases = np.array(list("ACGT"))
+
+    def seqs():
+        return ["".join(rng.choice(bases, EVAL_L)) for _ in range(EVAL_ROWS)]
+
+    labels = [i % 2 for i in range(EVAL_ROWS)]
+    motif = seqs()
+    motif[3] = motif[3][:EVAL_CENTER] + "N" + motif[3][EVAL_CENTER + 1:]
+    tables = {
+        "evo": (["sequence", "label"], list(zip(seqs(), labels))),
+        "motif": (["sequence", "label"], list(zip(motif, labels))),
+        "core": (["sequence", "is_core"], list(zip(seqs(), labels))),
+        "sv": (["RefSeq", "MutSeq", "left", "right", "label"],
+               list(zip(seqs(), seqs(),  # breakpoints within an eighth of the centre
+                        rng.integers(EVAL_L // 2 - EVAL_L // 8, EVAL_L // 2 - EVAL_L // 16,
+                                     EVAL_ROWS),
+                        rng.integers(EVAL_L // 2 + EVAL_L // 16, EVAL_L // 2 + EVAL_L // 8,
+                                     EVAL_ROWS), labels))),
+    }
+    paths = {}
+    for name, (cols, rows) in tables.items():
+        paths[name] = tmp / f"eval_{name}.tsv"
+        paths[name].write_text("\t".join(cols) + "\n" + "".join(
+            "\t".join(map(str, r)) + "\n" for r in rows))
+    return paths
+
+
+EVAL_CMDS = {  # subcommand -> (table, flags, forward passes over the rows)
+    "evo_cons": ("evo", ["--token-idx", str(EVAL_CENTER)], 1),
+    "motif_acc": ("motif", ["--mask-idx", EVAL_MOTIF, "--motif-len", "3"], 1),
+    "core_noncore": ("core", ["--mask-idx", EVAL_MOTIF, "--motif-len", "3",
+                              "--label-column", "is_core"], 1),
+    "sv_effect": ("sv", ["--flanking", "5"], 2),
+}
+
+
+def run_eval_cli(args):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.zero_shot_eval",
+                          *args, "--no-progress"], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode != 0:
+        fail(f"zero_shot_eval {args} exited {res.returncode}:\n{res.stderr[-4000:]}")
+
+
+def phase_eval(dev):
+    """The four zero_shot_eval subcommands with pc2-small at 8192 bp
+    (in-process, counted and timed), the logits round trip and one full
+    subcommand through ``python -m``, the steady rate, K2 at this shape
+    against its plain version, a profiled batch, and evo_cons with
+    pc2-small-ssd. Returns (K2 launches, K5 launches, figures)."""
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import zero_shot_eval as zse
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.io.tokenizer import nucleotide_ids
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_mixer
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    cfg = CaduceusConfig.preset("pc2-small")
+    log(f"phase 12: zero_shot_eval, pc2-small ({cfg.n_layer} layers, d_model {cfg.d_model}, "
+        f"random seeded weights), {EVAL_ROWS} rows x {EVAL_L} bp, batch {EVAL_BATCH}, bf16")
+    tmp = REPO / "build" / "chip_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
+    paths = write_eval_inputs(tmp)
+    per_pass = 2 * cfg.n_layer * math.ceil(EVAL_ROWS / EVAL_BATCH)
+    k2, metrics, walls = 0, {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cmd, (table, flags, passes) in EVAL_CMDS.items():
+        mj = tmp / f"eval_{cmd}.json"
+        extra = ["--save-logits", str(tmp / "eval_logits.tsv")] if cmd == "evo_cons" else []
+        reset_counts()
+        t = time.perf_counter()
+        zse.main([cmd, "--repo-id", str(paths[table]), "--model", "pc2-small", "--batch-size",
+                  str(EVAL_BATCH), "--metrics-json", str(mj), "--no-progress", *flags, *extra])
+        walls[cmd] = time.perf_counter() - t
+        c = counts()
+        if c != only(mixer_fwd=per_pass * passes):
+            fail(f"phase 12 {cmd} launched {c}; expected mixer_fwd={per_pass * passes}")
+        k2 += c["mixer_fwd"]
+        metrics[cmd] = json.loads(mj.read_text())
+        vals = [v for k, v in metrics[cmd].items() if k != "token_idx"]
+        if not all(math.isfinite(v) and 0 <= v <= 1 for v in vals):
+            fail(f"phase 12 {cmd}: metrics {metrics[cmd]}")
+        log(f"  {cmd}: {metrics[cmd]}; {walls[cmd]:.2f} s end to end "
+            f"({passes * EVAL_ROWS / walls[cmd]:.2f} windows/s incl. model build); "
+            f"mixer_fwd {c['mixer_fwd']}")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    replay = tmp / "eval_evo_cons_replay.json"
+    run_eval_cli(["evo_cons", "--repo-id", str(paths["evo"]), "--token-idx", str(EVAL_CENTER),
+                  "--logits-path", str(tmp / "eval_logits.tsv"), "--metrics-json", str(replay)])
+    if json.loads(replay.read_text()) != metrics["evo_cons"]:
+        fail("phase 12: --logits-path replay gave other metrics than the run that saved them")
+    again = tmp / "eval_core_noncore_again.json"
+    table, flags, _ = EVAL_CMDS["core_noncore"]
+    run_eval_cli(["core_noncore", "--repo-id", str(paths[table]), "--model", "pc2-small",
+                  "--batch-size", str(EVAL_BATCH), "--metrics-json", str(again), *flags])
+    if json.loads(again.read_text()) != metrics["core_noncore"]:
+        fail("phase 12: python -m ... core_noncore gave other metrics than in-process")
+    log("  python -m ...: the evo_cons --logits-path replay and a second core_noncore run "
+        "give the same metrics exactly")
+
+    model, _, tok = load_model_and_tokenizer("pc2-small")
+    runner = InferenceRunner(model, cfg, dtype=torch.bfloat16, batch_size=EVAL_BATCH,
+                             device=dev)
+    seqs = [ln.split("\t")[0] for ln in paths["evo"].read_text().splitlines()[1:]]
+    ids = tok.encode_batch(seqs * 2)  # 64 windows, 4 batches
+    ids[:, EVAL_CENTER] = tok.mask_token_id
+    nuc = nucleotide_ids(tok)
+    runner.masked_probs(ids[:EVAL_BATCH], nuc, EVAL_CENTER, progress=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probs = runner.masked_probs(ids, nuc, EVAL_CENTER, progress=False)
+    wps = len(ids) / (time.perf_counter() - t)
+    if probs.shape != (len(ids), 4) or not np.isfinite(probs).all():
+        fail("phase 12: steady-state probabilities")
+    log(f"  steady state: {wps:.2f} windows/s (pc2-small, {EVAL_L} bp, batch {EVAL_BATCH}, "
+        f"bf16, model resident); peak memory allocated over the subcommands {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = torch.from_numpy(ids[:EVAL_BATCH].astype(np.int64)).to(dev)
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            runner.model(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    log(f"  profile of one pc2-small batch ({EVAL_BATCH} x {EVAL_L} bp, bf16):")
+    report_profile(prof, wall, 10)
+    del runner, model
+
+    # K2 at this path's shape: 2 x 16 rows (the RC stream), one direction each way.
+    rows, D, N, R, K = 2 * EVAL_BATCH, cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
+    w = layer_weights(cfg, 1, dev)
+    A = -torch.exp(w["A_log"])
+    xi = torch.randn((rows, EVAL_L, D), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5)).to(torch.bfloat16)
+    k2res = {"err": 0.0}
+    for g in (0, 1):
+        args = (xi, w["conv_w"][g], w["conv_b"][g], w["x_proj_dt"][g], w["x_proj_B"][g],
+                w["x_proj_C"][g], w["dt_proj_w"][g], w["dt_proj_b"][g], A[g], w["D"][g])
+        got = cuda_mixer.mixer_fwd(*args, reverse=g == 1)
+        want = cuda_mixer.mixer_fwd_plain(*args, reverse=g == 1)
+        torch.cuda.synchronize()
+        k2res["err"] = max(k2res["err"], compare(
+            f"K2 mixer_fwd pc2-small bf16 {'rev' if g else 'fwd'}", got, want, "bfloat16"))
+        del got, want
+    k2res["ms"] = time_ms(lambda: cuda_mixer.mixer_fwd(*args, reverse=True), 10)
+    k2res["plain_ms"] = time_ms(lambda: cuda_mixer.mixer_fwd_plain(*args, reverse=True), 1,
+                                warmup=0)
+    b, by, parts = bound_ms(*mixer_fwd_work(rows, EVAL_L, D, N, R, K, xi.element_size()))
+    k2res.update(bound_ms=b, bound_by=by)
+    log(f"  K2 at {rows} rows x {EVAL_L} x {D} (bf16, one direction): {k2res['ms']:.3f} ms; "
+        f"plain {k2res['plain_ms']:.1f} ms; bound {b:.3f} ms by {by} (bytes "
+        f"{parts['bytes'] * 1e3:.3f}, fp32 flops {parts['flops'] * 1e3:.3f}, sfu "
+        f"{parts['sfu'] * 1e3:.3f} ms)")
+    del xi
+
+    ssd_cfg = CaduceusConfig.preset("pc2-small-ssd")
+    mj = tmp / "eval_evo_cons_ssd.json"
+    reset_counts()
+    t = time.perf_counter()
+    zse.main(["evo_cons", "--repo-id", str(paths["evo"]), "--model", "pc2-small-ssd",
+              "--batch-size", str(EVAL_BATCH), "--metrics-json", str(mj), "--no-progress",
+              "--token-idx", str(EVAL_CENTER)])
+    wall = time.perf_counter() - t
+    c = counts()
+    k5 = 2 * ssd_cfg.n_layer * math.ceil(EVAL_ROWS / EVAL_BATCH)
+    if c != only(mixer2_fwd=k5):
+        fail(f"phase 12 evo_cons pc2-small-ssd launched {c}; expected mixer2_fwd={k5}")
+    m = json.loads(mj.read_text())
+    if not all(math.isfinite(m[k]) for k in ("auroc", "auprc")):
+        fail(f"phase 12 pc2-small-ssd metrics {m}")
+    log(f"  evo_cons -model pc2-small-ssd: {m}; {wall:.2f} s end to end; mixer2_fwd {k5}")
+    return k2, k5, dict(k2=k2res, wps=wps, walls=walls, peak=peak)
+
+
 def main():
     import torch
 
@@ -1857,46 +2319,55 @@ def main():
     phase_bert_grads(dev)
     btc, btps, bstep_s, bpeak = phase_bert_train(dev)
     phase_bert_profile(dev)
+    # the AR Mamba LM and the PlantCAD2 evaluation after every earlier phase
+    torch.cuda.empty_cache()
+    ar1, ar1_fig = phase_ar_lm("mamba1", dev)
+    ar2, ar2_fig = phase_ar_lm("mamba2", dev)
+    torch.cuda.empty_cache()
+    ek2, ek5, ev = phase_eval(dev)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
         f"{step_s * 1e3:.2f} ms per step, peak {peak} bytes; l20-ssd {tps2:.1f} tokens/s, "
         f"{step_s2 * 1e3:.2f} ms per step, peak {peak2} bytes; BERT-Base forward {bwps:.1f} "
         f"windows/s, training {btps:.1f} tokens/s, {bstep_s * 1e3:.2f} ms per step, peak "
-        f"{bpeak} bytes")
+        f"{bpeak} bytes; AR LM mamba1 {ar1_fig['tps']:.1f} / mamba2 {ar2_fig['tps']:.1f} "
+        f"training tokens/s, decode {ar1_fig['decode_tps']:.1f} / {ar2_fig['decode_tps']:.1f} "
+        f"tokens/s at batch 1; zero_shot_eval pc2-small {ev['wps']:.2f} windows/s at "
+        f"{EVAL_L} bp")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
-                          launches=k2_launches),
+                          launches=k2_launches + ek2),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                               launches=tc["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
-                         launches=k1_launches),
+                         launches=k1_launches + ar1["scan_fwd"]),
         "scan_fwd_hb": dict(source=src + "scan_fwd.cu",
                             replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
-                            launches=hb_launches),
+                            launches=hb_launches + ar1["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
-                         launches=tc["scan_bwd"]),
+                         launches=tc["scan_bwd"] + ar1["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
-                        launches=k4_launches),
+                        launches=k4_launches + ar2["ssd_fwd"]),
         "mixer2_fwd": dict(source=src + "mixer2_fwd.cu",
                            replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
-                           launches=k5_launches),
+                           launches=k5_launches + ek5),
         "ssd_fwd_fentry": dict(source=src + "ssd_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
-                               launches=fentry_launches),
+                               launches=fentry_launches + ar2["ssd_fwd_fentry"]),
         "mixer2_fwd_res": dict(source=src + "mixer2_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
                                launches=tc2["mixer2_fwd_res"]),
         "ssd_bwd": dict(source=src + "ssd_bwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
-                        launches=k6_launches),
+                        launches=k6_launches + ar2["ssd_bwd"]),
         "ssd_bwd_pre_silu": dict(source=src + "ssd_bwd.cu",
                                  replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
                                  launches=tc2["ssd_bwd_pre_silu"]),
@@ -1910,7 +2381,11 @@ def main():
             g = r["dt_given"]
             extra["dt_given"] = dict(ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound"][0],
                                      bound_by=g["bound"][1])
-        kernels.append(dict(name=name, route="cuda", **meta[name], max_abs_err=r["err"],
+        err = r["err"]
+        if name == "mixer_fwd":  # K2 at pc2-small's 8192-bp shape, beside l20's
+            extra["pc2_small"] = dict(ev["k2"], rows=2 * EVAL_BATCH, L=EVAL_L)
+            err = max(err, ev["k2"]["err"])
+        kernels.append(dict(name=name, route="cuda", **meta[name], max_abs_err=err,
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b, bound_by=by,
                             library_ms=None, **extra))
     # The training variants and K3: the bf16 numbers (the trainer's dtype)

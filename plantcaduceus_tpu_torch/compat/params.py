@@ -5,7 +5,8 @@ The Caduceus pytree, given as numpy arrays, is
 — the layout of ``plantcaduceus_tpu.models.caduceus.init_params`` and of
 ``plantcaduceus_tpu.compat.hf_import.import_params``. The BERT baseline's
 is that of ``plantcaduceus_tpu.models.bert.init_params`` (the JAX package
-has no HF export for it, so the pytree is the crossing).
+has no HF export for it, so the pytree is the crossing), and the AR Mamba
+LM's that of ``plantcaduceus_tpu.models.mamba_lm.init_params``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plantcaduceus_tpu_torch.models import bert
+from plantcaduceus_tpu_torch.models import bert, mamba_lm
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, layer_keys
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
@@ -43,9 +44,10 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy().copy()
 
 
-def to_jax_params(model: Caduceus) -> dict:
-    """The inverse of :func:`from_jax_params`: the model's weights as the JAX
-    pytree of float32 numpy arrays (block leaves stacked on n_layer)."""
+def to_jax_params(model) -> dict:
+    """The inverse of :func:`from_jax_params` (and of
+    :func:`mamba_lm_from_jax_params`): the model's weights as the JAX pytree
+    of float32 numpy arrays (block leaves stacked on n_layer)."""
     params = {"embedding": _numpy(model.embedding),
               "blocks": {k: np.stack([_numpy(getattr(layer, k)) for layer in model.layers])
                          for k in layer_keys(model.cfg)},
@@ -71,3 +73,15 @@ def bert_to_jax_params(model: bert.Bert) -> dict:
     params["blocks"] = {k: np.stack([_numpy(getattr(layer, k)) for layer in model.layers])
                         for k in bert.LAYER_KEYS}
     return params
+
+
+def mamba_lm_from_jax_params(params_np: dict, cfg: mamba_lm.MambaLmConfig) -> mamba_lm.MambaLm:
+    """The port's AR Mamba LM (on the CPU, float32) from the JAX
+    ``mamba_lm`` pytree's numpy arrays (blocks stacked on n_layer, the
+    optional ``lm_head``), for either SSM variant. Raises on a missing leaf."""
+    top = ("embedding", "norm_f_weight") + (() if cfg.tie_word_embeddings else ("lm_head",))
+    missing = [k for k in top if k not in params_np]
+    if missing:
+        raise KeyError(f"parameter pytree lacks leaves {missing}")
+    return mamba_lm.MambaLm(cfg, _torch_pytree(params_np, layer_keys(cfg)))
+

@@ -122,6 +122,9 @@ def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                               dt_bias, dt_proj_w)
     _require(dt.is_contiguous() and Bm.is_contiguous() and Cm.is_contiguous(), "scan_fwd",
              "dt, Bm and Cm must be contiguous")
+    # one template type reads all four (K3 takes dt's dtype apart)
+    _require(dt.dtype == x.dtype, "scan_fwd",
+             f"x ({x.dtype}) and dt, Bm, Cm ({dt.dtype}) must share one dtype")
     if h0 is not None:
         _require(h0.device == x.device and h0.dtype == torch.float32 and h0.is_contiguous()
                  and tuple(h0.shape) == (rows, D, N), "scan_fwd",

@@ -46,3 +46,15 @@ def load_model_and_tokenizer(spec: str, seed: int = 0) -> Tuple[Caduceus, Caduce
     log.info("Building randomly initialised preset %s (seed %d)", name, seed)
     cfg = CaduceusConfig.preset(name)
     return Caduceus(cfg, init_params(cfg, seed=seed)), cfg, DnaTokenizer()
+
+
+def load_tokenizer_only(spec: str) -> DnaTokenizer:
+    """The tokenizer of an HF checkpoint dir (its vocab files), else the
+    default DNA tokenizer (a preset name, or a dir without vocab files)."""
+    path = Path(spec)
+    if path.is_dir():
+        try:
+            return DnaTokenizer.from_hf_dir(path)
+        except FileNotFoundError:
+            pass
+    return DnaTokenizer()

@@ -89,6 +89,16 @@ def test_wrappers_reject_bad_input(cuda):
                            bc[..., :4].contiguous(), v, v)
 
 
+def test_scan_fwd_rejects_mixed_dtypes(cuda):
+    """K1 reads x, dt, Bm and Cm through one type: x in bf16 beside fp32
+    dt, Bm and Cm must raise, not be misread."""
+    x = torch.zeros((2, 8, 16), device=cuda)
+    bc = torch.zeros((2, 8, 4), device=cuda)
+    v = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_scan.scan_fwd(x.bfloat16(), x, torch.zeros((16, 4), device=cuda), bc, bc, v, v)
+
+
 def _scan_case(rng, dev, dtype, fuse, rows=3, L=200, D=160, N=16, R=12):
     x = _t(rng.standard_normal((rows, L, D)), dev, dtype)
     dt = _t(rng.standard_normal((rows, L, R if fuse else D)) * 0.5, dev, dtype)
@@ -967,3 +977,90 @@ def test_ssd_kernel_variants_are_deterministic(cuda, dtype, emit):
         b = cuda_ssd.ssd_dir(*args, 128, rev, emit_fentry=emit)
         for u, v in zip(*((a, b) if emit else ((a,), (b,)))):
             assert torch.equal(u, v)
+
+
+# The AR Mamba LM (models/mamba_lm.py): Mamba-1 through K1 with dt given
+# (K1-hb and K3 under grad), Mamba-2 at the SSD kernels' shapes through K4
+# (K4-fentry and K6 in plain mode under grad). 2 layers at the l20 widths.
+MAMBA_LM = {"mamba1": dict(d_model=384, n_layer=2, vocab_size=256, d_state=16),
+            "mamba2": dict(d_model=384, n_layer=2, vocab_size=256, ssm_variant="mamba2",
+                           d_state=128, head_dim=128, chunk_size=128)}
+
+
+def _lm_counts():
+    from plantcaduceus_tpu_torch.ops import cuda_scan, cuda_ssd
+
+    return dict(k1=cuda_scan.scan_fwd.launches, k1_hb=cuda_scan.scan_fwd.hb_launches,
+                k3=cuda_scan.scan_bwd.launches, k4=cuda_ssd.ssd_dir.launches,
+                k4_fentry=cuda_ssd.ssd_dir.fentry_launches, k6=cuda_ssd.ssd_dir_bwd.launches)
+
+
+@pytest.mark.parametrize("variant", list(MAMBA_LM))
+def test_mamba_lm_kernels_match_plain_path(cuda, variant):
+    """fp32 logits (1e-3 of max |logit|) and ``nll_loss`` gradients (1e-3 of
+    each parameter's max |grad|) with the kernels against the plain path,
+    with one launch per layer of each kernel the path runs."""
+    from plantcaduceus_tpu_torch.models import mamba_lm
+
+    cfg = mamba_lm.MambaLmConfig(**MAMBA_LM[variant])
+    model = mamba_lm.MambaLm(cfg, mamba_lm.init_params(cfg, seed=2)).to(cuda)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (4, 256))).to(cuda)
+    fwd, train = (("k1",), ("k1_hb", "k3")) if variant == "mamba1" else \
+        (("k4",), ("k4_fentry", "k6"))
+    logits, grads = {}, {}
+    for use_kernels in (True, False):
+        before = _lm_counts()
+        with torch.no_grad():
+            logits[use_kernels] = model(ids, dtype=torch.float32, use_kernels=use_kernels)[
+                "logits"]
+        model.requires_grad_()
+        names, ps = zip(*model.named_parameters())
+        loss = mamba_lm.nll_loss(model, ids, dtype=torch.float32, use_kernels=use_kernels)
+        grads[use_kernels] = dict(zip(names, torch.autograd.grad(loss, ps)))
+        model.requires_grad_(False)
+        torch.cuda.synchronize()
+        n = cfg.n_layer if use_kernels else 0
+        got = {k: v - before[k] for k, v in _lm_counts().items()}
+        assert got == {k: n if k in fwd + train else 0 for k in got}, got
+    _close_to_scale(logits[True], logits[False], 1e-3, "logits")
+    for k, w in grads[False].items():
+        _close_to_scale(grads[True][k], w, 1e-3, k)
+
+
+def test_mamba_lm_raises_where_ssd_kernels_lack_the_shape(cuda):
+    """Head dim 256: JAX takes its SSD kernel there (a multiple of 128), K4
+    and K6 take only 128, so the port raises on the card, with and without
+    grad, rather than run the plain path on card tensors."""
+    from plantcaduceus_tpu_torch.models import mamba_lm
+
+    cfg = mamba_lm.MambaLmConfig(d_model=128, n_layer=1, vocab_size=16, ssm_variant="mamba2",
+                                 d_state=128, head_dim=256, chunk_size=128)
+    assert mamba_lm.ssd_supported(cfg, 128)
+    model = mamba_lm.MambaLm(cfg, mamba_lm.init_params(cfg, seed=2)).to(cuda)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 16, (2, 128))).to(cuda)
+    with pytest.raises(ValueError, match="head dim 256"), torch.no_grad():
+        model(ids, dtype=torch.float32)
+    model.requires_grad_()
+    with pytest.raises(ValueError, match="head dim 256"):
+        mamba_lm.nll_loss(model, ids, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer_kernel_at_pc2_small_length(cuda, dtype):
+    """K2 at PlantCAD2's 8192-bp window and pc2-small's widths (d_inner 1536,
+    N 16, R 48), both directions, against its plain version (TOL)."""
+    from plantcaduceus_tpu_torch.models.caduceus import init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    cfg = CaduceusConfig.preset("pc2-small", n_layer=1)
+    w = {k: v[0].to(cuda) for k, v in init_params(cfg, seed=4)["blocks"].items()}
+    rng = np.random.default_rng(8)
+    xi = _t(rng.standard_normal((2, 8192, cfg.d_inner)), cuda, dtype)
+    A = -torch.exp(w["A_log"])
+    for g in (0, 1):
+        args = (xi, w["conv_w"][g], w["conv_b"][g], w["x_proj_dt"][g], w["x_proj_B"][g],
+                w["x_proj_C"][g], w["dt_proj_w"][g], w["dt_proj_b"][g], A[g], w["D"][g])
+        got = cuda_mixer.mixer_fwd(*args, reverse=bool(g))
+        want = cuda_mixer.mixer_fwd_plain(*args, reverse=bool(g))
+        rtol, atol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
