@@ -110,9 +110,34 @@ PlantCAD2 zero-shot evaluation (``cli/zero_shot_eval.py``):
     ``--logits-path`` round trip and a second core_noncore run through
     ``python -m`` (the same metrics exactly), the steady rate, a profiled
     batch, K2 at that shape (32 rows x 8192 x 1536) against its plain
-    version with time and bound, and evo_cons with pc2-small-ssd (K5).
+    version with time and bound, and evo_cons with pc2-small-ssd (K5);
 
-Inputs and outputs of phases 6, 9, 9b, 11, 11b and 12 go to
+and the XGBoost workload, the scoring server and the input tools, with l20
+(K2 on every path):
+
+13a. seeded train/valid/test TSVs (256/128/256 windows of 512 bp): fp32
+    ``center_embeddings`` with the kernels against the plain path (K2 2 x
+    n_layer a batch); a hand-built binary:logistic XGBoost JSON over their
+    width; ``predict_xgboost`` in-process in bf16 (counted and timed), equal
+    to ``XgbJsonPredictor`` on the same runner's embeddings, then through
+    ``python -m`` (the same file); ``train_xgboost -test_only`` with that
+    JSON as the seed-42 model, plain and ``-save_memory -chunk_size 100``
+    (equal predictions), a rerun from the caches (no launch); the fit caches
+    the embeddings and then fits where sklearn or xgboost imports, and
+    otherwise raises sklearn's ImportError, as the JAX package does; the
+    steady embedding rate at batch 128;
+13b. ``ScoringServer`` in-process on port 0: 8 client threads send 48 of
+    phase 6's windows each at once, in fp32 (every reply 200, scores within
+    1e-4 of ``score_table``, the forwards the batcher ran) and in bf16
+    (windows/s and requests/s beside phase 6's in-process rate); then
+    ``python -m ...cli.serve -model l20 -warmup`` as a subprocess: /healthz,
+    one /score, /masked_probs and /embed, all 200 and finite;
+13c. ``format_vcf`` on phase 6's FASTA and VCF, scored with ``-input-table``
+    in fp32, equal to the VCF mode's fp32 scores within 1e-4;
+    ``mutagenesis simulate`` on a seeded GFF (flank 50) scored with
+    ``-input-vcf``: 3 x the ACGT bases of the extended regions, all finite.
+
+Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12 and 13 go to
 ``build/chip_smoke/`` in the checkout.
 
 Every failure exits non-zero; no phase's failure is caught. Without CUDA it
@@ -939,14 +964,13 @@ def write_inputs(tmp: Path):
     return tsv, fa, vcf, n_snv
 
 
-def run_cli(args):
+def run_module(module, args, timeout=600):
+    """``python -m plantcaduceus_tpu_torch.<module> args`` from the checkout."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.zero_shot_score",
-                          *args, "-no-progress"], cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=600)
+    res = subprocess.run([sys.executable, "-m", f"plantcaduceus_tpu_torch.{module}", *args],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
     if res.returncode != 0:
-        fail(f"CLI {args} exited {res.returncode}:\n{res.stderr[-4000:]}")
-    return res.stderr
+        fail(f"python -m {module} {args} exited {res.returncode}:\n{res.stderr[-4000:]}")
 
 
 def phase_cli(cfg, dev):
@@ -1002,15 +1026,16 @@ def phase_cli(cfg, dev):
     del runner, model
 
     bed = tmp / "scores.bed"
-    run_cli(["-input-table", str(tsv), "-model", "l20", "-output", str(bed), "-outBED"])
+    run_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model", "l20", "-output",
+                                       str(bed), "-outBED", "-no-progress"])
     bed_rows = [ln.split("\t") for ln in bed.read_text().splitlines()]
     if len(bed_rows) != n_valid or any(int(r[2]) - int(r[1]) != 1 for r in bed_rows):
         fail("BED output: wrong rows or intervals")
     log(f"  python -m ... -outBED: {len(bed_rows)} BED rows")
 
     out_vcf = tmp / "out.vcf"
-    run_cli(["-input-vcf", str(vcf), "-input-fasta", str(fa), "-model", "l20",
-             "-output", str(out_vcf)])
+    run_module("cli.zero_shot_score", ["-input-vcf", str(vcf), "-input-fasta", str(fa),
+                                       "-model", "l20", "-output", str(out_vcf), "-no-progress"])
     recs = [ln.split("\t") for ln in out_vcf.read_text().splitlines()
             if not ln.startswith("#")]
     vals = [v for r in recs for v in r[7].split("plantCAD_zero_shot=")[1].split(",")]
@@ -1376,7 +1401,8 @@ def phase_pretrain(preset, dev, tsv, n_valid):
         f"({len(a)} tensors)")
 
     out = tmp / f"scores_trained_{preset}.tsv"
-    run_cli(["-input-table", str(tsv), "-model", str(run_a / "final"), "-output", str(out)])
+    run_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model", str(run_a / "final"),
+                                       "-output", str(out), "-no-progress"])
     scores = np.array([float(r["zeroShotScore"]) for r in zero_shot.read_table(out).rows])
     if len(scores) != n_valid or not np.isfinite(scores).all():
         fail("scoring with the trained export: wrong row count or non-finite scores")
@@ -2131,15 +2157,6 @@ EVAL_CMDS = {  # subcommand -> (table, flags, forward passes over the rows)
 }
 
 
-def run_eval_cli(args):
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.zero_shot_eval",
-                          *args, "--no-progress"], cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=900)
-    if res.returncode != 0:
-        fail(f"zero_shot_eval {args} exited {res.returncode}:\n{res.stderr[-4000:]}")
-
-
 def phase_eval(dev):
     """The four zero_shot_eval subcommands with pc2-small at 8192 bp
     (in-process, counted and timed), the logits round trip and one full
@@ -2187,14 +2204,18 @@ def phase_eval(dev):
     peak = torch.cuda.max_memory_allocated(dev)
 
     replay = tmp / "eval_evo_cons_replay.json"
-    run_eval_cli(["evo_cons", "--repo-id", str(paths["evo"]), "--token-idx", str(EVAL_CENTER),
-                  "--logits-path", str(tmp / "eval_logits.tsv"), "--metrics-json", str(replay)])
+    run_module("cli.zero_shot_eval", ["evo_cons", "--repo-id", str(paths["evo"]), "--token-idx",
+                                      str(EVAL_CENTER), "--logits-path",
+                                      str(tmp / "eval_logits.tsv"), "--metrics-json", str(replay),
+                                      "--no-progress"], timeout=900)
     if json.loads(replay.read_text()) != metrics["evo_cons"]:
         fail("phase 12: --logits-path replay gave other metrics than the run that saved them")
     again = tmp / "eval_core_noncore_again.json"
     table, flags, _ = EVAL_CMDS["core_noncore"]
-    run_eval_cli(["core_noncore", "--repo-id", str(paths[table]), "--model", "pc2-small",
-                  "--batch-size", str(EVAL_BATCH), "--metrics-json", str(again), *flags])
+    run_module("cli.zero_shot_eval", ["core_noncore", "--repo-id", str(paths[table]), "--model",
+                                      "pc2-small", "--batch-size", str(EVAL_BATCH),
+                                      "--metrics-json", str(again), *flags, "--no-progress"],
+               timeout=900)
     if json.loads(again.read_text()) != metrics["core_noncore"]:
         fail("phase 12: python -m ... core_noncore gave other metrics than in-process")
     log("  python -m ...: the evo_cons --logits-path replay and a second core_noncore run "
@@ -2277,6 +2298,480 @@ def phase_eval(dev):
     return k2, k5, dict(k2=k2res, wps=wps, walls=walls, peak=peak)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the XGBoost workload (cli/predict_xgboost.py, cli/train_xgboost.py),
+# the scoring server (engine/server.py, cli/serve.py) and the input tools
+# (cli/format_vcf.py, cli/mutagenesis.py), all with l20 (random seeded
+# weights) on 512-bp windows: K2 on every path.
+XGB_ROWS = {"train": 256, "valid": 128, "test": 256}
+SERVE_CLIENTS, SERVE_WINDOWS, SERVE_ROUNDS = 8, 48, 4
+
+
+def write_xgb_inputs(tmp: Path):
+    """Seeded train/valid/test TSVs of 512-bp windows with 0/1 labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    bases = np.array(list("ACGT"))
+    paths = {}
+    for name, n in XGB_ROWS.items():
+        paths[name] = tmp / f"xgb_{name}.tsv"
+        with open(paths[name], "w") as fh:
+            fh.write("sequences\tlabel\n")
+            for _ in range(n):
+                fh.write("".join(rng.choice(bases, 512)) + f"\t{rng.integers(0, 2)}\n")
+    return paths
+
+
+def xgb_classifier(emb):
+    """A binary:logistic XGBoost JSON document over ``emb``'s width (the
+    schema of tests/test_xgb_json.py): four depth-2 trees, each threshold
+    midway across the widest gap in the middle half of its feature's
+    sorted values."""
+    import numpy as np
+
+    def threshold(f):
+        v = np.unique(emb[:, f].astype(np.float64))
+        lo, hi = len(v) // 4, 3 * len(v) // 4
+        k = lo + int(np.argmax(np.diff(v[lo:hi + 1])))
+        return float((v[k] + v[k + 1]) / 2)
+
+    d = emb.shape[1]
+    trees = []
+    for t, feats in enumerate([(0, 7, 11), (d - 1, 2, 30), (d // 2, 5, 9), (100, 3, d - 2)]):
+        n = 7
+        trees.append({
+            "tree_param": {"num_nodes": str(n), "num_feature": str(d), "size_leaf_vector": "1"},
+            "left_children": [1, 3, 5, -1, -1, -1, -1],
+            "right_children": [2, 4, 6, -1, -1, -1, -1],
+            "parents": [2147483647] * n, "split_indices": list(feats) + [0] * 4,
+            "split_conditions": [threshold(f) for f in feats] + [-0.6 + 0.1 * t, 0.3, -0.2,
+                                                                0.7 - 0.2 * t],
+            "default_left": [1, 0, 1, 0, 0, 0, 0], "base_weights": [0.0] * n,
+            "loss_changes": [0.0] * n, "sum_hessian": [1.0] * n, "split_type": [0] * n,
+            "categories": [], "categories_nodes": [], "categories_segments": [],
+            "categories_sizes": []})
+    return {"learner": {
+        "attributes": {}, "feature_names": [], "feature_types": [],
+        "gradient_booster": {"model": {
+            "gbtree_model_param": {"num_trees": str(len(trees)), "num_parallel_tree": "1"},
+            "iteration_indptr": list(range(len(trees) + 1)),
+            "tree_info": [0] * len(trees), "trees": trees}, "name": "gbtree"},
+        "learner_model_param": {"base_score": "5E-1", "num_class": "0",
+                                "num_feature": str(d), "num_target": "1"},
+        "objective": {"name": "binary:logistic", "reg_loss_param": {"scale_pos_weight": "1"}},
+    }, "version": [2, 0, 3]}
+
+
+def read_predictions(path):
+    rows = [ln.split("\t") for ln in Path(path).read_text().splitlines()]
+    if rows[0] != ["label", "prediction"]:
+        fail(f"{path}: header {rows[0]}")
+    return rows[1:]
+
+
+def phase_xgboost(cfg, dev):
+    """13a: the XGBoost workload with l20. Returns (K2 launches, figures)."""
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import predict_xgboost, train_xgboost
+    from plantcaduceus_tpu_torch.downstream.xgb_json import XgbJsonPredictor
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.engine.zero_shot import read_table
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    log(f"phase 13a: XGBoost workload, l20 preset (random seeded weights), train/valid/test "
+        f"{'/'.join(str(n) for n in XGB_ROWS.values())} windows of 512 bp")
+    tmp = REPO / "build" / "chip_smoke" / "xgb"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    paths = write_xgb_inputs(tmp)
+    per_batch = 2 * cfg.n_layer
+    k2 = 0
+    model, _, tok = load_model_and_tokenizer("l20")
+    test_seqs = [r["sequences"] for r in read_table(paths["test"]).rows]
+    ids = tok.encode_batch(test_seqs)
+    n_test_batches = math.ceil(len(ids) / 128)
+
+    # fp32 centre embeddings, kernels against the plain path
+    runner32 = InferenceRunner(model, cfg, dtype=torch.float32, batch_size=128, device=dev)
+    reset_counts()
+    emb32 = runner32.center_embeddings(ids, 255, progress=False)
+    c = counts()
+    if c != only(mixer_fwd=per_batch * n_test_batches):
+        fail(f"phase 13a fp32 embeddings launched {c}; expected "
+             f"mixer_fwd={per_batch * n_test_batches}")
+    k2 += c["mixer_fwd"]
+    plain = []
+    with torch.inference_mode():
+        for i in range(0, len(ids), 128):
+            batch = torch.from_numpy(ids[i:i + 128].astype(np.int64)).to(dev)
+            h = model(batch, dtype=torch.float32, output_hidden_states=True,
+                      use_kernels=False)["hidden_states"].float()[:, 255, :]
+            d = h.shape[-1] // 2
+            plain.append(((h[:, :d] + h[:, d:].flip(-1)) * 0.5).cpu().numpy())
+    plain = np.concatenate(plain)
+    err = float(np.abs(emb32 - plain).max())
+    scale = float(np.abs(plain).max())
+    log(f"  fp32 center_embeddings {emb32.shape}: max_abs_err={err:.3e} (max |embedding| "
+        f"{scale:.3e}, tol {FORWARD_TOL:.0e} rel); mixer_fwd {c['mixer_fwd']}")
+    if not (np.isfinite(emb32).all() and err <= FORWARD_TOL * scale):
+        fail("phase 13a: fp32 embeddings with the kernels disagree with the plain path")
+    clf = tmp / "classifier.json"
+    clf.write_text(json.dumps(xgb_classifier(emb32)))
+
+    # predict_xgboost in-process (bf16), against the evaluator on the same
+    # runner's embeddings, then through python -m
+    out = tmp / "pred.tsv"
+    args = ["-input", str(paths["test"]), "-model", "l20", "-classifier", str(clf),
+            "-no-progress"]
+    reset_counts()
+    t = time.perf_counter()
+    predict_xgboost.main([*args, "-output", str(out)])
+    pred_s = time.perf_counter() - t
+    c = counts()
+    if c != only(mixer_fwd=per_batch * n_test_batches):
+        fail(f"phase 13a predict_xgboost launched {c}")
+    k2 += c["mixer_fwd"]
+    rows = read_predictions(out)
+    runner16 = InferenceRunner(model, cfg, dtype=torch.bfloat16, batch_size=128, device=dev)
+    emb16 = runner16.center_embeddings(ids, 255, progress=False)
+    want = [repr(float(p)) for p in XgbJsonPredictor.load(clf).predict_proba(emb16)[:, 1]]
+    labels = [r["label"] for r in read_table(paths["test"]).rows]
+    if [r[1] for r in rows] != want or [r[0] for r in rows] != labels:
+        fail("phase 13a: predict_xgboost's predictions differ from XgbJsonPredictor over the "
+             "same runner's embeddings")
+    spread = len(set(want))
+    log(f"  predict_xgboost (in-process, bf16): {len(rows)} predictions ({spread} distinct) "
+        f"in {pred_s:.2f} s end to end, equal to XgbJsonPredictor on the runner's bf16 "
+        f"embeddings; mixer_fwd {c['mixer_fwd']}")
+    if spread < 3:
+        fail("phase 13a: the classifier's trees do not split the windows")
+    out2 = tmp / "pred_module.tsv"
+    run_module("cli.predict_xgboost", [*args, "-output", str(out2)])
+    if out2.read_bytes() != out.read_bytes():
+        fail("phase 13a: python -m predict_xgboost wrote another file than in-process")
+    log("  python -m ... predict_xgboost: the same file, byte for byte")
+
+    # train_xgboost -test_only with the JSON as the seed-42 model, plain and chunked
+    only_flags = ["-test", str(paths["test"]), "-test_only", "-model", "l20", "-no-progress"]
+    preds, walls = {}, {}
+    for name, extra in (("plain", []), ("chunked", ["-save_memory", "-chunk_size", "100"])):
+        d = tmp / f"test_only_{name}"
+        d.mkdir()
+        shutil.copy(clf, d / "seed_42_XGBoost.json")
+        reset_counts()
+        t = time.perf_counter()
+        train_xgboost.main([*only_flags, "-output", str(d), *extra])
+        walls[name] = time.perf_counter() - t
+        c = counts()
+        want_k2 = per_batch * (n_test_batches if name == "plain"
+                               else sum(math.ceil(min(100, len(ids) - i) / 128)
+                                        for i in range(0, len(ids), 100)))
+        if c != only(mixer_fwd=want_k2):
+            fail(f"phase 13a -test_only {name} launched {c}; expected mixer_fwd={want_k2}")
+        k2 += c["mixer_fwd"]
+        preds[name] = np.load(d / "seed_42_xgb_test_predictions.npz")["predictions"]
+        if not (d / "seed_42_xgb_test_metrics.txt").is_file():
+            fail(f"phase 13a -test_only {name}: no metrics file")
+    gap = float(np.abs(preds["plain"] - preds["chunked"]).max())
+    if gap != 0.0:
+        fail(f"phase 13a: -save_memory predictions differ from the plain run by {gap:.3e}")
+    reset_counts()
+    train_xgboost.main([*only_flags, "-output", str(tmp / "test_only_plain")])
+    c = counts()
+    again = np.load(tmp / "test_only_plain" / "seed_42_xgb_test_predictions.npz")["predictions"]
+    if c != only() or not np.array_equal(again, preds["plain"]):
+        fail(f"phase 13a: the rerun launched {c} or gave other predictions")
+    log(f"  train_xgboost -test_only: plain {walls['plain']:.2f} s, -save_memory -chunk_size "
+        f"100 {walls['chunked']:.2f} s, equal predictions; the rerun reads the caches, "
+        f"mixer_fwd 0")
+
+    # the fit: embeddings cached first, then sklearn/xgboost or JAX's ImportError
+    fit = tmp / "fit"
+    fit_flags = ["-train", str(paths["train"]), "-valid", str(paths["valid"]), "-model", "l20",
+                 "-output", str(fit), "-no-progress"]
+    have = []
+    for pkg in ("xgboost", "sklearn"):
+        try:
+            __import__(pkg)
+            have.append(pkg)
+        except ImportError:
+            pass
+    reset_counts()
+    raised = None
+    try:
+        train_xgboost.main(fit_flags)
+    except ImportError as e:  # the JAX package's behaviour without either backend
+        raised = e
+    c = counts()
+    want_k2 = per_batch * sum(math.ceil(XGB_ROWS[k] / 128) for k in ("train", "valid"))
+    if c != only(mixer_fwd=want_k2) or not (fit / "train_valid_embeddings.npz").is_file():
+        fail(f"phase 13a fit: launched {c} (expected mixer_fwd={want_k2}) or no cached "
+             "embeddings")
+    k2 += c["mixer_fwd"]
+    if have:
+        if raised is not None or not (fit / "seed_42_xgb_valid_metrics.txt").is_file():
+            fail(f"phase 13a fit with {have}: {raised!r} or no valid metrics")
+        log(f"  train_xgboost fit ({have[0]}): embeddings cached, valid metrics "
+            f"{(fit / 'seed_42_xgb_valid_metrics.txt').read_text().split()}")
+    else:
+        if raised is None or "sklearn" not in str(raised):
+            fail(f"phase 13a fit without xgboost or sklearn: expected sklearn's ImportError, "
+                 f"got {raised!r}")
+        log(f"  train_xgboost fit: embeddings cached ({want_k2} mixer_fwd), then {raised!r} "
+            "as the JAX package raises without xgboost or sklearn")
+
+    # steady embedding rate at batch 128, bf16
+    many = np.concatenate([ids] * 4)  # 1024 windows, 8 batches
+    runner16.center_embeddings(ids[:128], 255, progress=False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    emb = runner16.center_embeddings(many, 255, progress=False)
+    ewps = len(many) / (time.perf_counter() - t)
+    if not np.isfinite(emb).all():
+        fail("phase 13a: steady embeddings not finite")
+    log(f"  steady center_embeddings: {ewps:.1f} windows/s (l20, 512 bp, batch 128, bf16; "
+        f"{len(many)} windows, model resident)")
+    del runner16, runner32, model
+    return k2, dict(ewps=ewps, err=err, predict_s=pred_s)
+
+
+def serve_round(port, items_by_client):
+    """Each client thread posts its /score items at once; the replies."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    replies = [None] * len(items_by_client)
+
+    def one(i):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/score",
+                                     data=json.dumps({"items": items_by_client[i]}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                replies[i] = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            replies[i] = (e.code, e.read().decode()[-500:])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(items_by_client))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for code, body in replies:
+        if code != 200:
+            fail(f"phase 13b: the server replied {code}: {body}")
+    return [body["scores"] for _, body in replies]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_serve(cfg, dev, tsv, wps_inproc):
+    """13b: the scoring server with l20: fp32 parity with in-process
+    scoring, the bf16 rate through it, and ``python -m ...serve``.
+    Returns (K2 launches, figures)."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.engine import zero_shot
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.engine.server import ScoringServer, ScoringService
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    n = SERVE_CLIENTS * SERVE_WINDOWS
+    log(f"phase 13b: scoring server, l20 preset, {SERVE_CLIENTS} client threads x "
+        f"{SERVE_WINDOWS} windows of phase 6's TSV")
+    table = zero_shot.read_table(tsv)
+    rows = [r for r in table.rows
+            if r["ref"] in zero_shot.NUCLEOTIDES and r["alt"] in zero_shot.NUCLEOTIDES][:n]
+    items = [{"sequence": r["sequences"], "ref": r["ref"], "alt": r["alt"]} for r in rows]
+    by_client = [items[i::SERVE_CLIENTS] for i in range(SERVE_CLIENTS)]
+    model, _, tok = load_model_and_tokenizer("l20")
+    per_forward = 2 * cfg.n_layer
+    k2 = 0
+    figures = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runner = InferenceRunner(model, cfg, dtype=dtype, batch_size=128, device=dev)
+        server = ScoringServer(ScoringService(runner, tok), port=0, model_name="l20")
+        server.start_background()
+        try:
+            if dtype == torch.float32:
+                reset_counts()
+                got = serve_round(server.port, by_client)
+                c = counts()
+                groups = server.batcher.groups
+                want = zero_shot.score_table(runner, tok, zero_shot.Table(table.columns, rows),
+                                             progress=False)
+                want = np.array([r["zeroShotScore"] for r in want.rows])
+                got_flat = np.empty(n)
+                for i, scores in enumerate(got):
+                    got_flat[i::SERVE_CLIENTS] = scores
+                d = float(np.abs(got_flat - want).max())
+                fwd = c["mixer_fwd"] // per_forward
+                log(f"  fp32: {n} windows in {SERVE_CLIENTS} concurrent requests, all 200; "
+                    f"max |server - score_table| {d:.3e} (tol 1e-4); the batcher ran {groups} "
+                    f"coalesced groups, {fwd} forwards of 128 rows (mixer_fwd "
+                    f"{c['mixer_fwd']})")
+                if not (np.isfinite(got_flat).all() and d <= 1e-4):
+                    fail("phase 13b: the server's fp32 scores differ from in-process scoring")
+                if c["mixer_fwd"] % per_forward or c != only(mixer_fwd=c["mixer_fwd"]):
+                    fail(f"phase 13b launched {c}")
+                k2 += c["mixer_fwd"]
+                figures.update(groups=groups, forwards=fwd, err=d)
+            else:
+                serve_round(server.port, by_client)  # warm
+                reset_counts()
+                t = time.perf_counter()
+                for _ in range(SERVE_ROUNDS):
+                    serve_round(server.port, by_client)
+                secs = time.perf_counter() - t
+                c = counts()
+                k2 += c["mixer_fwd"]
+                figures.update(wps=SERVE_ROUNDS * n / secs,
+                               rps=SERVE_ROUNDS * SERVE_CLIENTS / secs,
+                               bf16_forwards=c["mixer_fwd"] // per_forward)
+                log(f"  bf16: {figures['wps']:.1f} windows/s, {figures['rps']:.2f} requests/s "
+                    f"through the server ({SERVE_ROUNDS} rounds of {SERVE_CLIENTS} x "
+                    f"{SERVE_WINDOWS}; {figures['bf16_forwards']} forwards); in-process steady "
+                    f"state {wps_inproc:.1f} windows/s (phase 6)")
+        finally:
+            server.shutdown()
+        del runner
+    del model
+
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    log_path = REPO / "build" / "chip_smoke" / "serve.log"
+    log_fh = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.serve",
+                             "-model", "l20", "-warmup", "-port", str(port)], cwd=REPO, env=env,
+                            stdout=log_fh, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        t = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                fail(f"python -m ...serve exited {proc.returncode}:\n"
+                     f"{log_path.read_text()[-4000:]}")
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except OSError:
+                if time.perf_counter() - t > 300:
+                    fail("python -m ...serve did not answer /healthz within 300 s")
+                time.sleep(1)
+        ready = time.perf_counter() - t
+        seqs = [it["sequence"] for it in items[:4]]
+        replies = {}
+        for path, body in (("/score", {"items": items[:4]}),
+                           ("/masked_probs", {"sequences": seqs}),
+                           ("/embed", {"sequences": seqs})):
+            req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:  # a 4xx/5xx raises
+                replies[path] = json.loads(r.read())
+        vals = [np.asarray(replies[path][key]) for path, key in (
+            ("/score", "scores"), ("/masked_probs", "probs"), ("/embed", "embeddings"))]
+        if not all(np.isfinite(v).all() for v in vals) or vals[1].shape != (4, 4):
+            fail(f"python -m ...serve: bad replies {[v.shape for v in vals]}")
+        log(f"  python -m ...serve -warmup: {health} after {ready:.1f} s; /score, "
+            f"/masked_probs {vals[1].shape}, /embed {vals[2].shape}: 200, finite")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log_fh.close()
+    return k2, figures
+
+
+def phase_tools(cfg, dev, fa, vcf):
+    """13c: format_vcf and mutagenesis simulate on phase 6's FASTA, scored
+    on the card. Returns K2 launches."""
+    import numpy as np
+
+    from plantcaduceus_tpu_torch.cli import format_vcf, mutagenesis
+    from plantcaduceus_tpu_torch.cli.zero_shot_score import main as score
+    from plantcaduceus_tpu_torch.io.fasta import read_fasta
+
+    log("phase 13c: input tools (format_vcf, mutagenesis simulate) scored with l20 on the card")
+    tmp = REPO / "build" / "chip_smoke" / "tools"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    fp32 = ["-model", "l20", "-dtype", "float32", "-no-progress"]
+    k2 = 0
+
+    reset_counts()
+    format_vcf.main(["-input-vcf", str(vcf), "-input-fasta", str(fa),
+                     "-output", str(tmp / "fmt.tsv")])
+    score(["-input-table", str(tmp / "fmt.tsv"), "-output", str(tmp / "fmt_scores.tsv"), *fp32])
+    score(["-input-vcf", str(vcf), "-input-fasta", str(fa), "-output",
+           str(tmp / "scored.vcf"), *fp32])
+    c = counts()
+    if c != only(mixer_fwd=c["mixer_fwd"]) or not c["mixer_fwd"]:
+        fail(f"phase 13c: the two fp32 scoring runs launched {c}")
+    k2 += c["mixer_fwd"]
+    table = [float(ln.split("\t")[7])
+             for ln in (tmp / "fmt_scores.tsv").read_text().splitlines()[1:]]
+    from_vcf = [float(v) for ln in (tmp / "scored.vcf").read_text().splitlines()
+                if not ln.startswith("#")
+                for v in ln.split("\t")[7].split("plantCAD_zero_shot=")[1].split(",")
+                if v != "."]
+    d = max(abs(a - b) for a, b in zip(table, from_vcf)) if table else math.inf
+    log(f"  format_vcf -> zero_shot_score -input-table (fp32): {len(table)} rows; VCF mode "
+        f"{len(from_vcf)} SNV alts; max |difference| {d:.3e} (tol 1e-4); mixer_fwd "
+        f"{c['mixer_fwd']}")
+    if len(table) != len(from_vcf) or not d <= 1e-4:
+        fail("phase 13c: format_vcf's table scores differ from the VCF mode's")
+
+    chroms = read_fasta(fa)
+    gff = tmp / "genes.gff"
+    genes = [(1000, 1100), (2500, 2560), (10, 60)]  # the last overhangs with the flank
+    gff.write_text("##gff-version 3\n" + "".join(
+        f"chr1\tsrc\tgene\t{s}\t{e}\t.\t+\t.\tID=g{i}\n" for i, (s, e) in enumerate(genes)))
+    flank = 50
+    region = set()
+    for s, e in genes:
+        if s - flank > 0 and e + flank <= len(chroms["chr1"]):
+            region.update(range(s - flank, e + flank + 1))
+    n_snps = 3 * sum(chroms["chr1"][p - 1].upper() in "ACGT" for p in region)
+    mutagenesis.main(["simulate", "-g", str(gff), "-f", str(fa), "-o", str(tmp / "sim.vcf"),
+                      "-c", "chr1", "-k", str(flank)])
+    reset_counts()
+    t = time.perf_counter()
+    score(["-input-vcf", str(tmp / "sim.vcf"), "-input-fasta", str(fa), "-output",
+           str(tmp / "sim_scored.vcf"), "-model", "l20", "-no-progress"])
+    secs = time.perf_counter() - t
+    c = counts()
+    k2 += c["mixer_fwd"]
+    recs = [ln.split("\t") for ln in (tmp / "sim_scored.vcf").read_text().splitlines()
+            if not ln.startswith("#")]
+    vals = np.array([float(r[7].split("plantCAD_zero_shot=")[1]) for r in recs])
+    windows = len(region)
+    want_k2 = 2 * cfg.n_layer * math.ceil(windows / 128)
+    log(f"  mutagenesis simulate (flank {flank}) -> zero_shot_score -input-vcf (bf16): "
+        f"{len(recs)} SNPs scored (3 x {n_snps // 3} ACGT bases), {windows} windows in "
+        f"{secs:.2f} s end to end; mixer_fwd {c['mixer_fwd']}")
+    if len(recs) != n_snps or not np.isfinite(vals).all() or c != only(mixer_fwd=want_k2):
+        fail(f"phase 13c: mutagenesis scoring gave {len(recs)} records (expected {n_snps}), "
+             f"finite {np.isfinite(vals).all()}, launches {c} (expected mixer_fwd={want_k2})")
+    return k2
+
+
 def main():
     import torch
 
@@ -2325,6 +2820,16 @@ def main():
     ar2, ar2_fig = phase_ar_lm("mamba2", dev)
     torch.cuda.empty_cache()
     ek2, ek5, ev = phase_eval(dev)
+    # phase 13: the XGBoost workload, the server and the input tools, with l20
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    xk2, xg = phase_xgboost(cfg, dev)
+    sk2, sv = phase_serve(cfg, dev, tsv, wps)
+    tk2 = phase_tools(cfg, dev, tsv.parent / "genome.fa", tsv.parent / "in.vcf")
+    log(f"phase 13 ok in {time.perf_counter() - t13:.1f} s: embeddings {xg['ewps']:.1f} "
+        f"windows/s; server {sv['wps']:.1f} windows/s, {sv['rps']:.2f} requests/s (in-process "
+        f"{wps:.1f}); {sv['forwards']} forwards for {SERVE_CLIENTS} concurrent requests of "
+        f"{SERVE_WINDOWS} windows")
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
@@ -2340,7 +2845,7 @@ def main():
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
-                          launches=k2_launches + ek2),
+                          launches=k2_launches + ek2 + xk2 + sk2 + tk2),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                               launches=tc["mixer_fwd_res"]),

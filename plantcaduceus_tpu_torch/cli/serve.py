@@ -1,0 +1,98 @@
+"""CLI: persistent scoring server on the GPU (serving mode).
+
+Counterpart of ``plantcaduceus_tpu.cli.serve``, with its flags, plus
+``-device``. Builds the model once and then serves variant scores /
+masked-nucleotide probabilities / RC-averaged embeddings over a JSON HTTP
+API, with cross-request micro-batching (engine/server.py). ``-seq > 1``
+(context parallelism) needs several GPUs and is refused.
+
+Usage:
+    python -m plantcaduceus_tpu_torch.cli.serve -model l20 [-port 8142] \\
+        [-batchSize 128] [-maxWaitMs 5] [-warmup]
+
+API (see engine/server.py for schemas):
+    GET  /healthz
+    POST /score         {"items": [{"sequence","ref","alt"}, ...]}
+    POST /masked_probs  {"sequences": [...], "pos": 255?}
+    POST /embed         {"sequences": [...]}
+
+Runs on CUDA unless ``-device cpu`` is given, and fails when CUDA is asked
+for and absent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-model", dest="model", required=True,
+                   help="HF checkpoint dir or preset (l20/l24/l28/l32)")
+    p.add_argument("-host", dest="host", default="127.0.0.1")
+    p.add_argument("-port", dest="port", type=int, default=8142)
+    p.add_argument("-batchSize", dest="batch_size", type=int, default=128)
+    p.add_argument("-maxBatch", dest="max_batch", type=int, default=1024,
+                   help="coalescing cap across concurrent requests")
+    p.add_argument("-maxWaitMs", dest="max_wait_ms", type=float, default=5.0)
+    p.add_argument("-tokenIdx", dest="token_idx", type=int, default=None,
+                   help="default mask position (default: center of window)")
+    p.add_argument("-seq", dest="seq", type=int, default=1,
+                   help="context-parallel shards over the window length "
+                        "(multi-GPU; not supported by the PyTorch port yet)")
+    p.add_argument("-dtype", dest="dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("-warmup", action="store_true",
+                   help="run the forward once before accepting requests")
+    p.add_argument("-device", dest="device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    if args.seq != 1:
+        p.error("-seq > 1 (context parallelism) needs several GPUs and is not "
+                "supported by the PyTorch port yet")
+    return args
+
+
+def main(argv=None):
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.engine.server import ScoringServer, ScoringService
+    from plantcaduceus_tpu_torch.utils.device import resolve_device
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    logging.basicConfig(
+        force=True,
+        level=logging.INFO,
+        format="%(asctime)s - %(levelname)s - %(message)s",
+        datefmt="%Y-%m-%d %H:%M:%S",
+    )
+    args = parse_args(argv)
+    device = resolve_device(args.device)  # before any work: no silent CPU run
+
+    model, cfg, tokenizer = load_model_and_tokenizer(args.model)
+    runner = InferenceRunner(
+        model, cfg,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        batch_size=args.batch_size, device=device)
+    service = ScoringService(runner, tokenizer, default_pos=args.token_idx)
+
+    if args.warmup:
+        logging.info("Warmup: running the scoring forward once ...")
+        probs = service.masked_probs(["A" * 512] * args.batch_size)
+        assert np.isfinite(probs).all()
+        logging.info("Warmup done")
+
+    server = ScoringServer(service, host=args.host, port=args.port,
+                           model_name=args.model, max_batch=args.max_batch,
+                           max_wait_ms=args.max_wait_ms)
+    logging.info("Scoring server listening on http://%s:%d", args.host,
+                 server.port)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

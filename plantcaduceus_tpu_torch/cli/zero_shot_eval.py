@@ -4,7 +4,8 @@ Counterpart of ``plantcaduceus_tpu.cli.zero_shot_eval``, with its
 subcommands, flags and outputs, plus ``--device``:
 evo_cons | motif_acc | sv_effect | core_noncore.
 
-``--repo-id`` is a local TSV (header row, tab-separated). Refused, with a
+``--repo-id`` is a local TSV (header row, tab-separated; ``.gz``, ``.bz2``,
+``.xz`` or ``.zip`` by its suffix, as pandas reads them). Refused, with a
 message: a parquet file (no reader on the GPU hosts), a hub dataset id (no
 network), ``--seq > 1`` (context parallelism needs several GPUs). Logit
 caching via --save-logits / --logits-path and metrics via --metrics-json,
@@ -29,6 +30,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from plantcaduceus_tpu_torch.io.tables import open_table
+
 log = logging.getLogger(__name__)
 
 
@@ -50,7 +53,7 @@ class Frame:
 
 
 def read_tsv(path) -> Frame:
-    with open(path, newline="") as fh:
+    with open_table(path) as fh:
         reader = csv.DictReader(fh, delimiter="\t")
         rows = list(reader)
         return Frame(list(reader.fieldnames or []), rows)
@@ -59,8 +62,9 @@ def read_tsv(path) -> Frame:
 def write_tsv(path, columns: List[str], rows) -> None:
     """Header and rows, tab-separated, no index: pandas ``to_csv(sep="\\t",
     index=False)``'s layout. Numbers are written as numpy prints them (the
-    shortest text that reads back to the same value, as pandas does)."""
-    with open(path, "w", newline="") as fh:
+    shortest text that reads back to the same value, as pandas does).
+    Compressed as the path's suffix says, as pandas does."""
+    with open_table(path, "w") as fh:
         w = csv.writer(fh, delimiter="\t", lineterminator="\n")
         w.writerow(columns)
         for r in rows:

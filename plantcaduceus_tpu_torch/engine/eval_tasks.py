@@ -1,9 +1,9 @@
 """PlantCAD2 zero-shot evaluation tasks (the reference's src/zero-shot-eval.py).
 
 Counterpart of ``plantcaduceus_tpu.engine.eval_tasks``, numpy only: the
-scoring functions are copied, and the ROC AUC and average precision are
-computed here (sklearn's definitions, with tied scores as one threshold)
-rather than imported from sklearn, which the GPU hosts do not carry.
+scoring functions are copied, and the ROC AUC and average precision come
+from ``downstream.metrics`` (sklearn's definitions, with tied scores as one
+threshold) rather than from sklearn, which the GPU hosts do not carry.
 
 Pure metric/scoring logic, decoupled from data loading so tests can feed
 synthetic frames. Four tasks:
@@ -22,6 +22,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from plantcaduceus_tpu_torch.downstream.metrics import average_precision, roc_auc
 
 NUCLEOTIDES = ("A", "C", "G", "T")
 _IDX = {b: i for i, b in enumerate(NUCLEOTIDES)}
@@ -79,37 +81,6 @@ def avg_trueprob_scores(probs: np.ndarray, true_tokens: np.ndarray,
     valid = idxs >= 0
     token_probs[valid] = probs[np.arange(len(probs))[valid], idxs[valid]]
     return token_probs.reshape(-1, motif_len).mean(axis=1)
-
-
-def _binary_clf_curve(y_true: np.ndarray, scores: np.ndarray):
-    """False and true positive counts at each distinct score, from the
-    highest down (a tie is one threshold): sklearn's ``_binary_clf_curve``."""
-    y = np.asarray(y_true).ravel() == 1
-    s = np.asarray(scores, dtype=np.float64).ravel()
-    order = np.argsort(-s, kind="mergesort")
-    s, y = s[order], y[order]
-    last = np.r_[np.flatnonzero(np.diff(s)), s.size - 1]
-    tps = np.cumsum(y, dtype=np.float64)[last]
-    return 1.0 + last - tps, tps
-
-
-def roc_auc(y_true: np.ndarray, scores: np.ndarray) -> float:
-    """Area under the ROC curve by the trapezoid rule (sklearn ``auc`` of
-    ``roc_curve``); nan when one class is absent, as sklearn gives."""
-    fps, tps = _binary_clf_curve(y_true, scores)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        fpr = np.r_[0.0, fps] / fps[-1]
-        tpr = np.r_[0.0, tps] / tps[-1]
-    return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
-
-
-def average_precision(y_true: np.ndarray, scores: np.ndarray) -> float:
-    """Σ (R_k − R_{k−1}) P_k over the distinct thresholds, highest first
-    (sklearn ``average_precision_score``; 0 without positives)."""
-    fps, tps = _binary_clf_curve(y_true, scores)
-    precision = tps / (tps + fps)
-    recall = tps / tps[-1] if tps[-1] > 0 else np.ones_like(tps)
-    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
 
 
 def auroc_auprc(y_true: np.ndarray, scores: np.ndarray) -> Dict[str, float]:

@@ -5,8 +5,8 @@ the window centre, masked-LM forward, softmax over the four nucleotide
 logits, score ``log(P_alt) - log(P_ref)``. Two input modes (TSV with
 ref/alt/sequences columns; VCF+FASTA), three outputs (TSV with
 ``zeroShotScore``, BED, VCF with ``INFO plantCAD_zero_shot``). Tables are
-read and written with the ``csv`` module; every input column is kept as
-its text.
+read and written with the ``csv`` module, compressed as their suffix says
+(``io.tables``); every input column is kept as its text.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+from plantcaduceus_tpu_torch.io.tables import open_table
 from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer, nucleotide_ids
 from plantcaduceus_tpu_torch.io.vcf import ZERO_SHOT_INFO_HEADER, VcfReader, VcfWriter
 
@@ -37,7 +38,7 @@ class Table:
 
 
 def read_table(path) -> Table:
-    with open(path, newline="") as fh:
+    with open_table(path) as fh:
         reader = csv.DictReader(fh, delimiter="\t")
         rows = list(reader)
         return Table(list(reader.fieldnames or []), rows)
@@ -121,7 +122,7 @@ def score_table(runner: InferenceRunner, tokenizer: DnaTokenizer, table: Table,
 
 
 def write_table(table: Table, output: str, as_bed: bool = False) -> None:
-    with open(output, "w", newline="") as fh:
+    with open_table(output, "w") as fh:
         w = csv.writer(fh, delimiter="\t", lineterminator="\n")
         if as_bed:
             for r in table.rows:

@@ -1064,3 +1064,79 @@ def test_mixer_kernel_at_pc2_small_length(cuda, dtype):
         want = cuda_mixer.mixer_fwd_plain(*args, reverse=bool(g))
         rtol, atol = TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_center_embeddings_kernels_match_plain_path(cuda):
+    """The XGBoost and /embed path: fp32 ``center_embeddings`` through K2
+    (two launches a layer a batch) against the model's plain path, within
+    1e-3 of the largest |embedding| (20 layers of fp32 sums in two orders)."""
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    cfg = CaduceusConfig(d_model=128, n_layer=4)
+    model = Caduceus(cfg, init_params(cfg, seed=6))
+    runner = InferenceRunner(model, cfg, dtype=torch.float32, batch_size=8, device=cuda)
+    ids = np.random.default_rng(6).integers(7, 11, (12, 256))
+    before = cuda_mixer.mixer_fwd.launches
+    got = runner.center_embeddings(ids, 127, progress=False)
+    assert cuda_mixer.mixer_fwd.launches == before + 2 * cfg.n_layer * 2
+    with torch.inference_mode():
+        h = model(torch.from_numpy(ids).to(cuda), dtype=torch.float32, output_hidden_states=True,
+                  use_kernels=False)["hidden_states"][:, 127, :]
+    d = h.shape[-1] // 2
+    want = ((h[:, :d] + h[:, d:].flip(-1)) * 0.5).cpu().numpy()
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+
+
+def test_server_on_the_card_matches_in_process_scores(cuda):
+    """``ScoringServer`` over a card runner, fp32: concurrent /score requests
+    give ``score_table``'s scores within 1e-4, through K2."""
+    import json
+    import threading
+    import urllib.request
+
+    from plantcaduceus_tpu_torch.engine import zero_shot
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.engine.server import ScoringServer, ScoringService
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    cfg = CaduceusConfig(d_model=128, n_layer=2)
+    runner = InferenceRunner(Caduceus(cfg, init_params(cfg, seed=7)), cfg, dtype=torch.float32,
+                             batch_size=16, device=cuda)
+    tok = DnaTokenizer()
+    rng = np.random.default_rng(7)
+    seqs = ["".join(rng.choice(list("ACGT"), 128)) for _ in range(24)]
+    rows = [{"sequences": s, "ref": s[63], "alt": "A" if s[63] != "A" else "C"} for s in seqs]
+    want = zero_shot.score_table(runner, tok, zero_shot.Table(["ref", "alt", "sequences"], rows),
+                                 token_idx=63, progress=False)  # the server's default, L // 2 - 1
+    want = np.array([r["zeroShotScore"] for r in want.rows])
+    server = ScoringServer(ScoringService(runner, tok), port=0)
+    server.start_background()
+    got = [None] * 4
+    before = cuda_mixer.mixer_fwd.launches
+
+    def one(i):
+        body = {"items": [{"sequence": r["sequences"], "ref": r["ref"], "alt": r["alt"]}
+                          for r in rows[i::4]]}
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/score",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got[i] = json.loads(r.read())["scores"]
+
+    try:
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        server.shutdown()
+    assert cuda_mixer.mixer_fwd.launches > before
+    flat = np.empty(len(rows))
+    for i in range(4):
+        flat[i::4] = got[i]
+    np.testing.assert_allclose(flat, want, rtol=0, atol=1e-4)
