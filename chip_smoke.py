@@ -137,7 +137,27 @@ and the XGBoost workload, the scoring server and the input tools, with l20
     ``mutagenesis simulate`` on a seeded GFF (flank 50) scored with
     ``-input-vcf``: 3 x the ACGT bases of the extended regions, all finite.
 
-Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12 and 13 go to
+and LoRA and full fine-tuning (``train/lora.py``, ``cli/lora_fine_tune.py``):
+
+14a. one fp32 LoRA gradient (adapters and head; dropout 0.1, the same
+    seeded masks both ways; remat) with the kernels against the plain path,
+    l20 width (K1-hb and K3, dt fused) and l20-ssd width (K5-res and K6
+    pre_silu), 2 layers, batch 4 x 512 bp; then ``lora_fine_tune`` with l20
+    at full width and depth (a seeded random base written as an HF dir):
+    ``tokenize`` to ``.npz``, ``train`` (batch 8 x grad-accum 4, bf16,
+    dropout 0.1, remat, 10 steps, checkpoints at 5 and 10; in-process,
+    counted and timed), ``python -m ... train --resume-from checkpoint-5``
+    equal bit for bit, ``evaluate``, ``predict``, ``display`` (merged
+    weights: K2), and the PEFT export (the full set refused as JAX refuses
+    it; out_proj + head exported, re-imported, predicted byte-equal);
+14b. K1-hb and K3 at the PlantCAD2 LoRA shape (16 rows x 600 x 1536, R 48)
+    against their plain versions, timed; 3 bf16 LoRA steps of pc2-small x
+    600 bp, batch 8: ms a step, windows/s, peak memory;
+14c. ``train --full-finetune`` with l20, 3 steps (K2-res, K3);
+14d. 3 bf16 LoRA steps of l20-ssd and an evaluation batch (K5-res, K6
+    pre_silu, K5); then one profiled microbatch of an l20 LoRA step.
+
+Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13 and 14 go to
 ``build/chip_smoke/`` in the checkout.
 
 Every failure exits non-zero; no phase's failure is caught. Without CUDA it
@@ -2772,6 +2792,513 @@ def phase_tools(cfg, dev, fa, vcf):
     return k2
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: LoRA and full fine-tuning (train/lora.py, cli/lora_fine_tune.py)
+
+FT_ROWS = {"train": 256, "valid": 64}
+FT_STEPS, FT_SAVE, FT_BATCH, FT_ACCUM = 10, 5, 8, 4
+FT_EVAL_BATCH = 16
+FT_ARGS = ["--train-batch-size", str(FT_BATCH), "--grad-accum", str(FT_ACCUM),
+           "--lora-dropout", "0.1", "--learning-rate", "1e-3", "--warmup-steps", "2",
+           "--save-steps", str(FT_SAVE), "--eval-steps", str(FT_SAVE), "--logging-steps", "1",
+           "--eval-batch-size", str(FT_EVAL_BATCH)]
+PC2_L, PC2_BATCH, PC2_STEPS = 600, 8, 3  # the PlantCAD2 LoRA recipe (docs/PLANTCAD2.md)
+
+
+def write_ft_inputs(tmp: Path):
+    """Seeded train/valid TSVs of 512-bp windows, labelled 1 where the
+    window's GC share exceeds one half."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    bases = np.array(list("ACGT"))
+    paths = {}
+    for name, n in FT_ROWS.items():
+        paths[name] = tmp / f"ft_{name}.tsv"
+        with open(paths[name], "w") as fh:
+            fh.write("sequence\tlabel\n")
+            for _ in range(n):
+                seq = "".join(rng.choice(bases, 512, p=rng.dirichlet([4, 4, 4, 4])))
+                fh.write(f"{seq}\t{int(sum(b in 'GC' for b in seq) > 256)}\n")
+    return paths
+
+
+def lora_case(cfg, dev, seed, rows, L, num_labels=2):
+    """A seeded base model on the card, adapters with b drawn (so every
+    adapter leaf has a gradient), a head, ids and labels."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models import heads
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.train import lora
+
+    model = Caduceus(cfg, init_params(cfg, seed=seed)).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    adapters = lora.init_lora(gen, model, lora.LoraConfig())
+    for ab in adapters.values():
+        ab["b"].normal_(0.0, 0.02, generator=gen)
+    head = heads.init_head(gen, cfg, num_labels)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(7, 11, (rows, L), generator=g, device=dev)
+    labels = torch.randint(0, num_labels, (rows,), generator=g, device=dev)
+    return model, adapters, head, ids, labels
+
+
+def phase_lora_grads(dev):
+    """14a: one fp32 LoRA gradient (adapters and head) with the kernels
+    against the plain path, dropout 0.1 (the same seeded masks both ways),
+    remat, at l20 and l20-ssd width, 2 layers, batch 4 x 512 bp."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models import heads
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import lora
+
+    log("phase 14a: LoRA gradients, kernels vs plain path (fp32, dropout 0.1, remat, "
+        "2 layers, batch 4 x 512 bp)")
+    cfg_l = lora.LoraConfig(dropout=0.1)
+    for name, cfg, expect in (
+            ("l20 tied+add", CaduceusConfig.preset("l20", n_layer=2),
+             lambda nl: only(scan_fwd_hb=4 * nl, scan_bwd=2 * nl)),
+            ("l20-ssd", CaduceusConfig.preset("l20-ssd", n_layer=2),
+             lambda nl: only(mixer2_fwd_res=4 * nl, ssd_bwd_pre_silu=2 * nl))):
+        model, adapters, head, ids, labels = lora_case(cfg, dev, 15, 4, 512)
+        grads = {}
+        for use_kernels in (True, False):
+            ad, hd = lora.trainable_copy(adapters, dev), lora.trainable_copy(head, dev)
+            reset_counts()
+            logits = heads.sequence_logits(model, hd, ids, cfg, dtype=torch.float32, remat=True,
+                                           lora=lora.lora_ctx(ad, cfg_l, dropout_seed=17),
+                                           use_kernels=use_kernels)
+            heads.task_loss(logits, labels, "classification").backward()
+            torch.cuda.synchronize()
+            c = counts()
+            want = expect(cfg.n_layer) if use_kernels else only()
+            if c != want:
+                fail(f"phase 14a {name} (kernels={use_kernels}) launched {c}; expected {want}")
+            grads[use_kernels] = {f"{n}.{k}": t.grad for n, ab in ad.items()
+                                  for k, t in ab.items()}
+            grads[use_kernels].update({f"head.{k}": t.grad for k, t in hd.items()})
+        worst, worst_name = grads_agree(f"phase 14a {name}", grads[True], grads[False])
+        log(f"  {name}: {len(grads[False])} adapter and head gradients, worst {worst_name} at "
+            f"{worst:.3e} of its max |grad| (tol {GRAD_TOL:.0e}); launches "
+            f"{dict((k, v) for k, v in expect(cfg.n_layer).items() if v)}")
+        del model
+
+
+def phase_scan_600(dev):
+    """14b's kernels at the PlantCAD2 LoRA shape: K1-hb and K3 (dt fused,
+    R 48) at 16 rows (batch 8 + RC) x 600 x 1536, both directions, bf16 and
+    fp32, against their plain versions; the bf16 reverse direction timed."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_scan
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    cfg = CaduceusConfig.preset("pc2-small")
+    rows, L = 2 * PC2_BATCH, PC2_L
+    D, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
+    log(f"phase 14b: K1-hb and K3 vs plain at pc2-small x {L} bp ({rows} rows x {L} x {D}, "
+        f"N {N}, R {R}; {L // HB_CHUNK} hb chunks and a tail of {L % HB_CHUNK})")
+    w = layer_weights(cfg, 18, dev)
+    A = -torch.exp(w["A_log"])
+    gen = torch.Generator(device=dev).manual_seed(19)
+    res = {k: {"err": 0.0} for k in ("scan_fwd_hb", "scan_bwd")}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        s = torch.empty((), dtype=dtype).element_size()
+        x, gy = (torch.randn((rows, L, D), generator=gen, device=dev).to(dtype) for _ in "ab")
+        Bm, Cm = (torch.randn((rows, L, N), generator=gen, device=dev).to(dtype) for _ in "ab")
+        dt = (torch.randn((rows, L, R), generator=gen, device=dev) * 0.5).to(dtype)
+        for g in (0, 1):
+            args = (x, dt, A[g], Bm, Cm, w["D"][g], w["dt_proj_b"][g], w["dt_proj_w"][g], g == 1)
+            y, hb = cuda_scan.scan_fwd(*args, hb_chunk=HB_CHUNK)
+            y_p, hb_p = cuda_scan.scan_fwd_plain(*args, hb_chunk=HB_CHUNK)
+            kargs = (x, gy, *args[1:7], hb, w["dt_proj_w"][g], g == 1)
+            got, want = cuda_scan.scan_bwd(*kargs), cuda_scan.scan_bwd_plain(*kargs)
+            torch.cuda.synchronize()
+            d = "rev" if g else "fwd"
+            res["scan_fwd_hb"]["err"] = max(
+                res["scan_fwd_hb"]["err"], compare(f"K1-hb y {dn} {d}", y, y_p, dn),
+                compare(f"K1-hb hb {dn} {d}", hb, hb_p, None, F32_TOL))
+            for n, a, b in zip(("dx", "ddt_lr", "dB", "dC", "dA", "ddt_bias", "dD", "dW"),
+                               got, want):
+                res["scan_bwd"]["err"] = max(res["scan_bwd"]["err"],
+                                             compare(f"K3 {n} {dn} {d}", a, b, None, F32_TOL))
+            if g == 1 and dtype == torch.bfloat16:
+                for k, fn, plain, work in (
+                        ("scan_fwd_hb", lambda: cuda_scan.scan_fwd(*args, hb_chunk=HB_CHUNK),
+                         lambda: cuda_scan.scan_fwd_plain(*args, hb_chunk=HB_CHUNK),
+                         scan_fwd_work(rows, L, D, N, R, s, HB_CHUNK)),
+                        ("scan_bwd", lambda: cuda_scan.scan_bwd(*kargs),
+                         lambda: cuda_scan.scan_bwd_plain(*kargs),
+                         scan_bwd_work(rows, L, D, N, R, s))):
+                    b, by, _ = bound_ms(*work)
+                    res[k].update(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 1, warmup=1),
+                                  bound_ms=b, bound_by=by, rows=rows, L=L, D=D, R=R)
+    for k, r in res.items():
+        log(f"  {k} (bf16, reverse): {r['ms']:.3f} ms; plain {r['plain_ms']:.1f} ms; bound "
+            f"{r['bound_ms']:.3f} ms by {r['bound_by']}")
+    return res
+
+
+def ft_step_log():
+    """A handler collecting the fine-tuning CLI's (step, loss, host time)."""
+    import logging
+
+    steps = []
+
+    class StepLog(logging.Handler):
+        def emit(self, record):
+            if isinstance(record.msg, str) and record.msg.startswith("step "):
+                steps.append((record.args[0], float(record.args[2]), time.perf_counter()))
+
+    handler = StepLog()
+    logging.getLogger("plantcaduceus_tpu_torch.cli.lora_fine_tune").addHandler(handler)
+    return steps, handler
+
+
+def _adapter_tensors(path):
+    import torch
+
+    tree = torch.load(path, weights_only=True)
+    flat = {}
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{prefix}/{k}")
+        elif isinstance(t, torch.Tensor):
+            flat[prefix] = t
+    walk(tree, "")
+    return flat
+
+
+def phase_finetune_cli(dev, tmp):
+    """14a: the fine-tuning CLI with l20 at full width and depth (a seeded
+    random base written as an HF dir): tokenize to .npz, train (batch 8 x
+    grad-accum 4, bf16, dropout 0.1, remat, 10 steps, checkpoints at 5 and
+    10), a ``python -m`` run resumed at step 5 equal bit for bit, evaluate,
+    predict, display; a PEFT export of what PEFT can express, re-imported
+    and predicted alike. Returns (launches of the in-process runs, figures)."""
+    import contextlib
+    import io
+    import logging
+
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import lora_fine_tune as ft
+    from plantcaduceus_tpu_torch.compat import peft_adapter
+    from plantcaduceus_tpu_torch.compat.hf_export import export_hf_dir
+    from plantcaduceus_tpu_torch.models.caduceus import init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import lora
+
+    cfg = CaduceusConfig.preset("l20")
+    nl = cfg.n_layer
+    log(f"phase 14a: lora_fine_tune with l20 ({nl} layers, d_model {cfg.d_model}), batch "
+        f"{FT_BATCH} x grad-accum {FT_ACCUM} x 512 bp, bf16, dropout 0.1, {FT_STEPS} steps")
+    base = tmp / "l20"
+    export_hf_dir(base, init_params(cfg, seed=14), cfg)
+    tsv = write_ft_inputs(tmp)
+    npz = {k: tmp / f"ft_{k}.npz" for k in tsv}
+    for k in tsv:
+        ft.main(["tokenize", "--data-dir", str(tsv[k]), "--output-path", str(npz[k]),
+                 "--model-name", str(base), "--sequence-length", "512"])
+    common = ["--train-dir", str(npz["train"]), "--valid-dir", str(npz["valid"]),
+              "--model-name", str(base)]
+    run_a, run_b = tmp / "run", tmp / "run_resumed"
+    steps, handler = ft_step_log()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t = time.perf_counter()
+    ft.main(["train"] + common + FT_ARGS + ["--max-steps", str(FT_STEPS), "--output-dir",
+                                            str(run_a)])
+    wall = time.perf_counter() - t
+    c_train = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    logging.getLogger("plantcaduceus_tpu_torch.cli.lora_fine_tune").removeHandler(handler)
+    losses = [s[1] for s in steps]
+    if [s[0] for s in steps] != list(range(1, FT_STEPS + 1)) or not all(map(math.isfinite, losses)):
+        fail(f"phase 14a: bad step log {steps}")
+    mb = FT_ACCUM * 2 * nl  # per step: microbatches x directions x layers
+    n_eval = FT_STEPS // FT_SAVE * -(-FT_ROWS["valid"] // FT_EVAL_BATCH) * 2 * nl
+    want = only(scan_fwd_hb=FT_STEPS * 2 * mb, scan_bwd=FT_STEPS * mb, mixer_fwd=n_eval)
+    if c_train != want:
+        fail(f"phase 14a train launched {c_train}; expected {want}")
+    times = {s[0]: s[2] for s in steps}
+    # steps 3..10 without step 6: its interval holds the step-5 eval and checkpoint
+    deltas = [times[k] - times[k - 1] for k in range(3, FT_STEPS + 1) if k != FT_SAVE + 1]
+    step_s = sum(deltas) / len(deltas)
+    wps = FT_BATCH * FT_ACCUM / step_s
+    log(f"  {FT_STEPS} steps in {wall:.1f} s (model load, 2 evals and 2 checkpoints included); "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; steady {step_s * 1e3:.2f} ms per step, "
+        f"{wps:.2f} windows/s; peak memory allocated {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"launches {dict((k, v) for k, v in c_train.items() if v)}: per step K1-hb {2 * mb} "
+        f"({FT_ACCUM} microbatches x 2 directions x {nl} layers x forward + remat), K3 {mb}; "
+        f"K2 {n_eval} in the evals (merged weights)")
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.lora_fine_tune",
+                          "train", *common, *FT_ARGS, "--max-steps", str(FT_STEPS),
+                          "--output-dir", str(run_b), "--resume-from",
+                          str(run_a / f"checkpoint-{FT_SAVE}")],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"resumed fine-tuning exited {res.returncode}:\n{res.stderr[-4000:]}")
+    if f"at step {FT_SAVE}" not in res.stderr:
+        fail(f"the second run did not resume from step {FT_SAVE}:\n{res.stderr[-4000:]}")
+    for f in ("final/adapter.pt", f"checkpoint-{FT_STEPS}/train_state.pt"):
+        a, b = _adapter_tensors(run_a / f), _adapter_tensors(run_b / f)
+        if not a or a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"phase 14a: the run resumed at step {FT_SAVE} reached another {f}")
+    log(f"  python -m ... --resume-from checkpoint-{FT_SAVE}: step-{FT_STEPS} adapters, head "
+        f"and optimizer state equal bit for bit ({len(a)} tensors in the train state)")
+
+    reset_counts()
+    metrics_json, pred = tmp / "metrics.json", tmp / "pred.csv"
+    ft.main(["evaluate", "--checkpoint-dir", str(run_a / "final"), "--data-dir",
+             str(npz["valid"]), "--batch-size", str(FT_EVAL_BATCH), "--metrics-json",
+             str(metrics_json)])
+    ft.main(["predict", "--checkpoint-dir", str(run_a / "final"), "--data-dir",
+             str(npz["valid"]), "--batch-size", str(FT_EVAL_BATCH), "--output-file", str(pred)])
+    with contextlib.redirect_stdout(io.StringIO()) as shown:
+        ft.main(["display", "--model-name", str(base)])
+    c_eval = counts()
+    metrics = json.loads(metrics_json.read_text())
+    probs = np.loadtxt(pred, skiprows=1, delimiter=",")
+    if not (all(map(math.isfinite, metrics.values())) and probs.shape == (FT_ROWS["valid"],)
+            and np.isfinite(probs).all() and (0 <= probs).all() and (probs <= 1).all()):
+        fail(f"phase 14a evaluate/predict: {metrics}, {probs.shape}")
+    per_pass = -(-FT_ROWS["valid"] // FT_EVAL_BATCH) * 2 * nl
+    if c_eval != only(mixer_fwd=2 * per_pass):
+        fail(f"phase 14a evaluate + predict launched {c_eval}")
+    log(f"  evaluate: {', '.join(f'{k} {v:.4f}' for k, v in metrics.items())}; predict: "
+        f"{len(probs)} probabilities in [0, 1]; display: {shown.getvalue().splitlines()[-1]}")
+
+    # PEFT: JAX's exporter refuses adapters trained with an A per split (PEFT
+    # fuses in_proj and x_proj into one Linear); out_proj and the head export.
+    adapters, head, cfg_l, task, _ = lora.load_adapter(run_a / "final")
+    try:
+        peft_adapter.export_peft_adapter(tmp / "peft_all", adapters, head, cfg, cfg_l, task)
+        fail("export_peft_adapter took adapters with an lora_A per split")
+    except ValueError as e:
+        if "independent lora_A" not in str(e):
+            raise
+    sub = {"out_proj": adapters["out_proj"]}
+    peft_adapter.export_peft_adapter(tmp / "peft", sub, head, cfg, cfg_l, task, str(base))
+    lora.save_adapter(tmp / "native_out_proj", lora.LoraTrainState(sub, head, None, 0), cfg_l,
+                      task, str(base))
+    preds = {}
+    reset_counts()
+    for name in ("peft", "native_out_proj"):
+        out = tmp / f"pred_{name}.csv"
+        ft.main(["predict", "--checkpoint-dir", str(tmp / name), "--data-dir", str(npz["valid"]),
+                 "--model-name", str(base), "--batch-size", str(FT_EVAL_BATCH),
+                 "--output-file", str(out)])
+        preds[name] = out.read_text()
+    c_eval2 = counts()
+    if preds["peft"] != preds["native_out_proj"]:
+        fail("phase 14a: the PEFT export's predictions differ from the adapter dir's")
+    log(f"  PEFT: the full adapter set refused ({len(adapters)} splits with their own lora_A, "
+        f"as JAX refuses); out_proj + head exported, re-imported: predictions equal to the "
+        f"adapter dir's byte for byte ({len(probs)} rows)")
+    c = {k: c_train[k] + c_eval[k] + c_eval2[k] for k in c_train}
+    return c, dict(step_ms=step_s * 1e3, wps=wps, peak=peak, metrics=metrics)
+
+
+def lora_trainer(cfg, dev, seed, rows, L, cfg_l=None, full=False):
+    """A bf16 LoRA (or full) trainer on a seeded random base, remat on: the
+    step, the infer function, the state, a batch."""
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.models import heads
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.train import lora
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    model = Caduceus(cfg, init_params(cfg, seed=seed))
+    opt = make_optimizer(learning_rate=1e-3, schedule="linear", warmup_steps=1, total_steps=10,
+                         weight_decay=0.01, grad_clip=1.0)
+    cfg_l = cfg_l or lora.LoraConfig()
+    if full:
+        step, infer = lora.make_full_finetune_step(cfg, opt, model, dtype=torch.bfloat16,
+                                                   device=dev)
+        state = lora.init_full_state(model, heads.init_head(
+            torch.Generator().manual_seed(seed), cfg, 2), opt)
+    else:
+        step, infer = lora.make_lora_train_step(cfg, cfg_l, opt, model, dtype=torch.bfloat16,
+                                                device=dev)
+        state = lora.init_lora_state(seed, model, cfg, cfg_l, 2, opt, device=dev)
+    rng = np.random.default_rng(seed)
+    batch = {"input_ids": rng.integers(7, 11, (rows, L)).astype(np.int32),
+             "labels": rng.integers(0, 2, rows)}
+    return model, step, infer, state, batch
+
+
+def timed_steps(model, step, state, batch, n, seed):
+    """``n`` steps, the host synchronised on each loss; (losses, ms of the
+    steps after the first)."""
+    losses, times = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        state, m = step(state, model, batch, seed + i)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t)
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite fine-tuning loss {losses}")
+    return losses, 1e3 * sum(times[1:]) / max(1, len(times) - 1)
+
+
+def phase_finetune_more(dev, tmp):
+    """14b: the PlantCAD2 recipe, pc2-small x 600 bp, batch 8, 3 LoRA
+    steps, bf16; 14c: ``--full-finetune`` at l20, 3 steps; 14d: l20-ssd
+    LoRA, 3 steps and an evaluation batch. Returns (launches, figures)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import lora_fine_tune as ft
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    figs, c = {}, only()
+
+    def add(d):
+        for k, v in d.items():
+            c[k] += v
+
+    cfg = CaduceusConfig.preset("pc2-small")
+    log(f"phase 14b: LoRA, pc2-small ({cfg.n_layer} layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}) x {PC2_L} bp, batch {PC2_BATCH}, bf16, remat, {PC2_STEPS} steps")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, step, _, state, batch = lora_trainer(cfg, dev, 20, PC2_BATCH, PC2_L)
+    reset_counts()
+    losses, ms = timed_steps(model, step, state, batch, PC2_STEPS, 21)
+    cb = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    nl2 = 2 * cfg.n_layer
+    if cb != only(scan_fwd_hb=PC2_STEPS * 2 * nl2, scan_bwd=PC2_STEPS * nl2):
+        fail(f"phase 14b launched {cb}")
+    add(cb)
+    figs["pc2"] = dict(step_ms=ms, wps=PC2_BATCH / (ms / 1e3), peak=peak)
+    log(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; {ms:.2f} ms per step (steps 2-"
+        f"{PC2_STEPS}), {figs['pc2']['wps']:.2f} windows/s; peak memory allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); launches per step K1-hb {2 * nl2}, K3 {nl2}")
+    del model, step, state
+    torch.cuda.empty_cache()
+
+    log("phase 14c: lora_fine_tune --full-finetune with l20, 3 steps (batch 8 x grad-accum 4)")
+    nl2 = 2 * CaduceusConfig.preset("l20").n_layer
+    reset_counts()
+    ft.main(["train", "--train-dir", str(tmp / "ft_train.npz"), "--valid-dir",
+             str(tmp / "ft_valid.npz"), "--model-name", str(tmp / "l20"), "--output-dir",
+             str(tmp / "full"), "--full-finetune", "--train-batch-size", str(FT_BATCH),
+             "--grad-accum", str(FT_ACCUM), "--learning-rate", "1e-4", "--warmup-steps", "1",
+             "--max-steps", "3", "--save-steps", "3", "--eval-steps", "3", "--logging-steps",
+             "1", "--eval-batch-size", str(FT_EVAL_BATCH)])
+    cc = counts()
+    n_eval = -(-FT_ROWS["valid"] // FT_EVAL_BATCH) * nl2
+    if cc != only(mixer_fwd_res=3 * FT_ACCUM * 2 * nl2, scan_bwd=3 * FT_ACCUM * nl2,
+                  mixer_fwd=n_eval):
+        fail(f"phase 14c launched {cc}")
+    add(cc)
+    meta = json.loads((tmp / "full" / "final" / "adapter_config.json").read_text())
+    if not meta.get("full_finetune"):
+        fail("phase 14c: the export is not marked full_finetune")
+    log(f"  launches {dict((k, v) for k, v in cc.items() if v)}: per step K2-res "
+        f"{FT_ACCUM * 2 * nl2} (forward + remat), K3 {FT_ACCUM * nl2}; K2 {n_eval} in the eval")
+
+    cfg = CaduceusConfig.preset("l20-ssd")
+    log("phase 14d: LoRA, l20-ssd, batch 8 x 512 bp, bf16, remat, 3 steps and an eval batch")
+    model, step, infer, state, batch = lora_trainer(cfg, dev, 22, FT_BATCH, 512)
+    reset_counts()
+    losses, ms = timed_steps(model, step, state, batch, 3, 23)
+    logits = infer(state, model, batch)
+    torch.cuda.synchronize()
+    cd = counts()
+    nl2 = 2 * cfg.n_layer
+    if cd != only(mixer2_fwd_res=3 * 2 * nl2, ssd_bwd_pre_silu=3 * nl2, mixer2_fwd=nl2):
+        fail(f"phase 14d launched {cd}")
+    if not torch.isfinite(logits).all():
+        fail("phase 14d: non-finite logits")
+    add(cd)
+    figs["ssd"] = dict(step_ms=ms)
+    log(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; {ms:.2f} ms per step; launches "
+        f"{dict((k, v) for k, v in cd.items() if v)}")
+    return c, figs
+
+
+def phase_finetune_profile(dev):
+    """Device time by kernel over one microbatch of an l20 LoRA step (bf16,
+    8 x 512 bp, dropout 0.1, remat, the optimizer update included; a 14a
+    step is four such microbatches), and the busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import lora
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    log(f"phase 14 profile: one microbatch of an l20 LoRA step (bf16, {FT_BATCH} x 512 bp, "
+        "dropout 0.1, remat, with the update)")
+    cfg, cfg_l = CaduceusConfig.preset("l20"), lora.LoraConfig()
+    model = Caduceus(cfg, init_params(cfg, seed=24))
+    opt = make_optimizer(learning_rate=1e-3, schedule="linear", warmup_steps=1, total_steps=10)
+    step, _ = lora.make_lora_train_step(cfg, cfg_l, opt, model, dtype=torch.bfloat16, device=dev)
+    state = lora.init_lora_state(24, model, cfg, cfg_l, 2, opt, device=dev)
+    rng = np.random.default_rng(24)
+    batch = {"input_ids": rng.integers(7, 11, (FT_BATCH, 512)).astype(np.int32),
+             "labels": rng.integers(0, 2, FT_BATCH)}
+    state, m = step(state, model, batch, 1)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, model, batch, 2)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    report_profile(prof, wall, 12)
+
+
+def phase_finetune(dev):
+    """Phase 14 (LoRA and full fine-tuning). The kernel checks (14a's
+    gradients, 14b's K1-hb/K3 at 600 x 1536) run before the launch counts
+    are zeroed; the counts of the main paths (the CLI runs in-process, the
+    pc2-small and l20-ssd steps) are read after them."""
+    t = time.perf_counter()
+    tmp = REPO / "build" / "chip_smoke" / "finetune"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    marks = [time.perf_counter()]
+    phase_lora_grads(dev)
+    marks.append(time.perf_counter())
+    k600 = phase_scan_600(dev)
+    marks.append(time.perf_counter())
+    ca, figs = phase_finetune_cli(dev, tmp)
+    marks.append(time.perf_counter())
+    cb, more = phase_finetune_more(dev, tmp)
+    marks.append(time.perf_counter())
+    figs.update(more)
+    c = {k: ca[k] + cb[k] for k in ca}
+    phase_finetune_profile(dev)
+    marks.append(time.perf_counter())
+    log("phase 14 seconds: " + ", ".join(
+        f"{n} {b - a:.1f}" for n, a, b in zip(("gradients", "K1-hb/K3 at 600", "CLI", "14b-d",
+                                               "profile"), marks, marks[1:])))
+    log(f"phase 14 ok in {time.perf_counter() - t:.1f} s: LoRA l20 {figs['step_ms']:.2f} ms per "
+        f"step ({figs['wps']:.2f} windows/s, batch {FT_BATCH} x {FT_ACCUM}); pc2-small x "
+        f"{PC2_L} bp {figs['pc2']['step_ms']:.2f} ms per step ({figs['pc2']['wps']:.2f} "
+        f"windows/s, batch {PC2_BATCH}, peak {figs['pc2']['peak']} bytes); l20-ssd "
+        f"{figs['ssd']['step_ms']:.2f} ms per step (batch {FT_BATCH}); launches "
+        f"{dict((k, v) for k, v in c.items() if v)}")
+    return c, k600, figs
+
+
 def main():
     import torch
 
@@ -2830,6 +3357,9 @@ def main():
         f"windows/s; server {sv['wps']:.1f} windows/s, {sv['rps']:.2f} requests/s (in-process "
         f"{wps:.1f}); {sv['forwards']} forwards for {SERVE_CLIENTS} concurrent requests of "
         f"{SERVE_WINDOWS} windows")
+    # phase 14: LoRA and full fine-tuning, after every earlier phase
+    torch.cuda.empty_cache()
+    fc, k600, ff = phase_finetune(dev)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
@@ -2839,43 +3369,45 @@ def main():
         f"{bpeak} bytes; AR LM mamba1 {ar1_fig['tps']:.1f} / mamba2 {ar2_fig['tps']:.1f} "
         f"training tokens/s, decode {ar1_fig['decode_tps']:.1f} / {ar2_fig['decode_tps']:.1f} "
         f"tokens/s at batch 1; zero_shot_eval pc2-small {ev['wps']:.2f} windows/s at "
-        f"{EVAL_L} bp")
+        f"{EVAL_L} bp; LoRA l20 {ff['step_ms']:.2f} ms per step ({ff['wps']:.2f} windows/s), "
+        f"pc2-small x {PC2_L} bp {ff['pc2']['step_ms']:.2f} ms per step "
+        f"({ff['pc2']['wps']:.2f} windows/s)")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
-                          launches=k2_launches + ek2 + xk2 + sk2 + tk2),
+                          launches=k2_launches + ek2 + xk2 + sk2 + tk2 + fc["mixer_fwd"]),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
-                              launches=tc["mixer_fwd_res"]),
+                              launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                          launches=k1_launches + ar1["scan_fwd"]),
         "scan_fwd_hb": dict(source=src + "scan_fwd.cu",
                             replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
-                            launches=hb_launches + ar1["scan_fwd_hb"]),
+                            launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
-                         launches=tc["scan_bwd"] + ar1["scan_bwd"]),
+                         launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
                         launches=k4_launches + ar2["ssd_fwd"]),
         "mixer2_fwd": dict(source=src + "mixer2_fwd.cu",
                            replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
-                           launches=k5_launches + ek5),
+                           launches=k5_launches + ek5 + fc["mixer2_fwd"]),
         "ssd_fwd_fentry": dict(source=src + "ssd_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
                                launches=fentry_launches + ar2["ssd_fwd_fentry"]),
         "mixer2_fwd_res": dict(source=src + "mixer2_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
-                               launches=tc2["mixer2_fwd_res"]),
+                               launches=tc2["mixer2_fwd_res"] + fc["mixer2_fwd_res"]),
         "ssd_bwd": dict(source=src + "ssd_bwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
                         launches=k6_launches + ar2["ssd_bwd"]),
         "ssd_bwd_pre_silu": dict(source=src + "ssd_bwd.cu",
                                  replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
-                                 launches=tc2["ssd_bwd_pre_silu"]),
+                                 launches=tc2["ssd_bwd_pre_silu"] + fc["ssd_bwd_pre_silu"]),
     }
     kernels = []
     for name in ("mixer_fwd", "scan_fwd"):
@@ -2935,6 +3467,15 @@ def main():
             **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
             **{k: "plantcaduceus_tpu/ops/pallas_attention.py" + v for k, v in also.items()},
             **extra))
+    # Phase 14: its launches beside each total; K1-hb and K3 at pc2-small x 600 bp.
+    for k in kernels:
+        if fc.get(k["name"]):
+            k["phase14_launches"] = fc[k["name"]]
+        if k["name"] in k600:
+            r = k600[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], r["err"])
+            k["pc2_small_600"] = {n: r[n] for n in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "rows", "L", "D", "R")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,12 @@ Reproduces the reference recipe surface: 15% dynamic masking, soft-masked
 constant-with-warmup lr 2e-4 / 1k warmup, checkpoints every N steps with
 autoresume from ``--output-dir``, eval + perplexity. The final weights go
 to ``<output-dir>/final`` as an HF checkpoint directory that
-``cli.zero_shot_score -model`` loads. Runs on CUDA unless ``--device cpu``
-is given, and fails when CUDA is asked for and absent. One device: the
-multi-GPU axes (``--fsdp/--seq/--tensor/--pipe`` > 1), ``--push-to-hub``
-and ``--profile-dir`` are refused.
+``cli.zero_shot_score -model`` loads, with a model card (README.md: config,
+dataset, final eval metrics); ``--push-to-hub`` then uploads it, and raises
+one clear error where ``huggingface_hub`` or the network is missing. Runs
+on CUDA unless ``--device cpu`` is given, and fails when CUDA is asked for
+and absent. One device: the multi-GPU axes (``--fsdp/--seq/--tensor/--pipe``
+> 1) and ``--profile-dir`` are refused.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from pathlib import Path
 
 import torch
 
+from plantcaduceus_tpu_torch.compat import model_card as card_lib
 from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
 from plantcaduceus_tpu_torch.models.config import PRESETS, CaduceusConfig
@@ -81,8 +84,7 @@ def parse_args(argv=None):
     p.add_argument("--profile-dir", default=None, help="not supported by the port yet")
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--wandb-run-name", default=None)
-    p.add_argument("--push-to-hub", default=None, metavar="REPO_ID",
-                   help="not supported by the port (the card's machine has no network)")
+    p.add_argument("--push-to-hub", default=None, metavar="REPO_ID")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     multi = {k: getattr(args, k) for k in ("fsdp", "seq", "tensor", "pipe")
@@ -90,8 +92,6 @@ def parse_args(argv=None):
     if multi or args.pipe_microbatches:
         p.error(f"multi-GPU layouts {multi or '--pipe-microbatches'} are not supported "
                 "by the PyTorch port yet; it trains on one device")
-    if args.push_to_hub:
-        p.error("--push-to-hub is not supported by the PyTorch port")
     if args.profile_dir:
         p.error("--profile-dir is not supported by the PyTorch port yet")
     if args.eval_shards:
@@ -173,13 +173,20 @@ def main(argv=None):
         args.max_steps, log_every=args.log_steps, eval_every=args.eval_steps,
         ckpt=ckpt, wandb_run=wandb_run, tokens_per_step=step_rows * args.window)
 
+    final_metrics = None
     if args.eval_steps:
         final_metrics = loop_lib.evaluate(state, eval_step, eval_data.eval_batches(),
                                           max_batches=20)
         logging.info("final eval: %s", final_metrics)
     final_dir = Path(args.output_dir) / "final"
     ckpt_lib.export_params(final_dir, state.model, cfg)
-    logging.info("Exported final params to %s", final_dir)
+    card_lib.write_model_card(
+        final_dir, cfg, tasks="fill-mask", dataset=args.dataset,
+        metrics=card_lib._final_metrics_from_log(final_metrics),
+        n_params=sum(p.numel() for p in state.model.parameters()))
+    logging.info("Exported final params + model card to %s", final_dir)
+    if args.push_to_hub:
+        card_lib.push_to_hub(final_dir, args.push_to_hub)
     if device.type == "cuda":
         logging.info("peak device memory allocated: %d bytes",
                      torch.cuda.max_memory_allocated(device))

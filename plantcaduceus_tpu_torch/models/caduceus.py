@@ -24,7 +24,11 @@ Mixer paths:
   G=1, as the JAX package does;
 * Mamba-2 (:func:`mamba2_mixer`): five in-projections with ``torch.matmul``,
   kernel K5 (``ops.cuda_mixer2``: conv, SiLU, the SSD chunk scan, the gated
-  RMS norm) once per direction, out_proj.
+  RMS norm) once per direction, out_proj;
+* activation-path LoRA (``lora=``, PEFT's dropout semantics): Mamba-1 takes
+  the K1 route for every config, tied + add included, with the adapter
+  deltas at in_proj, x_proj and out_proj; Mamba-2 keeps K5, its adapted
+  sites all being outside the interior.
 
 Under training (grad enabled, and the input or a weight requiring it) the
 same paths go through autograd Functions: ``BimambaMixerFn`` (K2's residual
@@ -241,26 +245,125 @@ def _norm(x, w, cfg):
     return layer_norm(x, w, None, cfg.norm_epsilon)
 
 
-def _training(p: Dict[str, torch.Tensor], x: torch.Tensor) -> bool:
+def _training(p: Dict[str, torch.Tensor], x: torch.Tensor, lora: Optional[dict] = None) -> bool:
     """Whether the mixer's output needs a gradient: through the input (frozen
-    layers above trained ones) or through one of its own weights."""
+    layers above trained ones), one of its own weights or an adapter."""
+    adapters = lora["adapters"].values() if lora is not None else ()
     return torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for t in p.values()))
+        x.requires_grad or any(t.requires_grad for t in p.values())
+        or any(t.requires_grad for ab in adapters for t in ab.values()))
+
+
+# ---------------------------------------------------------------------------
+# Activation-path LoRA (PEFT semantics)
+# ---------------------------------------------------------------------------
+#
+# PEFT's LoraLayer computes y = W x + (alpha/r) * B A dropout(x): dropout acts
+# on the adapted projection's input, independently per (row, position,
+# feature). The mixers take an optional ``lora`` dict of one layer
+#     {"adapters": {name: {"a": [G?, in, r], "b": [G?, r, out]}},
+#      "scale": alpha/r, "dropout": p, "seed": int or None}
+# (``backbone`` slices the stacked adapters per layer) and add the delta at
+# each adapted site. With dropout off this equals the merged weights
+# W + scale * a @ b up to rounding (linearity).
+
+# The projection sites an adapter can hook (``train.lora.DEFAULT_TARGETS``).
+_LORA_SITE_IDS = {name: i for i, name in enumerate((
+    "in_proj_x", "in_proj_z", "out_proj",
+    "x_proj_dt", "x_proj_B", "x_proj_C",
+    "in_proj_B", "in_proj_C", "in_proj_dt",
+))}
+
+# Dropout-mask groups = the reference's torch modules. PEFT hangs one
+# lora_dropout on each adapted Linear (in_proj, x_proj, out_proj); the split
+# sites of one Linear share its mask.
+_LORA_DROP_GROUPS = {
+    "in_proj_x": 0, "in_proj_z": 0,
+    "in_proj_B": 0, "in_proj_C": 0, "in_proj_dt": 0,   # mamba2 in_proj
+    "x_proj_dt": 1, "x_proj_B": 1, "x_proj_C": 1,      # mamba1 x_proj
+    "out_proj": 2,
+}
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data`` (splitmix64's finaliser):
+    the counterpart of ``jax.random.fold_in`` for integer seeds."""
+    z = (seed * 0x9E3779B97F4A7C15 + data * 0xD1B54A32D192ED03 + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def _dropped(lora: dict, name: str, x: torch.Tensor, g: Optional[int]) -> torch.Tensor:
+    """``x`` under the dropout of ``name``'s module: one Bernoulli mask per
+    (layer, drop group, direction) over x's full shape, scaled by 1/(1-p).
+    The mask comes from a generator seeded with (the layer's seed, group,
+    direction), so a remat recompute and a resumed run draw the same bits.
+    in_proj's sites all read the block input, one mask for every direction
+    (as JAX's draw over ``x``)."""
+    p_drop, seed = lora.get("dropout", 0.0), lora.get("seed")
+    if seed is None or p_drop <= 0:
+        return x
+    group = _LORA_DROP_GROUPS[name]
+    key = (group, 0 if group == 0 else (g or 0))
+    cache = lora.setdefault("dropped", {})
+    if key not in cache:
+        gen = torch.Generator(device=x.device).manual_seed(fold_in(seed, key[0] * 4 + key[1]))
+        keep = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        keep.bernoulli_(1.0 - p_drop, generator=gen)
+        cache[key] = x * keep.to(x.dtype) / (1.0 - p_drop)
+    return cache[key]
+
+
+def _lora_delta(lora: Optional[dict], name: str, x: torch.Tensor,
+                g: Optional[int] = None) -> Optional[torch.Tensor]:
+    """scale * ((dropout(x) @ a) @ b) for an adapted site, or None when the
+    site has no adapter. ``g`` picks the adapter's direction (sites applied
+    per direction); without it the site gets one delta per direction of its
+    adapter, stacked on a leading axis (in_proj's ``[G, rows, L, out]``)."""
+    if lora is None:
+        return None
+    ab = lora["adapters"].get(name)
+    if ab is None:
+        return None
+    x = _dropped(lora, name, x, g)
+    a, b = ab["a"], ab["b"]
+    if g is not None:
+        a, b = a[min(g, a.shape[0] - 1)], b[min(g, b.shape[0] - 1)]
+        return lora["scale"] * ((x @ a.to(x.dtype)) @ b.to(x.dtype))
+    d = [(x @ ai.to(x.dtype)) @ bi.to(x.dtype) for ai, bi in zip(a, b)]
+    return lora["scale"] * (d[0][None] if len(d) == 1 else torch.stack(d))
+
+
+def _add_lora(base: torch.Tensor, lora: Optional[dict], name: str, x: torch.Tensor,
+              g: Optional[int] = None) -> torch.Tensor:
+    d = _lora_delta(lora, name, x, g)
+    return base if d is None else base + d.to(base.dtype)
 
 
 def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True, lora: Optional[dict] = None) -> torch.Tensor:
     """One (Bi)Mamba mixer over ``x: [rows, L, d]``. ``p`` holds one layer's
-    weights. Under training (grad enabled, and ``x`` or a weight requiring
-    it) the kernels run through their autograd Functions. ``use_kernels=False`` runs the
-    kernels' plain versions on any device, differentiated by autograd."""
+    weights. Under training (grad enabled, and ``x``, a weight or an adapter
+    requiring it) the kernels run through their autograd Functions.
+    ``use_kernels=False`` runs the kernels' plain versions on any device,
+    differentiated by autograd.
+
+    With ``lora`` (activation-path adapters) the tied + add config leaves K2,
+    whose fused interior hides the x_proj sites, for the decomposed route:
+    in_proj, conv, x_proj with their deltas, then K1 (K1-hb and K3 under
+    training) with dt_proj fused, both directions, and one out_proj on the
+    summed, gated streams (JAX ``caduceus.py:572-578``)."""
     G = cfg.n_directions
     cdtype = x.dtype
     Gio = p["in_proj_x"].shape[0]
     A = -torch.exp(p["A_log"].float())                          # [G, D, N]
-    train = use_kernels and _training(p, x)
+    train = use_kernels and _training(p, x, lora)
+    tied_add = G == 2 and Gio == 1 and cfg.bidirectional_strategy == "add"
 
-    if G == 2 and Gio == 1 and cfg.bidirectional_strategy == "add":
+    if tied_add and lora is None:
         # Released-model path: K2 once per direction (K2-res and K3 under training).
         xi = x @ p["in_proj_x"][0].to(cdtype)
         z = x @ p["in_proj_z"][0].to(cdtype)
@@ -271,16 +374,19 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
         return y_gated @ p["out_proj"][0].to(cdtype)
 
     scan = selective_scan if train else (scan_fwd if use_kernels else scan_fwd_plain)
-    xi = torch.einsum("bld,gdi->gbli", x, p["in_proj_x"].to(cdtype))
-    z = torch.einsum("bld,gdi->gbli", x, p["in_proj_z"].to(cdtype))
+    xi = _add_lora(torch.einsum("bld,gdi->gbli", x, p["in_proj_x"].to(cdtype)),
+                   lora, "in_proj_x", x)
+    z = _add_lora(torch.einsum("bld,gdi->gbli", x, p["in_proj_z"].to(cdtype)),
+                  lora, "in_proj_z", x)
+    Gx = xi.shape[0]
     conv_w, conv_b = p["conv_w"].to(cdtype), p["conv_b"].to(cdtype)
     ys = []
     for g in range(G):
-        xg = causal_conv1d(xi[min(g, Gio - 1)], conv_w[g], conv_b[g],
+        xg = causal_conv1d(xi[min(g, Gx - 1)], conv_w[g], conv_b[g],
                            activation="silu", anticausal=(g == 1))
-        dt_lr = xg @ p["x_proj_dt"][g].to(cdtype)
-        Bm = xg @ p["x_proj_B"][g].to(cdtype)
-        Cm = xg @ p["x_proj_C"][g].to(cdtype)
+        dt_lr, Bm, Cm = (
+            _add_lora(xg @ p[k][g].to(cdtype), lora, k, xg, g=g)
+            for k in ("x_proj_dt", "x_proj_B", "x_proj_C"))
         if G == 2:  # dt projected inside the kernel
             ys.append(scan(xg, dt_lr, A[g], Bm, Cm, p["D"][g], p["dt_proj_b"][g],
                            p["dt_proj_w"][g], reverse=(g == 1)))
@@ -288,8 +394,16 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
             dt = dt_lr @ p["dt_proj_w"][g].to(cdtype)
             ys.append(scan(xg, dt, A[g], Bm, Cm, p["D"][g], p["dt_proj_b"][g]))
     gate = F.silu(z)
-    outs = [(ys[g] * gate[min(g, Gio - 1)]) @ p["out_proj"][min(g, Gio - 1)].to(cdtype)
-            for g in range(G)]
+    if tied_add:
+        # Tied + add under LoRA: share the gate, one out_proj (one dropout mask).
+        y_sum = (ys[0] + ys[1]) * gate[0]
+        return _add_lora(y_sum @ p["out_proj"][0].to(cdtype), lora, "out_proj", y_sum, g=0)
+    Go = p["out_proj"].shape[0]
+    outs = []
+    for g in range(G):
+        og = ys[g] * gate[min(g, gate.shape[0] - 1)]
+        outs.append(_add_lora(og @ p["out_proj"][min(g, Go - 1)].to(cdtype), lora, "out_proj",
+                              og, g=g))
     if G == 1:
         return outs[0]
     if cfg.bidirectional_strategy == "add":
@@ -298,27 +412,30 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
 
 
 def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
-                 use_kernels: bool = True) -> torch.Tensor:
+                 use_kernels: bool = True, lora: Optional[dict] = None) -> torch.Tensor:
     """One (Bi)Mamba-2 (SSD) mixer over ``x: [rows, L, d]`` (JAX
     ``mamba2_mixer`` on one device). Per direction: the x, z, B, C and dt
     in-projections, K5 (conv, SiLU, the SSD chunk scan, gated RMS norm; the
     reverse direction anticausal, with no flips), then out_proj. Tied
     in/out projections with the ``add`` combine sum the normed streams
-    before one out_proj. Under training (grad enabled, and ``x`` or a
-    weight requiring it) the interior is ``cuda_mixer2.Mamba2InteriorFn``
-    (K5-res, then K6 in the backward). ``use_kernels=False`` runs K5's
-    plain version on any device, differentiated by autograd."""
+    before one out_proj. Under training (grad enabled, and ``x``, a weight
+    or an adapter requiring it) the interior is
+    ``cuda_mixer2.Mamba2InteriorFn`` (K5-res, then K6 in the backward).
+    ``use_kernels=False`` runs K5's plain version on any device,
+    differentiated by autograd. ``lora``'s six sites (the five
+    in-projections and out_proj) all lie outside the interior, so K5 serves
+    LoRA as it is."""
     G = cfg.n_directions
     cdtype = x.dtype
     if not use_kernels:
         interior = mamba2_mixer_interior_plain
-    elif _training(p, x):
+    elif _training(p, x, lora):
         interior = mamba2_mixer_interior_train
     else:
         interior = mamba2_mixer_interior
 
     def proj(name, g):
-        return x @ p[name][g].to(cdtype)
+        return _add_lora(x @ p[name][g].to(cdtype), lora, name, x, g=g)
 
     Gio, Gn, Go = (p[k].shape[0] for k in ("in_proj_x", "mixer_norm_weight", "out_proj"))
     xi = [proj("in_proj_x", g) for g in range(Gio)]
@@ -332,8 +449,10 @@ def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfi
                      eps=cfg.norm_epsilon, chunk=cfg.chunk_size, reverse=(g == 1))
             for g in range(G)]
     if G == 2 and Go == 1 and cfg.bidirectional_strategy == "add":
-        return (outs[0] + outs[1]) @ p["out_proj"][0].to(cdtype)
-    projs = [o @ p["out_proj"][min(g, Go - 1)].to(cdtype) for g, o in enumerate(outs)]
+        o_sum = outs[0] + outs[1]
+        return _add_lora(o_sum @ p["out_proj"][0].to(cdtype), lora, "out_proj", o_sum, g=0)
+    projs = [_add_lora(o @ p["out_proj"][min(g, Go - 1)].to(cdtype), lora, "out_proj", o, g=g)
+             for g, o in enumerate(outs)]
     if G == 1:
         return projs[0]
     if cfg.bidirectional_strategy == "add":
@@ -362,25 +481,40 @@ def embed_residual(model: Caduceus, input_ids: torch.Tensor,
 
 def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
              collect_layers: bool = False, use_kernels: bool = True,
-             remat: bool = False):
+             remat: bool = False, lora: Optional[dict] = None):
     """Embedding, n_layer blocks, final norm. Returns the working-frame
     hidden states ``[S*B, L, d]``; with ``collect_layers`` also the list of
     each block's residual-stream input (in ``dtype``). ``remat=True``
     recomputes each block in the backward pass (``torch.utils.checkpoint``,
     as JAX ``make_block_fn``'s ``jax.checkpoint``): activation memory of
-    O(L * d) per layer instead of every block's intermediates."""
+    O(L * d) per layer instead of every block's intermediates.
+
+    ``lora`` (``train.lora.lora_ctx``): adapters stacked on n_layer,
+    ``{"adapters": {name: {"a", "b"}}, "scale", "dropout", "seed"}``; each
+    layer takes its slice and the seed folded with its index, so its
+    dropout masks are a function of (seed, layer) and a recompute draws
+    them again."""
     cfg = model.cfg
     mixer = mamba2_mixer if cfg.ssm_variant == "mamba2" else mamba_mixer
     residual = embed_residual(model, input_ids, dtype)
     per_layer = []
-    for layer in model.layers:
+    for i, layer in enumerate(model.layers):
         p = layer.params()
         if collect_layers:
             per_layer.append(residual.to(dtype))
+        ctx = None
+        if lora is not None:
+            seed = lora.get("seed")
+            ctx = {"adapters": {n: {k: t[i] for k, t in ab.items()}
+                                for n, ab in lora["adapters"].items()},
+                   "scale": lora["scale"], "dropout": lora.get("dropout", 0.0),
+                   "seed": None if seed is None else fold_in(seed, i)}
 
-        def block(res, p=p):
+        def block(res, p=p, ctx=ctx):
             normed = _norm(res.to(dtype), p["norm_weight"], cfg)
-            out = mixer(p, normed, cfg, use_kernels=use_kernels)
+            # a fresh mask cache per call: the recompute draws its masks anew
+            out = mixer(p, normed, cfg, use_kernels=use_kernels,
+                        lora=None if ctx is None else dict(ctx))
             return res + out.to(res.dtype)
 
         residual = (checkpoint(block, residual, use_reentrant=False)

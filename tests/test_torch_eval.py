@@ -273,21 +273,25 @@ def test_load_tokenizer_only(tiny_ckpt):
 
 
 def test_new_modules_import_nothing_the_gpu_hosts_lack():
-    """The AR LM, evaluation, XGBoost, serving and input-tool modules and the
-    table opener import neither jax nor the JAX package, nor sklearn,
-    pandas, xgboost, matplotlib, datasets, optax or scipy.stats (absent or
-    unused on the GPU hosts), in a fresh interpreter."""
+    """The AR LM, evaluation, XGBoost, serving, input-tool and fine-tuning
+    modules and the table opener import neither jax nor the JAX package,
+    nor sklearn, pandas, xgboost, matplotlib, datasets, optax, orbax, peft,
+    safetensors, huggingface_hub or scipy.stats (absent or unused on the GPU
+    hosts), in a fresh interpreter."""
     code = """
 import importlib, sys
 for m in ("models.mamba_lm", "cli.ar_lm", "engine.eval_tasks", "cli.zero_shot_eval",
           "compat.params", "utils.model_loading", "io.tables", "downstream.xgb_json",
           "downstream.metrics", "downstream.gbm", "cli.predict_xgboost",
           "cli.train_xgboost", "engine.server", "engine.client", "cli.serve",
-          "pipelines.mutagenesis", "cli.mutagenesis", "cli.format_vcf"):
+          "pipelines.mutagenesis", "cli.mutagenesis", "cli.format_vcf",
+          "models.heads", "models.caduceus", "train.lora", "compat.peft_adapter",
+          "cli.lora_fine_tune", "cli.finetune_suite", "compat.model_card", "cli.pretrain"):
     importlib.import_module("plantcaduceus_tpu_torch." + m)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "plantcaduceus_tpu", "sklearn", "pandas",
-                                    "xgboost", "matplotlib", "datasets", "optax")
+                                    "xgboost", "matplotlib", "datasets", "optax", "orbax",
+                                    "peft", "safetensors", "huggingface_hub")
              or m.startswith("scipy.stats"))
 assert not bad, bad
 print("clean")

@@ -1140,3 +1140,125 @@ def test_server_on_the_card_matches_in_process_scores(cuda):
     for i in range(4):
         flat[i::4] = got[i]
     np.testing.assert_allclose(flat, want, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# LoRA and fine-tuning (train/lora.py)
+
+LORA_CONFIGS = {
+    "tied_add": dict(d_model=64, n_layer=2, d_state=16),
+    "mamba2": dict(d_model=128, n_layer=2, ssm_variant="mamba2", d_state=128, head_dim=128,
+                   chunk_size=128),
+}
+
+
+def _lora_case(cuda, name, seed=5):
+    from plantcaduceus_tpu_torch.models import heads
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import lora
+
+    cfg = CaduceusConfig(**LORA_CONFIGS[name])
+    model = Caduceus(cfg, init_params(cfg, seed=seed)).to(cuda)
+    gen = torch.Generator().manual_seed(seed)
+    adapters = lora.init_lora(gen, model, lora.LoraConfig(r=4))
+    for ab in adapters.values():
+        ab["b"].normal_(0.0, 0.05, generator=gen)
+    head = heads.init_head(gen, cfg, 2)
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(7, 11, (3, 256))).to(cuda)
+    return cfg, model, adapters, head, ids
+
+
+@pytest.mark.parametrize("name", list(LORA_CONFIGS))
+def test_lora_mixer_kernels_match_plain_path(cuda, name):
+    """The activation path at dropout 0.1 (the same seeded masks both ways):
+    fp32 logits (1e-3 of max |logit|) and adapter and head gradients (1e-3
+    of each leaf's max |grad|) with the kernels (Mamba-1 tied/add: K1-hb and
+    K3, dt fused, both directions; Mamba-2: K5-res and K6 pre_silu) against
+    the plain path."""
+    from plantcaduceus_tpu_torch.models import heads
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+    from plantcaduceus_tpu_torch.train import lora
+
+    cfg, model, adapters, head, ids = _lora_case(cuda, name)
+    cfg_l = lora.LoraConfig(r=4, dropout=0.1)
+    counters = ((cuda_scan.scan_fwd, "hb_launches"), (cuda_scan.scan_bwd, "launches"),
+                (cuda_mixer.mixer_fwd, "res_launches"),
+                (cuda_mixer2.mamba2_mixer_interior, "res_launches"),
+                (cuda_ssd.ssd_dir_bwd, "pre_silu_launches"))
+    logits, grads = {}, {}
+    for use_kernels in (True, False):
+        before = [getattr(f, a) for f, a in counters]
+        ad, hd = lora.trainable_copy(adapters, cuda), lora.trainable_copy(head, cuda)
+        out = heads.sequence_logits(model, hd, ids, cfg, dtype=torch.float32, remat=True,
+                                    lora=lora.lora_ctx(ad, cfg_l, dropout_seed=3),
+                                    use_kernels=use_kernels)
+        heads.task_loss(out, torch.tensor([0, 1, 1], device=cuda), "classification").backward()
+        torch.cuda.synchronize()
+        got = [getattr(f, a) - b for (f, a), b in zip(counters, before)]
+        nl2 = 2 * cfg.n_layer if use_kernels else 0
+        assert got == ([2 * nl2, nl2, 0, 0, 0] if name == "tied_add"
+                       else [0, 0, 0, 2 * nl2, nl2]), got
+        logits[use_kernels] = out.detach()
+        grads[use_kernels] = {f"{n}.{k}": t.grad for n, ab in ad.items() for k, t in ab.items()}
+        grads[use_kernels].update({f"head.{k}": t.grad for k, t in hd.items()})
+    _close_to_scale(logits[True], logits[False], 1e-3, "logits")
+    for k, w in grads[False].items():
+        _close_to_scale(grads[True][k], w, 1e-3, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_hb_and_bwd_at_pc2_small_600(cuda, dtype):
+    """K1-hb and K3 at the PlantCAD2 LoRA recipe's shape (600 bp = 37
+    chunks of 16 and a tail of 8; pc2-small: d_inner 1536, N 16, R 48), dt
+    fused, both directions, against their plain versions."""
+    from plantcaduceus_tpu_torch.models.caduceus import init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    cfg = CaduceusConfig.preset("pc2-small", n_layer=1)
+    w = {k: v[0].to(cuda) for k, v in init_params(cfg, seed=6)["blocks"].items()}
+    rng = np.random.default_rng(9)
+    rows, L, D, N, R = 2, 600, cfg.d_inner, cfg.d_state, cfg.dt_rank
+    x = _t(rng.standard_normal((rows, L, D)), cuda, dtype)
+    gy = _t(rng.standard_normal((rows, L, D)), cuda, dtype)
+    dt = _t(rng.standard_normal((rows, L, R)) * 0.5, cuda, dtype)
+    Bm = _t(rng.standard_normal((rows, L, N)), cuda, dtype)
+    Cm = _t(rng.standard_normal((rows, L, N)), cuda, dtype)
+    A = -torch.exp(w["A_log"])
+    rtol, atol = TOL[dtype]
+    for g in (0, 1):
+        args = (x, dt, A[g], Bm, Cm, w["D"][g], w["dt_proj_b"][g], w["dt_proj_w"][g], g == 1)
+        y, hb = cuda_scan.scan_fwd(*args, hb_chunk=HB_CHUNK)
+        y_p, hb_p = cuda_scan.scan_fwd_plain(*args, hb_chunk=HB_CHUNK)
+        torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=atol)
+        _close_to_scale(hb, hb_p, 1e-3, f"hb {g}")
+        got = cuda_scan.scan_bwd(x, gy, *args[1:7], hb, w["dt_proj_w"][g], g == 1)
+        want = cuda_scan.scan_bwd_plain(x, gy, *args[1:7], hb, w["dt_proj_w"][g], g == 1)
+        for n, a, b in zip(("dx", "ddt_lr", "dB", "dC", "dA", "ddt_bias", "dD", "dW"), got, want):
+            _close_to_scale(a, b, 1e-3, f"{n} {g}")
+
+
+def test_merged_infer_runs_k2_and_equals_the_activation_path(cuda):
+    """``infer_fn`` merges the adapters and runs K2 (2 launches a layer);
+    its fp32 logits equal the activation path's at dropout 0 (K1, dt
+    fused) within 1e-4 of max |logit|."""
+    from plantcaduceus_tpu_torch.models import heads
+    from plantcaduceus_tpu_torch.train import lora
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    cfg, model, adapters, head, ids = _lora_case(cuda, "tied_add", seed=7)
+    cfg_l = lora.LoraConfig(r=4, dropout=0.0)
+    _, infer = lora.make_lora_train_step(cfg, cfg_l, make_optimizer(total_steps=1), model,
+                                         dtype=torch.float32, device=cuda)
+    state = lora.LoraTrainState(lora.trainable_copy(adapters, cuda),
+                                lora.trainable_copy(head, cuda), None, 0)
+    k2, k1 = cuda_mixer.mixer_fwd.launches, cuda_scan.scan_fwd.launches
+    merged = infer(state, model, {"input_ids": ids.cpu().numpy()})
+    torch.cuda.synchronize()
+    assert cuda_mixer.mixer_fwd.launches - k2 == 2 * cfg.n_layer
+    with torch.no_grad():
+        act = heads.sequence_logits(model, state.head, ids, cfg, dtype=torch.float32,
+                                    lora=lora.lora_ctx(state.adapters, cfg_l))
+    assert cuda_scan.scan_fwd.launches - k1 == 2 * cfg.n_layer
+    _close_to_scale(merged, act, 1e-4, "logits")

@@ -332,6 +332,9 @@ def test_cuda_absent_raises_in_trainer_and_cli(monkeypatch, tmp_path):
                        "--output-dir", str(tmp_path / "never")])
     assert not (tmp_path / "never").exists()
     for extra in (["--fsdp", "2"], ["--tensor", "2"], ["--seq", "2"], ["--pipe", "2"],
-                  ["--push-to-hub", "me/model"], ["--profile-dir", str(tmp_path)]):
+                  ["--profile-dir", str(tmp_path)]):
         with pytest.raises(SystemExit):
             pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x"] + extra)
+    # --push-to-hub is taken, as in JAX: the export's push_to_hub raises offline
+    assert pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x",
+                                "--push-to-hub", "me/model"]).push_to_hub == "me/model"
