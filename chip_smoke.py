@@ -1320,6 +1320,64 @@ def phase_grads2(dev):
     return c["ssd_fwd_fentry"], c["ssd_bwd"]
 
 
+class StepLog:
+    """Collects ``(step, loss, host time)`` from the training loop's log
+    lines while in a ``with`` block."""
+
+    def __init__(self, logger="plantcaduceus_tpu_torch.train.loop"):
+        import logging
+
+        self.steps = []
+        self.logger = logging.getLogger(logger)
+        steps = self.steps
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if isinstance(record.msg, str) and record.msg.startswith("step "):
+                    steps.append((record.args[0], float(record.args[2]), time.perf_counter()))
+
+        self.handler = Handler()
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.steps
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def steady_ms(steps, first, last, skip=()):
+    """Mean host interval between logged steps ``first``..``last`` without
+    the intervals ending at ``skip`` (checkpoint writes, evaluations)."""
+    t = {s[0]: s[2] for s in steps}
+    d = [t[k] - t[k - 1] for k in range(first + 1, last + 1) if k not in skip]
+    return 1e3 * sum(d) / len(d)
+
+
+def resume_equal(module, args, run_a, run_b, step, what):
+    """Run ``python -m`` ``module`` into ``run_b`` seeded with ``run_a``'s
+    step-``step`` checkpoint; its ``final/`` must equal ``run_a``'s bit for bit."""
+    import torch
+
+    shutil.rmtree(run_b, ignore_errors=True)
+    run_b.mkdir(parents=True)
+    shutil.copytree(run_a / str(step), run_b / str(step))
+    shutil.copy(run_a / "config.json", run_b / "config.json")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-m", f"plantcaduceus_tpu_torch.{module}", *args,
+                          "--output-dir", str(run_b)], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode != 0:
+        fail(f"{what}: resumed run exited {res.returncode}:\n{res.stderr[-4000:]}")
+    if f"Resumed from step {step}" not in res.stderr:
+        fail(f"{what}: the second run did not resume from step {step}:\n{res.stderr[-4000:]}")
+    a = torch.load(run_a / "final" / "pytorch_model.bin", weights_only=True)
+    b = torch.load(run_b / "final" / "pytorch_model.bin", weights_only=True)
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        fail(f"{what}: the run resumed at step {step} reached other final weights")
+    return len(a)
+
+
 TRAIN_ARGS = ["--dataset", "synthetic", "--batch-size", "32", "--window", "512",
               "--dtype", "bfloat16", "--max-steps", "30", "--warmup-steps", "5", "--lr", "1e-3",
               "--save-steps", "15", "--log-steps", "1"]
@@ -1335,8 +1393,6 @@ def phase_pretrain(preset, dev, tsv, n_valid):
     batch 32 x 512 bp, bf16, remat): loss, launches, throughput, memory; an
     exact resume from step 15 through ``python -m``; scoring with the
     export."""
-    import logging
-
     import numpy as np
     import torch
 
@@ -1351,26 +1407,15 @@ def phase_pretrain(preset, dev, tsv, n_valid):
         f"{cfg.d_model}), batch 32 x 512 bp, bf16, remat, 30 steps")
     tmp = REPO / "build" / "chip_smoke"
     run_a, run_b = tmp / f"pretrain_{preset}", tmp / f"pretrain_{preset}_resumed"
-    for d in (run_a, run_b):
-        shutil.rmtree(d, ignore_errors=True)
-    steps = []  # (step, loss, host time once the step's metrics reached the host)
-
-    class StepLog(logging.Handler):
-        def emit(self, record):
-            if isinstance(record.msg, str) and record.msg.startswith("step "):
-                steps.append((record.args[0], float(record.args[2]), time.perf_counter()))
-
-    handler = StepLog()
-    loop_log = logging.getLogger("plantcaduceus_tpu_torch.train.loop")
-    loop_log.addHandler(handler)
+    shutil.rmtree(run_a, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t = time.perf_counter()
-    pretrain.main(args + ["--output-dir", str(run_a)])
+    with StepLog() as steps:
+        pretrain.main(args + ["--output-dir", str(run_a)])
     wall = time.perf_counter() - t
     c = counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    loop_log.removeHandler(handler)
 
     nl, bs, L = cfg.n_layer, 32, 512
     losses = [s[1] for s in steps]
@@ -1402,23 +1447,9 @@ def phase_pretrain(preset, dev, tsv, n_valid):
         f"{with_save * 1e3:.2f} ms per step; peak memory allocated {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
 
-    run_b.mkdir(parents=True)
-    shutil.copytree(run_a / "15", run_b / "15")
-    shutil.copy(run_a / "config.json", run_b / "config.json")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-m", "plantcaduceus_tpu_torch.cli.pretrain",
-                          *args, "--output-dir", str(run_b)], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        fail(f"resumed pre-training exited {res.returncode}:\n{res.stderr[-4000:]}")
-    if "Resumed from step 15" not in res.stderr:
-        fail(f"the second run did not resume from step 15:\n{res.stderr[-4000:]}")
-    a = torch.load(run_a / "final" / "pytorch_model.bin", weights_only=True)
-    b = torch.load(run_b / "final" / "pytorch_model.bin", weights_only=True)
-    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
-        fail("the run resumed at step 15 reached other step-30 weights")
+    n_t = resume_equal("cli.pretrain", args, run_a, run_b, 15, f"phase {phase}")
     log(f"  python -m ... resumed at step 15: step-30 weights equal bit for bit "
-        f"({len(a)} tensors)")
+        f"({n_t} tensors)")
 
     out = tmp / f"scores_trained_{preset}.tsv"
     run_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model", str(run_a / "final"),
@@ -1985,11 +2016,21 @@ def phase_ar_lm(variant, dev):
         tol, note = GRAD_TOL, ""
         if dtype != torch.float32:
             ref = grads[torch.float32, False]
-            gap = max(rel_gap(grads[dtype, False][n], g) for n, g in ref.items())
-            k_gap = max(rel_gap(grads[dtype, True][n], g) for n, g in ref.items())
+            gaps = {n: (rel_gap(grads[dtype, True][n], g), rel_gap(grads[dtype, False][n], g))
+                    for n, g in ref.items()}
+            # every leaf's gap from the fp32 gradient, kernels beside plain,
+            # with its size: where the kernels' excess over plain sits
+            log(f"  {dn} gradient against the fp32 one, every leaf (kernels / plain, of its "
+                "max |grad|; elements): " + ", ".join(
+                    f"{n} {k:.2e} / {p:.2e} ({ref[n].numel()})" for n, (k, p) in gaps.items()))
+            excess = {n: k - p for n, (k, p) in gaps.items()}
+            top = sorted(excess, key=excess.get, reverse=True)[:4]
+            gap = max(p for _, p in gaps.values())
+            k_gap = max(k for k, _ in gaps.values())
             tol = 2 * gap
             note = (f"; against the fp32 gradient: plain path {gap:.3e}, kernels {k_gap:.3e} "
-                    f"(worst leaf)")
+                    f"(worst leaf); largest excess of kernels over plain: " + ", ".join(
+                        f"{n} {excess[n]:+.2e} ({ref[n].numel()} elements)" for n in top))
         worst, worst_name = grads_agree(f"phase {phase} {dn}", grads[dtype, True],
                                         grads[dtype, False], tol)
         log(f"  {dn} nll_loss gradient (2 layers, {AR_BATCH} rows x {AR_L}): "
@@ -2315,7 +2356,8 @@ def phase_eval(dev):
     if not all(math.isfinite(m[k]) for k in ("auroc", "auprc")):
         fail(f"phase 12 pc2-small-ssd metrics {m}")
     log(f"  evo_cons -model pc2-small-ssd: {m}; {wall:.2f} s end to end; mixer2_fwd {k5}")
-    return k2, k5, dict(k2=k2res, wps=wps, walls=walls, peak=peak)
+    return k2, k5, dict(k2=k2res, wps=wps, walls=walls, peak=peak, metrics=metrics,
+                        paths=paths)
 
 
 # ---------------------------------------------------------------------------
@@ -3298,6 +3340,473 @@ def phase_finetune(dev):
         f"{dict((k, v) for k, v in c.items() if v)}")
     return c, k600, figs
 
+# ---------------------------------------------------------------------------
+# Phase 15: the rest of training. Sharded streaming pre-training with a
+# profile window (train/streaming.py, io/parquet.py, utils/profiling.py),
+# teacher -> student distillation l20 -> l20-ssd (train/distill.py,
+# cli/distill.py), the planted-structure convergence harness
+# (train/convergence.py) at the JAX package's configuration, a parquet table
+# through zero_shot_eval, and the GPN baseline (models/gpn.py).
+# 40 shards of 256 windows: the 39 training shards hold 9,984 windows, more
+# than StreamingPretrainDataset's shuffle buffer of 8,192, so the run swaps
+# out of a bounded buffer and opens shards while it trains.
+STREAM_SHARDS, STREAM_SHARD_WINDOWS, STREAM_STEPS, STREAM_SAVE = 40, 256, 14, 7
+STREAM_BATCHES = 24  # batches drawn from the stream alone, to time its host cost
+DISTILL_STEPS, DISTILL_SAVE = 10, 5
+CONVERGENCE_CFG = dict(d_model=64, n_layer=2, vocab_size=16, d_state=8)  # d_inner 128, R 4
+CONVERGENCE_RUNS = (("float32", 150, 1.0), ("float32", 150, 0.1), ("bfloat16", 200, 0.1))
+GPN_ROWS, GPN_L = 128, 512
+
+
+def trace_kernels(prof_dir):
+    """The device kernels named in the one Chrome trace under ``prof_dir``."""
+    traces = list(Path(prof_dir).glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"expected one trace under {prof_dir}, found {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    return traces[0], [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def phase_streaming(dev, tsv, n_valid):
+    """15a: the port's convert_to_shards writes a seeded 512-bp corpus as
+    gzip parquet shards; ``cli.pretrain --dataset shards:`` with l20 at full
+    width and depth (bf16, remat, one eval shard, a profile window) runs
+    in-process, counted and timed; ``python -m`` resumed at step 7 must end
+    equal bit for bit; the trace must name K2-res's and K3's kernels. The
+    stream alone is timed first: the buffer's fill, a batch, a shard open."""
+    import re
+
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import pretrain
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import data as data_lib
+    from plantcaduceus_tpu_torch.train import streaming
+
+    cfg = CaduceusConfig.preset("l20")
+    tmp = REPO / "build" / "chip_smoke" / "streaming"
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 15a: streaming pre-training, l20 over {STREAM_SHARDS} gzip parquet shards of "
+        f"{STREAM_SHARD_WINDOWS} windows (one held out), batch 32 x 512 bp, bf16, remat, "
+        f"{STREAM_STEPS} steps, profile window")
+    t = time.perf_counter()
+    corpus = data_lib.sequence_source("synthetic", window=512, synthetic_n=STREAM_SHARDS
+                                      * STREAM_SHARD_WINDOWS, seed=15)
+    n = streaming.convert_to_shards(corpus, tmp / "shards", shard_size=STREAM_SHARD_WINDOWS)
+    size = sum(p.stat().st_size for p in (tmp / "shards").iterdir())
+    log(f"  convert_to_shards: {n} shards, {size} bytes, {time.perf_counter() - t:.2f} s")
+    if n != STREAM_SHARDS:
+        fail(f"phase 15a: {n} shards")
+    # The stream's own host cost, as the trainer draws it (the loop reads a
+    # batch before each step, with no prefetch): the first batch fills the
+    # shuffle buffer; a batch that crosses into a new shard opens it.
+    ds = streaming.StreamingPretrainDataset(tmp / "shards", DnaTokenizer(), 32, window=512,
+                                            eval_shards=1)
+    if (STREAM_SHARDS - 1) * STREAM_SHARD_WINDOWS <= ds.shuffle_buffer:
+        fail("phase 15a: the training shards fit in the shuffle buffer")
+    it, draw_ms = ds.iter_from(0), []
+    for _ in range(STREAM_BATCHES):
+        t = time.perf_counter()
+        next(it)
+        draw_ms.append((time.perf_counter() - t) * 1e3)
+    per_shard = STREAM_SHARD_WINDOWS // 32
+    opens = [i for i in range(1, STREAM_BATCHES) if i % per_shard == 0]
+    rest = [v for i, v in enumerate(draw_ms[1:], 1) if i not in opens]
+    stream = dict(fill_ms=draw_ms[0], batch_ms=sum(rest) / len(rest),
+                  open_ms=sum(draw_ms[i] for i in opens) / len(opens))
+    log(f"  the stream alone, batch 32 x 512: first batch (fills the {ds.shuffle_buffer}-window "
+        f"buffer from {ds.shuffle_buffer // STREAM_SHARD_WINDOWS} shards) {stream['fill_ms']:.2f} "
+        f"ms; then {stream['batch_ms']:.3f} ms a batch, {stream['open_ms']:.3f} ms for a batch "
+        f"that opens a shard (batches {opens}); all {[round(v, 3) for v in draw_ms]}")
+    del ds, it
+    args = ["--preset", "l20", "--dataset", f"shards:{tmp / 'shards'}", "--eval-shards", "1",
+            "--batch-size", "32", "--window", "512", "--dtype", "bfloat16", "--max-steps",
+            str(STREAM_STEPS), "--eval-steps", str(STREAM_SAVE), "--save-steps",
+            str(STREAM_SAVE), "--log-steps", "1", "--warmup-steps", "5", "--lr", "1e-3"]
+    run_a, prof = tmp / "run", tmp / "profile"
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t = time.perf_counter()
+    with StepLog() as steps:
+        pretrain.main(args + ["--output-dir", str(run_a), "--profile-dir", str(prof)])
+    wall = time.perf_counter() - t
+    c = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    nl = cfg.n_layer
+    losses = [s[1] for s in steps]
+    if [s[0] for s in steps] != list(range(1, STREAM_STEPS + 1)) or \
+            not all(map(math.isfinite, losses)):
+        fail(f"phase 15a: bad step log {steps}")
+    # training: K2-res twice per direction and layer (forward, remat), K3
+    # once; the evaluations (every --eval-steps and the final one) run K2
+    # once per direction and layer on each full batch of the eval shard (at
+    # most 20 batches an evaluation).
+    n_eval = (STREAM_STEPS // STREAM_SAVE + 1) * min(STREAM_SHARD_WINDOWS // 32, 20)
+    want = only(mixer_fwd=n_eval * 2 * nl, mixer_fwd_res=STREAM_STEPS * 4 * nl,
+                scan_bwd=STREAM_STEPS * 2 * nl)
+    if c != want:
+        fail(f"phase 15a launched {c}; expected exactly {want} ({n_eval} eval batches)")
+    # steps 3-7: after the buffer's fill, before the first checkpoint,
+    # evaluation and profile window
+    step_ms = steady_ms(steps, 2, STREAM_SAVE)
+    prof_ms = steady_ms(steps, 10, 12)  # traced steps 11-12 (step 13's interval writes the trace)
+    tps = 32 * 512 / step_ms * 1e3
+    log(f"  {STREAM_STEPS} steps in {wall:.1f} s (model init, evaluations, checkpoints, "
+        f"export included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; steps 3-7: "
+        f"{step_ms:.2f} ms per step, {tps:.1f} tokens/s; traced steps 11-12: "
+        f"{prof_ms:.2f} ms per step; peak memory allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); launches {dict((k, v) for k, v in c.items() if v)}")
+    path, names = trace_kernels(prof)
+    k2res = [k for k in names if re.search(r"scan_fwd_kernel<[^,]+, \d+, true, pc::MixConvSrc",
+                                           k)]
+    xproj = [k for k in names if re.search(r"conv_xproj_kernel<[^,]+, true,", k)]
+    k3 = [k for k in names if "scan_bwd_kernel<" in k]
+    if not (k2res and xproj and k3):
+        fail(f"phase 15a: the trace {path.name} lacks K2-res or K3 ({len(names)} kernels)")
+    log(f"  trace {path.name} ({path.stat().st_size} bytes): {len(names)} kernel events; "
+        f"K2-res scan {len(k2res)}, K2-res conv + x_proj {len(xproj)}, K3 {len(k3)} (3 traced "
+        f"steps launch {3 * 4 * nl} K2-res and {3 * 2 * nl} K3)")
+    n_t = resume_equal("cli.pretrain", args, run_a, tmp / "resumed", STREAM_SAVE, "phase 15a")
+    log(f"  python -m ... resumed at step {STREAM_SAVE}: step-{STREAM_STEPS} weights equal "
+        f"bit for bit ({n_t} tensors)")
+    return c, dict(step_ms=step_ms, tps=tps, peak=peak, prof_ms=prof_ms, **stream)
+
+
+def phase_distill(dev, tsv, n_valid):
+    """15b: the fp32 distillation gradient (l20 teacher, l20-ssd student, 2
+    layers, 4 rows x 512) with the kernels against the plain path, every
+    leaf logged; then ``cli.distill`` l20 -> l20-ssd (exported random
+    teacher, batch 32 x 512, bf16, remat, 10 steps; in-process, counted and
+    timed), resumed at step 5 through ``python -m``, a profiled step, and
+    the student's final/ scored."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plantcaduceus_tpu_torch.cli import distill as distill_cli
+    from plantcaduceus_tpu_torch.cli.zero_shot_score import main as score_main
+    from plantcaduceus_tpu_torch.engine import zero_shot
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
+    from plantcaduceus_tpu_torch.train import data as data_lib
+    from plantcaduceus_tpu_torch.train import distill
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+    from plantcaduceus_tpu_torch.train.step import to_device
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    tmp = REPO / "build" / "chip_smoke" / "distill"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    log("phase 15b: distillation l20 -> l20-ssd; the fp32 gradient (2 layers, 4 x 512 bp), "
+        "kernels vs plain path")
+    tcfg = CaduceusConfig.preset("l20", n_layer=2)
+    scfg = CaduceusConfig.preset("l20-ssd", n_layer=2)
+    teacher = Caduceus(tcfg, init_params(tcfg, seed=151)).to(dev)
+    seqs = data_lib.sequence_source("synthetic", window=512, synthetic_n=16, seed=152)
+    batch = to_device(data_lib.PretrainDataset(seqs, DnaTokenizer(), 4, seed=152).batch_at(0),
+                      dev)
+    sp = init_params(scfg, seed=153)
+    grads = {}
+    for use_kernels in (True, False):
+        student = Caduceus(scfg, sp).requires_grad_().to(dev)
+        reset_counts()
+        obj, aux = distill.distill_objective(teacher, student, batch, torch.float32,
+                                             remat=True, use_kernels=use_kernels)
+        if aux[1].requires_grad:
+            fail("phase 15b: the teacher's logits carry a graph")
+        obj.backward()
+        torch.cuda.synchronize()
+        c = counts()
+        nl2 = 2 * scfg.n_layer
+        want = only(mixer_fwd=2 * tcfg.n_layer, mixer2_fwd_res=2 * nl2,
+                    ssd_bwd_pre_silu=nl2) if use_kernels else only()
+        if c != want:
+            fail(f"phase 15b gradient (kernels={use_kernels}) launched {c}; expected {want}")
+        grads[use_kernels] = {n: p.grad for n, p in student.named_parameters()}
+        del student
+    gaps = {n: rel_gap(grads[True][n], g) for n, g in grads[False].items()}
+    log("  every leaf's gap (kernels vs plain, of its max |grad|): " + ", ".join(
+        f"{n} {v:.2e}" for n, v in gaps.items()))
+    worst, worst_name = grads_agree("phase 15b", grads[True], grads[False])
+    log(f"  {len(gaps)} student gradients, worst {worst_name} at {worst:.3e} (tol "
+        f"{GRAD_TOL:.0e}); teacher K2 {2 * tcfg.n_layer}, student K5-res {4 * scfg.n_layer}, "
+        f"K6 pre_silu {2 * scfg.n_layer}; the teacher recorded no graph")
+    del teacher, grads
+
+    tcfg = CaduceusConfig.preset("l20")
+    scfg = CaduceusConfig.preset("l20-ssd")
+    teacher_dir = tmp / "teacher_l20"
+    ckpt_lib.export_params(teacher_dir, Caduceus(tcfg, init_params(tcfg, seed=154)), tcfg)
+    args = ["--teacher", str(teacher_dir), "--student-preset", "l20-ssd", "--dataset",
+            "synthetic", "--batch-size", "32", "--window", "512", "--dtype", "bfloat16",
+            "--max-steps", str(DISTILL_STEPS), "--save-steps", str(DISTILL_SAVE),
+            "--log-steps", "1", "--warmup-steps", "2", "--lr", "1e-3"]
+    log(f"  cli.distill: l20 teacher (exported, random) -> l20-ssd student, batch 32 x 512 bp, "
+        f"bf16, remat, {DISTILL_STEPS} steps")
+    run_a = tmp / "run"
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t = time.perf_counter()
+    with StepLog() as steps:
+        distill_cli.main(args + ["--output-dir", str(run_a)])
+    wall = time.perf_counter() - t
+    c = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    nt, ns = tcfg.n_layer, scfg.n_layer
+    want = only(mixer_fwd=DISTILL_STEPS * 2 * nt, mixer2_fwd_res=DISTILL_STEPS * 4 * ns,
+                ssd_bwd_pre_silu=DISTILL_STEPS * 2 * ns)
+    if c != want:
+        fail(f"phase 15b cli.distill launched {c}; expected exactly {want}")
+    losses = [s[1] for s in steps]
+    if [s[0] for s in steps] != list(range(1, DISTILL_STEPS + 1)) or \
+            not all(map(math.isfinite, losses)):
+        fail(f"phase 15b: bad step log {steps}")
+    step_ms = steady_ms(steps, 2, DISTILL_STEPS, skip=(DISTILL_SAVE + 1,))
+    log(f"  {DISTILL_STEPS} steps in {wall:.1f} s (teacher load, student init, checkpoints, "
+        f"export included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; steps 3-10 without the "
+        f"checkpoint step: {step_ms:.2f} ms per step, {32e3 / step_ms:.2f} windows/s; peak "
+        f"memory allocated {peak} bytes ({peak / 2**30:.2f} GiB); launches per step: K2 "
+        f"{2 * nt} (teacher), K5-res {4 * ns}, K6 pre_silu {2 * ns} (student)")
+    n_t = resume_equal("cli.distill", args, run_a, tmp / "resumed", DISTILL_SAVE, "phase 15b")
+    log(f"  python -m ... resumed at step {DISTILL_SAVE}: the student's step-{DISTILL_STEPS} "
+        f"weights equal bit for bit ({n_t} tensors)")
+
+    teacher_m, _, tok = load_model_and_tokenizer(str(teacher_dir))
+    teacher_m.to(dev)
+    student = Caduceus(scfg, init_params(scfg, seed=155))
+    opt = make_optimizer(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                         params=dict(student.named_parameters()))
+    init, dstep = distill.make_distill_step(tcfg, scfg, opt, student, dtype=torch.bfloat16,
+                                            remat=True, device=dev)
+    ds = data_lib.PretrainDataset(data_lib.sequence_source("synthetic", window=512,
+                                                           synthetic_n=64, seed=156), tok, 32,
+                                  seed=156)
+    state = init()
+    state, m = dstep(state, teacher_m, ds.batch_at(0))
+    float(m["loss"])
+    b1 = to_device(ds.batch_at(1), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_:
+        t = time.perf_counter()
+        state, m = dstep(state, teacher_m, b1)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t) * 1e3
+    log("  profile of one distillation step (bf16, batch 32 x 512 bp):")
+    report_profile(prof_, pwall, 10)
+    del teacher_m, student, state
+
+    out = tmp / "scores_student.tsv"
+    score_main(["-input-table", str(tsv), "-model", str(run_a / "final"), "-output", str(out),
+                "-no-progress"])
+    scores = np.array([float(r["zeroShotScore"]) for r in zero_shot.read_table(out).rows])
+    if len(scores) != n_valid or not np.isfinite(scores).all():
+        fail("phase 15b: scoring with the student's export: row count or non-finite scores")
+    log(f"  zero_shot_score -model {run_a.name}/final: {len(scores)} rows scored")
+    return c, dict(step_ms=step_ms, wps=32e3 / step_ms, peak=peak, worst=worst)
+
+
+def phase_convergence(dev):
+    """15c: ``train_planted`` at the JAX package's configuration (d_model
+    64, 2 layers, d_state 8, 128 bp, batch 16) on the card, held to JAX's
+    bars: fp32 150 steps at soft-mask weights 1.0 and 0.1
+    (tests/test_pretrain_learns.py), bf16 200 steps at 0.1 (bench.py's
+    convergence lane). Before the runs, at this shape: one training step's
+    loss and gradients through K2-res and K3 against the plain path, in fp32
+    and bf16, and the probe forward through K2."""
+    import torch
+
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models.caduceus import (Caduceus, forward, init_params,
+                                                         mlm_loss)
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import convergence as conv
+    from plantcaduceus_tpu_torch.train.data import PretrainDataset
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    cfg = CaduceusConfig(**CONVERGENCE_CFG)
+    log(f"phase 15c: planted-structure convergence (d_model 64, 2 layers, d_inner "
+        f"{cfg.d_inner}, N {cfg.d_state}, R {cfg.dt_rank}, 128 bp, batch 16)")
+    # The kernels against the plain path at this shape: fp32 within GRAD_TOL;
+    # bf16 within 2 x the plain path's own worst gap from its fp32 gradient
+    # (the bound phase 11b measures; every leaf's gaps are logged).
+    batch = to_device(PretrainDataset(conv.planted_corpus(64, 128, seed=3), DnaTokenizer(), 16,
+                                      seed=3).batch_at(0), dev)
+    params = init_params(cfg, seed=4)
+    grads, loss = {}, {}
+    nl2 = 2 * cfg.n_layer
+    for dtype in (torch.float32, torch.bfloat16):
+        for use_kernels in (True, False):
+            model = Caduceus(cfg, params).requires_grad_().to(dev)
+            reset_counts()
+            logits = forward(model, batch["input_ids"], dtype=dtype,
+                             use_kernels=use_kernels)["logits"]
+            obj = mlm_loss(logits, batch["labels"], batch["loss_weights"])
+            obj.backward()
+            torch.cuda.synchronize()
+            c = counts()
+            want = only(mixer_fwd_res=nl2, scan_bwd=nl2) if use_kernels else only()
+            if c != want:
+                fail(f"phase 15c {dtype} gradient (kernels={use_kernels}) launched {c}; "
+                     f"expected {want}")
+            loss[dtype, use_kernels] = obj.item()
+            grads[dtype, use_kernels] = {n: p.grad for n, p in model.named_parameters()}
+        dn = str(dtype).split(".")[-1]
+        tol, note = GRAD_TOL, ""
+        if dtype != torch.float32:
+            ref = grads[torch.float32, False]
+            gaps = {n: (rel_gap(grads[dtype, True][n], g), rel_gap(grads[dtype, False][n], g))
+                    for n, g in ref.items()}
+            log(f"  {dn} gradient against the fp32 one, every leaf (kernels / plain, of its "
+                "max |grad|): " + ", ".join(f"{n} {k:.2e} / {p:.2e}"
+                                            for n, (k, p) in gaps.items()))
+            tol = 2 * max(p for _, p in gaps.values())
+            note = " (2 x the plain path's worst gap from fp32)"
+        dl = abs(loss[dtype, True] - loss[dtype, False])
+        if not (math.isfinite(dl) and dl <= tol * abs(loss[dtype, False])):
+            fail(f"phase 15c {dn}: loss {loss[dtype, True]} with kernels, "
+                 f"{loss[dtype, False]} plain (tol {tol:.1e} rel)")
+        worst, worst_name = grads_agree(f"phase 15c {dn}", grads[dtype, True],
+                                        grads[dtype, False], tol)
+        log(f"  {dn} one step, kernels vs plain: loss {loss[dtype, True]:.6f} / "
+            f"{loss[dtype, False]:.6f}; {len(grads[dtype, False])} gradients, worst "
+            f"{worst_name} at {worst:.3e} of its max |grad| (tol {tol:.3e}{note}); launches "
+            f"K2-res {nl2}, K3 {nl2}")
+    with torch.inference_mode():
+        reset_counts()
+        got = forward(model, batch["input_ids"], dtype=torch.float32)["logits"]
+        c = counts()
+        want = forward(model, batch["input_ids"], dtype=torch.float32,
+                       use_kernels=False)["logits"]
+    d, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if c != only(mixer_fwd=nl2) or not (torch.isfinite(got).all()
+                                        and d <= FORWARD_TOL * scale):
+        fail(f"phase 15c probe forward: launched {c}; max_abs_err {d:.3e} of max |logit| "
+             f"{scale:.3e} (tol {FORWARD_TOL:.0e} rel)")
+    log(f"  fp32 probe forward, kernels vs plain: max_abs_err={d:.3e} (max |logit| "
+        f"{scale:.3e}, tol {FORWARD_TOL:.0e} rel); launches K2 {nl2}")
+    del model, grads, got, want
+    res = {}
+    reset_counts()
+    for dn, steps, w in CONVERGENCE_RUNS:
+        t = time.perf_counter()
+        run = conv.train_planted(cfg, steps=steps, batch=16, n_corpus=512,
+                                 soft_masked_weight=w, dtype=getattr(torch, dn), device=dev)
+        m = conv.evaluate_structure(run)
+        wall = time.perf_counter() - t
+        res[dn, w] = (run, m)
+        log(f"  {dn} weight {w}, {steps} steps in {wall:.2f} s: losses "
+            f"{[(s, round(v, 4)) for s, v in run['losses']]}; held-out motif "
+            f"{m['motif_accuracy']:.4f}, background {m['background_accuracy']:.4f}, repeat "
+            f"loss {m['repeat_loss']:.4f}")
+    c = counts()
+    total = sum(s for _, s, _ in CONVERGENCE_RUNS)
+    want = only(mixer_fwd=len(CONVERGENCE_RUNS) * nl2, mixer_fwd_res=total * nl2,
+                scan_bwd=total * nl2)
+    if c != want:
+        fail(f"phase 15c launched {c}; expected {want}")
+    for w in (1.0, 0.1):
+        run, m = res["float32", w]
+        if not (m["motif_accuracy"] > 0.8 and m["background_accuracy"] < 0.45
+                and run["final_loss"] < 1.3):
+            fail(f"phase 15c fp32 weight {w}: {m}, final loss {run['final_loss']}")
+    full, soft = res["float32", 1.0][1], res["float32", 0.1][1]
+    if not soft["repeat_loss"] > 2.0 * full["repeat_loss"]:
+        fail(f"phase 15c: repeat loss at 0.1 {soft['repeat_loss']} not > 2 x at 1.0 "
+             f"{full['repeat_loss']}")
+    m = res["bfloat16", 0.1][1]
+    if not (m["motif_accuracy"] >= 0.8 and m["background_accuracy"] <= 0.45):
+        fail(f"phase 15c bf16: {m}")
+    log(f"  JAX's bars hold: fp32 motif > 0.8, background < 0.45, final loss < 1.3 at both "
+        f"weights, repeat loss {soft['repeat_loss']:.4f} > 2 x {full['repeat_loss']:.4f}; "
+        f"bf16 motif {m['motif_accuracy']:.4f} >= 0.8, background "
+        f"{m['background_accuracy']:.4f} <= 0.45; launches "
+        f"{dict((k, v) for k, v in c.items() if v)}")
+    return c, {f"{dn}_{w}": dict(final_loss=run["final_loss"], **m)
+               for (dn, w), (run, m) in res.items()}
+
+
+def phase_parquet_gpn(dev, ev):
+    """15d: evo_cons with pc2-small over phase 12's table written as parquet
+    by the port (metrics equal to phase 12's TSV run); the GPN forward at
+    its defaults on the card against the CPU forward in fp32."""
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import zero_shot_eval as zse
+    from plantcaduceus_tpu_torch.io.parquet import write_parquet
+    from plantcaduceus_tpu_torch.models import gpn
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    log("phase 15d: zero_shot_eval evo_cons over a parquet table (pc2-small, "
+        f"{EVAL_ROWS} x {EVAL_L} bp, batch {EVAL_BATCH}); the GPN forward")
+    tmp = REPO / "build" / "chip_smoke"
+    frame = zse.read_tsv(ev["paths"]["evo"])
+    table = tmp / "eval_evo.parquet"
+    write_parquet(table, {"sequence": frame.col("sequence"),
+                          "label": [int(v) for v in frame.col("label")]})
+    mj = tmp / "eval_evo_cons_parquet.json"
+    reset_counts()
+    t = time.perf_counter()
+    zse.main(["evo_cons", "--repo-id", str(table), "--model", "pc2-small", "--batch-size",
+              str(EVAL_BATCH), "--metrics-json", str(mj), "--no-progress", "--token-idx",
+              str(EVAL_CENTER)])
+    wall = time.perf_counter() - t
+    c = counts()
+    cfg = CaduceusConfig.preset("pc2-small")
+    k2 = 2 * cfg.n_layer * math.ceil(EVAL_ROWS / EVAL_BATCH)
+    if c != only(mixer_fwd=k2):
+        fail(f"phase 15d evo_cons launched {c}; expected mixer_fwd={k2}")
+    got = json.loads(mj.read_text())
+    if got != ev["metrics"]["evo_cons"]:
+        fail(f"phase 15d: parquet metrics {got} != the TSV's {ev['metrics']['evo_cons']}")
+    log(f"  parquet ({table.stat().st_size} bytes, gzip): {got}, equal to phase 12's TSV run; "
+        f"{wall:.2f} s end to end; mixer_fwd {k2}")
+
+    gcfg = gpn.GpnConfig()
+    params = gpn.init_params(gcfg, seed=16)
+    ids = torch.randint(7, 11, (GPN_ROWS, GPN_L), generator=torch.Generator().manual_seed(16))
+    with torch.inference_mode():
+        want = gpn.forward(gpn.Gpn(gcfg, params), ids, dtype=torch.float32)["logits"]
+        model, ids_d = gpn.build(gcfg, params, device=dev), ids.to(dev)
+        got = gpn.forward(model, ids_d, dtype=torch.float32)["logits"]
+        ms = time_ms(lambda: gpn.forward(model, ids_d, dtype=torch.bfloat16), 5)
+    d, scale = (got.cpu() - want).abs().max().item(), want.abs().max().item()
+    log(f"  GPN (d_model {gcfg.d_model}, {gcfg.n_layer} layers, dilations "
+        f"{gcfg.dilation_schedule()}), {GPN_ROWS} x {GPN_L}: fp32 logits on the card vs the "
+        f"CPU max_abs_err={d:.3e} (max |logit| {scale:.3e}, tol {FORWARD_TOL:.0e} rel); bf16 "
+        f"forward {ms:.3f} ms ({GPN_ROWS / ms * 1e3:.1f} windows/s)")
+    if not (torch.isfinite(got).all() and d <= FORWARD_TOL * scale):
+        fail("phase 15d: the GPN forward on the card disagrees with the CPU forward")
+    return c, dict(gpn_ms=ms, gpn_err=d / scale)
+
+
+def phase_rest_of_training(dev, tsv, n_valid, ev):
+    """Phase 15. The kernel checks (15b's and 15c's gradients, 15c's probe
+    forward) run before the launch counts are zeroed; each main path's counts
+    are read just after it."""
+    t = time.perf_counter()
+    marks = [t]
+    ca, fa = phase_streaming(dev, tsv, n_valid)
+    marks.append(time.perf_counter())
+    cb, fb = phase_distill(dev, tsv, n_valid)
+    marks.append(time.perf_counter())
+    cc, fc = phase_convergence(dev)
+    marks.append(time.perf_counter())
+    cd, fd = phase_parquet_gpn(dev, ev)
+    marks.append(time.perf_counter())
+    c = {k: ca[k] + cb[k] + cc[k] + cd[k] for k in ca}
+    log("phase 15 seconds: " + ", ".join(f"{n} {b - a:.1f}" for n, a, b in zip(
+        ("15a streaming", "15b distillation", "15c convergence", "15d parquet+GPN"), marks,
+        marks[1:])))
+    log(f"phase 15 ok in {time.perf_counter() - t:.1f} s: streaming l20 {fa['step_ms']:.2f} "
+        f"ms per step ({fa['tps']:.1f} tokens/s, peak {fa['peak']} bytes); distillation "
+        f"l20 -> l20-ssd {fb['step_ms']:.2f} ms per step ({fb['wps']:.2f} windows/s, peak "
+        f"{fb['peak']} bytes); launches {dict((k, v) for k, v in c.items() if v)}")
+    return c, dict(streaming=fa, distill=fb, convergence=fc, gpn=fd)
+
 
 def main():
     import torch
@@ -3360,6 +3869,9 @@ def main():
     # phase 14: LoRA and full fine-tuning, after every earlier phase
     torch.cuda.empty_cache()
     fc, k600, ff = phase_finetune(dev)
+    # phase 15: the rest of training, after every earlier phase
+    torch.cuda.empty_cache()
+    rc, rf = phase_rest_of_training(dev, tsv, n_valid, ev)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
@@ -3371,16 +3883,19 @@ def main():
         f"tokens/s at batch 1; zero_shot_eval pc2-small {ev['wps']:.2f} windows/s at "
         f"{EVAL_L} bp; LoRA l20 {ff['step_ms']:.2f} ms per step ({ff['wps']:.2f} windows/s), "
         f"pc2-small x {PC2_L} bp {ff['pc2']['step_ms']:.2f} ms per step "
-        f"({ff['pc2']['wps']:.2f} windows/s)")
+        f"({ff['pc2']['wps']:.2f} windows/s); streaming l20 {rf['streaming']['step_ms']:.2f} "
+        f"ms per step; distillation l20 -> l20-ssd {rf['distill']['step_ms']:.2f} ms per step")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
-                          launches=k2_launches + ek2 + xk2 + sk2 + tk2 + fc["mixer_fwd"]),
+                          launches=k2_launches + ek2 + xk2 + sk2 + tk2 + fc["mixer_fwd"]
+                          + rc["mixer_fwd"]),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
-                              launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]),
+                              launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]
+                              + rc["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                          launches=k1_launches + ar1["scan_fwd"]),
@@ -3389,7 +3904,8 @@ def main():
                             launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
-                         launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]),
+                         launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]
+                         + rc["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
                         launches=k4_launches + ar2["ssd_fwd"]),
@@ -3401,13 +3917,15 @@ def main():
                                launches=fentry_launches + ar2["ssd_fwd_fentry"]),
         "mixer2_fwd_res": dict(source=src + "mixer2_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
-                               launches=tc2["mixer2_fwd_res"] + fc["mixer2_fwd_res"]),
+                               launches=tc2["mixer2_fwd_res"] + fc["mixer2_fwd_res"]
+                               + rc["mixer2_fwd_res"]),
         "ssd_bwd": dict(source=src + "ssd_bwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
                         launches=k6_launches + ar2["ssd_bwd"]),
         "ssd_bwd_pre_silu": dict(source=src + "ssd_bwd.cu",
                                  replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
-                                 launches=tc2["ssd_bwd_pre_silu"] + fc["ssd_bwd_pre_silu"]),
+                                 launches=tc2["ssd_bwd_pre_silu"] + fc["ssd_bwd_pre_silu"]
+                                 + rc["ssd_bwd_pre_silu"]),
     }
     kernels = []
     for name in ("mixer_fwd", "scan_fwd"):
@@ -3467,10 +3985,13 @@ def main():
             **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
             **{k: "plantcaduceus_tpu/ops/pallas_attention.py" + v for k, v in also.items()},
             **extra))
-    # Phase 14: its launches beside each total; K1-hb and K3 at pc2-small x 600 bp.
+    # Phases 14 and 15: their launches beside each total; K1-hb and K3 at
+    # pc2-small x 600 bp.
     for k in kernels:
         if fc.get(k["name"]):
             k["phase14_launches"] = fc[k["name"]]
+        if rc.get(k["name"]):
+            k["phase15_launches"] = rc[k["name"]]
         if k["name"] in k600:
             r = k600[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], r["err"])

@@ -14,7 +14,13 @@ dataset, final eval metrics); ``--push-to-hub`` then uploads it, and raises
 one clear error where ``huggingface_hub`` or the network is missing. Runs
 on CUDA unless ``--device cpu`` is given, and fails when CUDA is asked for
 and absent. One device: the multi-GPU axes (``--fsdp/--seq/--tensor/--pipe``
-> 1) and ``--profile-dir`` are refused.
+> 1) are refused.
+
+``--dataset shards:<dir-or-file>`` streams a shard directory (or one large
+file) at O(buffer) memory (``train/streaming``); ``--eval-shards N`` holds
+out its last N shards for evaluation. A FASTA over 256 MiB takes that path
+by itself. ``--profile-dir`` writes a trace of steps 10-12 (counted from
+the run's first step) there (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -34,18 +40,22 @@ from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
 from plantcaduceus_tpu_torch.train import data as data_lib
 from plantcaduceus_tpu_torch.train import loop as loop_lib
 from plantcaduceus_tpu_torch.train import step as step_lib
+from plantcaduceus_tpu_torch.train import streaming
 from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
 from plantcaduceus_tpu_torch.utils.device import resolve_device
+
+STREAM_FASTA_BYTES = 256 * 2**20  # a larger FASTA streams (the JAX CLI's threshold)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dataset", required=True,
-                   help="synthetic | file.tsv/.csv | genome.fa "
-                        "(parquet, hf: and shards: are not supported yet)")
+                   help="synthetic | file.tsv/.csv/.parquet | genome.fa | "
+                        "shards:<dir-or-file> (streaming; hf: is refused)")
     p.add_argument("--eval-dataset", default=None)
     p.add_argument("--eval-shards", type=int, default=0,
-                   help="with a shards: dataset (not supported yet)")
+                   help="with a shards: dataset, hold out the last N shards as the "
+                        "eval split (evaluated every --eval-steps)")
     p.add_argument("--seq-column", default="seq")
     p.add_argument("--preset", default=None, choices=sorted(PRESETS))
     p.add_argument("--config", default=None, help="CaduceusConfig json path")
@@ -81,7 +91,8 @@ def parse_args(argv=None):
     p.add_argument("--pipe", type=int, default=1, help="pipeline axis size (not supported yet)")
     p.add_argument("--pipe-microbatches", type=int, default=None,
                    help="GPipe microbatch count (not supported yet)")
-    p.add_argument("--profile-dir", default=None, help="not supported by the port yet")
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler trace dir (traces steps 10-12 of the run)")
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--wandb-run-name", default=None)
     p.add_argument("--push-to-hub", default=None, metavar="REPO_ID")
@@ -92,10 +103,6 @@ def parse_args(argv=None):
     if multi or args.pipe_microbatches:
         p.error(f"multi-GPU layouts {multi or '--pipe-microbatches'} are not supported "
                 "by the PyTorch port yet; it trains on one device")
-    if args.profile_dir:
-        p.error("--profile-dir is not supported by the PyTorch port yet")
-    if args.eval_shards:
-        p.error("--eval-shards needs a shards: dataset, which the port does not read yet")
     return args
 
 
@@ -138,22 +145,44 @@ def main(argv=None):
         state = resume.restore(state)
         logging.info("Resumed from step %d", state.step)
 
-    seqs = data_lib.sequence_source(args.dataset, seq_column=args.seq_column,
-                                    window=args.window, seed=args.seed)
-    train_data = data_lib.PretrainDataset(
-        seqs, tokenizer, step_rows,
-        soft_masked_weight=args.soft_masked_weight_train,
-        mlm_probability=args.mlm_probability, seed=args.seed)
+    dataset = args.dataset
+    # A corpus-scale FASTA streams at O(chromosome) memory: the in-memory
+    # source would hit its cap.
+    if dataset.endswith(streaming.FASTA_SUFFIXES) and Path(dataset).is_file() \
+            and Path(dataset).stat().st_size > STREAM_FASTA_BYTES:
+        logging.info("large FASTA (>256MB): streaming at O(chromosome) memory (shards: path)")
+        dataset = "shards:" + dataset
+    eval_data = seqs = None
+    if dataset.startswith("shards:"):
+        shards = dataset[len("shards:"):]
+        common = dict(seq_column=args.seq_column, window=args.window,
+                      mlm_probability=args.mlm_probability, seed=args.seed,
+                      eval_shards=args.eval_shards)
+        train_data = streaming.StreamingPretrainDataset(
+            shards, tokenizer, step_rows,
+            soft_masked_weight=args.soft_masked_weight_train, split="train", **common)
+        if args.eval_shards:
+            eval_data = streaming.StreamingPretrainDataset(
+                shards, tokenizer, args.batch_size,
+                soft_masked_weight=args.soft_masked_weight_eval, split="eval", **common)
+    else:
+        seqs = data_lib.sequence_source(dataset, seq_column=args.seq_column,
+                                        window=args.window, seed=args.seed)
+        train_data = data_lib.PretrainDataset(
+            seqs, tokenizer, step_rows,
+            soft_masked_weight=args.soft_masked_weight_train,
+            mlm_probability=args.mlm_probability, seed=args.seed)
+    # streaming evaluates on the --eval-shards holdout, unless --eval-dataset
+    eval_seqs = seqs[: max(args.batch_size, len(seqs) // 20)] if seqs is not None else None
     if args.eval_dataset:
         eval_seqs = data_lib.sequence_source(
             args.eval_dataset, split="validation", seq_column=args.seq_column,
             window=args.window, seed=args.seed + 1)
-    else:
-        eval_seqs = seqs[: max(args.batch_size, len(seqs) // 20)]
-    eval_data = data_lib.PretrainDataset(
-        eval_seqs, tokenizer, args.batch_size,
-        soft_masked_weight=args.soft_masked_weight_eval,
-        mlm_probability=args.mlm_probability, seed=args.seed + 2)
+    if eval_seqs is not None:
+        eval_data = data_lib.PretrainDataset(
+            eval_seqs, tokenizer, args.batch_size,
+            soft_masked_weight=args.soft_masked_weight_eval,
+            mlm_probability=args.mlm_probability, seed=args.seed + 2)
 
     wandb_run = None
     if args.wandb_project:
@@ -169,12 +198,14 @@ def main(argv=None):
     # resumed run sees exactly the batches an uninterrupted run would.
     train_iter = train_data.iter_from(state.step)
     state = loop_lib.run_training(
-        state, train_step, eval_step, train_iter, eval_data.eval_batches,
+        state, train_step, eval_step, train_iter,
+        eval_data.eval_batches if eval_data is not None else None,
         args.max_steps, log_every=args.log_steps, eval_every=args.eval_steps,
-        ckpt=ckpt, wandb_run=wandb_run, tokens_per_step=step_rows * args.window)
+        ckpt=ckpt, wandb_run=wandb_run, tokens_per_step=step_rows * args.window,
+        profile_dir=args.profile_dir)
 
     final_metrics = None
-    if args.eval_steps:
+    if eval_data is not None and args.eval_steps:
         final_metrics = loop_lib.evaluate(state, eval_step, eval_data.eval_batches(),
                                           max_batches=20)
         logging.info("final eval: %s", final_metrics)

@@ -5,11 +5,12 @@ subcommands, flags and outputs, plus ``--device``:
 evo_cons | motif_acc | sv_effect | core_noncore.
 
 ``--repo-id`` is a local TSV (header row, tab-separated; ``.gz``, ``.bz2``,
-``.xz`` or ``.zip`` by its suffix, as pandas reads them). Refused, with a
-message: a parquet file (no reader on the GPU hosts), a hub dataset id (no
-network), ``--seq > 1`` (context parallelism needs several GPUs). Logit
-caching via --save-logits / --logits-path and metrics via --metrics-json,
-in the JAX CLI's layouts.
+``.xz`` or ``.zip`` by its suffix, as pandas reads them) or a local
+``.parquet`` table (the port's reader, ``io/parquet``: gzip, snappy or
+uncompressed; a zstd table is refused by name). Refused, with a message: a
+hub dataset id (no network), ``--seq > 1`` (context parallelism needs
+several GPUs). Logit caching via --save-logits / --logits-path and metrics
+via --metrics-json, in the JAX CLI's layouts (TSV).
 
 Example:
   python -m plantcaduceus_tpu_torch.cli.zero_shot_eval evo_cons \\
@@ -30,6 +31,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from plantcaduceus_tpu_torch.io.parquet import read_parquet
 from plantcaduceus_tpu_torch.io.tables import open_table
 
 log = logging.getLogger(__name__)
@@ -71,14 +73,33 @@ def write_tsv(path, columns: List[str], rows) -> None:
             w.writerow([str(v) for v in r])
 
 
+def _cell(v) -> str:
+    """A parquet value as the text a TSV cell would hold."""
+    if v is None:
+        return ""
+    if isinstance(v, (int, np.integer)) and not isinstance(v, (bool, np.bool_)):
+        return str(int(v))
+    return str(v)
+
+
+def read_parquet_frame(path) -> Frame:
+    cols = read_parquet(path)
+    names = list(cols)
+    text = {c: [_cell(v) for v in cols[c]] for c in names}
+    n = len(text[names[0]]) if names else 0
+    return Frame(names, [{c: text[c][i] for c in names} for i in range(n)])
+
+
 def _load_frame(repo_id: str, task, split) -> Frame:
     p = Path(repo_id)
-    if p.suffix == ".parquet":
-        raise SystemExit(f"{repo_id}: parquet is not read by the PyTorch port "
-                         "(no parquet reader on the GPU hosts); pass a TSV")
     if not p.is_file():
-        raise SystemExit(f"{repo_id}: not a local TSV file; the PyTorch port reads "
-                         "local TSVs only (hub datasets need the network)")
+        raise SystemExit(f"{repo_id}: not a local TSV or parquet file; the PyTorch port "
+                         "reads local tables only (hub datasets need the network)")
+    if p.suffix == ".parquet":
+        try:
+            return read_parquet_frame(p)
+        except ValueError as e:  # a codec or column the port's reader refuses
+            raise SystemExit(str(e)) from e
     return read_tsv(p)
 
 
@@ -203,7 +224,7 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
-        sp.add_argument("--repo-id", required=True, help="a local TSV")
+        sp.add_argument("--repo-id", required=True, help="a local TSV or .parquet table")
         sp.add_argument("--task", default=None)
         sp.add_argument("--split", default="valid")
         sp.add_argument("--model", default="pc2-small")

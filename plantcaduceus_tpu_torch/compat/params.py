@@ -6,7 +6,9 @@ The Caduceus pytree, given as numpy arrays, is
 ``plantcaduceus_tpu.compat.hf_import.import_params``. The BERT baseline's
 is that of ``plantcaduceus_tpu.models.bert.init_params`` (the JAX package
 has no HF export for it, so the pytree is the crossing), and the AR Mamba
-LM's that of ``plantcaduceus_tpu.models.mamba_lm.init_params``.
+LM's that of ``plantcaduceus_tpu.models.mamba_lm.init_params``, and the GPN
+baseline's that of ``plantcaduceus_tpu.models.gpn.init_params`` (``layers``
+a list of per-layer dicts).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plantcaduceus_tpu_torch.models import bert, mamba_lm
+from plantcaduceus_tpu_torch.models import bert, gpn, mamba_lm
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, layer_keys
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
@@ -85,3 +87,28 @@ def mamba_lm_from_jax_params(params_np: dict, cfg: mamba_lm.MambaLmConfig) -> ma
         raise KeyError(f"parameter pytree lacks leaves {missing}")
     return mamba_lm.MambaLm(cfg, _torch_pytree(params_np, layer_keys(cfg)))
 
+
+
+def gpn_from_jax_params(params_np: dict, cfg: gpn.GpnConfig) -> gpn.Gpn:
+    """The port's GPN baseline (on the CPU, float32) from the JAX
+    ``gpn.init_params`` pytree's numpy arrays. Raises on a missing leaf."""
+    missing = [k for k in gpn.TOP_KEYS if k not in params_np]
+    missing += [f"layers/{i}/{k}" for i, lp in enumerate(params_np.get("layers", []))
+                for k in gpn.LAYER_KEYS if k not in lp]
+    if missing or len(params_np.get("layers", [])) != cfg.n_layer:
+        raise KeyError(f"parameter pytree lacks leaves {missing or ['layers']}")
+
+    def conv(v):
+        return torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
+
+    return gpn.Gpn(cfg, {**{k: conv(params_np[k]) for k in gpn.TOP_KEYS},
+                         "layers": [{k: conv(lp[k]) for k in gpn.LAYER_KEYS}
+                                    for lp in params_np["layers"]]})
+
+
+def gpn_to_jax_params(model: gpn.Gpn) -> dict:
+    """The inverse of :func:`gpn_from_jax_params`: the JAX pytree of float32
+    numpy arrays."""
+    return {**{k: _numpy(getattr(model, k)) for k in gpn.TOP_KEYS},
+            "layers": [{k: _numpy(getattr(layer, k)) for k in gpn.LAYER_KEYS}
+                       for layer in model.layers]}

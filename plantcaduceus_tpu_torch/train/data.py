@@ -5,10 +5,11 @@ with soft-mask loss weights for the masked-LM trainer, reproducing
 src/HF_pre_train.py's tokenize/map path.
 
 * ``sequence_source`` resolves where raw sequences come from: a synthetic
-  stream, a TSV/CSV with a ``seq`` column (read with the ``csv`` module), or
-  a FASTA tiled into windows. Parquet, ``hf:`` datasets and ``shards:``
-  streaming are not ported yet (the machine with the card has neither
-  pandas nor ``datasets``); they raise.
+  stream, a TSV/CSV with a ``seq`` column (read with the ``csv`` module), a
+  parquet table (the port's reader, ``io/parquet``), or a FASTA tiled into
+  windows. ``hf:`` datasets need the network and the ``datasets`` package,
+  which the GPU hosts lack: they raise. Corpora too large for memory stream
+  from shards (``train/streaming``, ``--dataset shards:<dir>``).
 * ``PretrainDataset`` tokenises, computes the lowercase soft-mask weights
   and applies the MLM collator. ``batch_at(step)`` is a pure function of
   (seed, step) and gives the JAX package's batches byte for byte.
@@ -23,15 +24,16 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from plantcaduceus_tpu_torch.io.fasta import iter_fasta
+from plantcaduceus_tpu_torch.io.parquet import read_parquet
 from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
 from plantcaduceus_tpu_torch.train.masking import MlmCollator, soft_mask_weights
 
 # In-memory source cap: ~2M 512-bp windows ≈ 1 GB of Python strings.
 DEFAULT_MAX_SEQUENCES = 2_000_000
 
-_LATER = ("is not supported by the PyTorch port yet: streaming and HF/parquet "
-          "sources come with a later slice of the port; use synthetic, a "
-          "TSV/CSV or a FASTA")
+_HF = ("is an HF dataset, which the PyTorch port does not load (it needs the "
+       "network and the datasets package); save its sequences as parquet, TSV or "
+       "FASTA, or stream them as shards (--dataset shards:<dir>)")
 
 
 def _capped(it, max_sequences: int, spec: str) -> List[str]:
@@ -41,7 +43,9 @@ def _capped(it, max_sequences: int, spec: str) -> List[str]:
         if len(out) > max_sequences:
             raise ValueError(
                 f"dataset {spec!r} exceeds the in-memory cap of {max_sequences} "
-                "sequences; raise max_sequences explicitly")
+                "sequences; use the streaming path instead (--dataset "
+                "shards:<dir-or-file>, train/streaming.py) or raise max_sequences "
+                "explicitly")
     return out
 
 
@@ -57,16 +61,20 @@ def sequence_source(spec: str, split: str = "train",
       ``synthetic``                     — random ACGTacgt windows (smoke/bench)
       ``path.tsv`` / ``.txt`` / ``.csv``  — tab-separated table with a seq
                                           column (else a ``sequences`` column)
+      ``path.parquet``                  — parquet table with a seq column
       ``path.fa[.gz]``                  — FASTA tiled into windows
-    ``path.parquet``, ``hf:<name>`` and ``shards:<dir>`` raise
-    ``NotImplementedError``.
+    ``hf:<name>`` raises ``NotImplementedError``; ``shards:<dir>`` is the
+    streaming path's spec (``train/streaming``), not a list of sequences.
     """
     if spec == "synthetic":
         rng = np.random.default_rng(seed)
         bases = np.array(list("ACGTacgt"))
         return ["".join(rng.choice(bases, window)) for _ in range(synthetic_n)]
-    if spec.startswith(("hf:", "shards:")) or spec.endswith(".parquet"):
-        raise NotImplementedError(f"dataset {spec!r} {_LATER}")
+    if spec.startswith("hf:"):
+        raise NotImplementedError(f"dataset {spec!r} {_HF}")
+    if spec.startswith("shards:"):
+        raise ValueError(f"dataset {spec!r} streams: read it with "
+                         "train.streaming.StreamingPretrainDataset")
 
     p = Path(spec)
     if p.suffix in (".tsv", ".txt", ".csv"):
@@ -74,6 +82,9 @@ def sequence_source(spec: str, split: str = "train",
             reader = csv.DictReader(fh, delimiter="\t")
             col = seq_column if seq_column in (reader.fieldnames or ()) else "sequences"
             return _capped((str(row[col]) for row in reader), max_sequences, spec)
+    if p.suffix == ".parquet":
+        return _capped((str(s) for s in read_parquet(p, [seq_column])[seq_column]),
+                       max_sequences, spec)
     if p.name.endswith((".fa", ".fasta", ".fa.gz", ".fasta.gz")):
         stride = stride or window
 

@@ -4,7 +4,9 @@ Counterpart of ``plantcaduceus_tpu.train.loop`` on one device: steps-based
 loop, periodic eval + perplexity, periodic checkpoints with autoresume, and
 a SpeedMonitor-style throughput/step-time tracker with optional wandb
 logging. Each logged line carries ``elapsed_s``, the seconds since the loop
-started, read after the step's metrics reached the host.
+started, read after the step's metrics reached the host. ``profile_dir``
+traces the loop's steps ``start + 10`` to ``start + 12`` there
+(``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from plantcaduceus_tpu_torch.train.checkpoint import CheckpointManager
 from plantcaduceus_tpu_torch.train.step import TrainState
+from plantcaduceus_tpu_torch.utils.profiling import StepWindowProfiler
 
 log = logging.getLogger(__name__)
 
@@ -55,13 +58,16 @@ def run_training(
     ckpt: Optional[CheckpointManager] = None,
     wandb_run=None,
     tokens_per_step: int = 0,
+    profile_dir: Optional[str] = None,
 ) -> TrainState:
     """Run to max_steps (resuming from state.step). Returns the final state."""
     start_step = int(state.step)
     monitor = SpeedMonitor()
+    profiler = StepWindowProfiler(profile_dir, start_step + 10, 3)
     t0 = time.perf_counter()
 
     for step in range(start_step, max_steps):
+        profiler.step(step)
         batch = next(train_iter)
         if step == start_step:
             # The first step builds the kernels and allocates the activations;
@@ -100,6 +106,7 @@ def run_training(
         if ckpt is not None:
             ckpt.save(step + 1, state)
 
+    profiler.close()
     if ckpt is not None:
         if ckpt.latest_step() != max_steps:
             ckpt.save(max_steps, state, force=True)

@@ -29,6 +29,7 @@ from plantcaduceus_tpu.ops import rotary as jrope
 from plantcaduceus_tpu_torch.ops import attention as tattn
 from plantcaduceus_tpu_torch.ops import cuda_attention, flash_plain
 from plantcaduceus_tpu_torch.ops import rotary as trope
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TABLE_TOL = 1e-6
 F32_TOL = 2e-5

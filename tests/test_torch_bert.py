@@ -24,6 +24,7 @@ from plantcaduceus_tpu.models import caduceus as jcad
 from plantcaduceus_tpu_torch.compat.params import bert_from_jax_params, bert_to_jax_params
 from plantcaduceus_tpu_torch.models import bert as tbert
 from plantcaduceus_tpu_torch.models.caduceus import mlm_loss
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 1e-4
 BF16_TOL = 2e-2

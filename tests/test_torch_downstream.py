@@ -34,6 +34,7 @@ import torch
 from tests.test_torch_eval import fp32  # noqa: F401  (pins both runners to float32)
 from tests.test_torch_tables import tiny_ckpt  # noqa: F401
 from tests.test_xgb_json import TREE_A, TREE_B, _learner, _tree
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 WINDOW, IDX = 48, 23
 PRED_TOL = 1e-6

@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 import pytest
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 L, CENTER, N_ROWS = 64, 32, 16
 MOTIF = f"{CENTER - 1},{CENTER},{CENTER + 1}"
@@ -214,6 +215,21 @@ def test_sv_effect_matches_jax(fp32, tiny_ckpt, frames, tmp_path):
         assert abs(float(a[-1]) - float(b[-1])) <= F32_TOL
 
 
+@pytest.mark.parametrize("cmd", ["evo_cons", "sv_effect"])
+def test_parquet_tables_match_tsv_and_jax(fp32, tiny_ckpt, frames, tmp_path, cmd):
+    """The table as parquet (pandas' default snappy, as the PlantCAD2 tables
+    come) gives the TSV's metrics exactly through the port, and JAX's
+    metrics on the same parquet file."""
+    frame = SUBCOMMANDS[cmd][0]
+    pq_frames = dict(frames)
+    pq_frames[frame] = tmp_path / f"{frame}.parquet"
+    pd.read_csv(frames[frame], sep="\t").to_parquet(pq_frames[frame])
+    from_tsv = _run("torch", cmd, frames, tiny_ckpt, tmp_path)
+    from_pq = _run("torch", cmd, pq_frames, tiny_ckpt, tmp_path)
+    assert from_pq == from_tsv
+    _assert_metrics_close(from_pq, _run("jax", cmd, pq_frames, tiny_ckpt, tmp_path), F32_TOL)
+
+
 def test_logits_round_trip_within_and_across(tiny_ckpt, frames, tmp_path):
     """Each package's cached logits replayed by itself and by the other
     package (no model: the spec names none) give the same metrics exactly."""
@@ -249,17 +265,25 @@ def test_row_mismatch_asserts(tiny_ckpt, frames, tmp_path):
               "--logits-path", str(bad), "--no-progress", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("route", ["parquet", "hub", "seq"])
+@pytest.mark.parametrize("route", ["zstd", "hub", "seq"])
 def test_refused_routes(tiny_ckpt, frames, tmp_path, route, capsys):
+    """A zstd parquet table (no decoder on the GPU hosts; parquet in gzip,
+    snappy or none is read), a hub dataset id and ``--seq > 1``."""
+    import pandas as pd
+
     from plantcaduceus_tpu_torch.cli.zero_shot_eval import main
 
-    repo = {"parquet": str(tmp_path / "x.parquet"), "hub": "kuleshov-group/cross-species",
+    if route == "zstd":
+        pd.read_csv(frames["evo"], sep="\t").to_parquet(tmp_path / "x.parquet",
+                                                        compression="zstd")
+    repo = {"zstd": str(tmp_path / "x.parquet"), "hub": "kuleshov-group/cross-species",
             "seq": str(frames["evo"])}[route]
     with pytest.raises(SystemExit) as exc:
         main(["evo_cons", "--repo-id", repo, "--model", tiny_ckpt, "--device", "cpu",
               *(["--seq", "2"] if route == "seq" else [])])
     text = str(exc.value) + capsys.readouterr().err
-    assert {"parquet": "parquet", "hub": "local TSV", "seq": "--seq"}[route] in text
+    assert {"zstd": "ZSTD compression is not read", "hub": "local TSV",
+            "seq": "--seq"}[route] in text
 
 
 def test_load_tokenizer_only(tiny_ckpt):
@@ -273,11 +297,12 @@ def test_load_tokenizer_only(tiny_ckpt):
 
 
 def test_new_modules_import_nothing_the_gpu_hosts_lack():
-    """The AR LM, evaluation, XGBoost, serving, input-tool and fine-tuning
-    modules and the table opener import neither jax nor the JAX package,
-    nor sklearn, pandas, xgboost, matplotlib, datasets, optax, orbax, peft,
-    safetensors, huggingface_hub or scipy.stats (absent or unused on the GPU
-    hosts), in a fresh interpreter."""
+    """The AR LM, evaluation, XGBoost, serving, input-tool, fine-tuning,
+    streaming, profiling, distillation, convergence and GPN modules, the
+    table opener and the parquet reader import neither jax nor the JAX
+    package, nor sklearn, pandas, pyarrow, zstandard, xgboost, matplotlib,
+    datasets, optax, orbax, peft, safetensors, huggingface_hub or scipy.stats
+    (absent or unused on the GPU hosts), in a fresh interpreter."""
     code = """
 import importlib, sys
 for m in ("models.mamba_lm", "cli.ar_lm", "engine.eval_tasks", "cli.zero_shot_eval",
@@ -286,12 +311,15 @@ for m in ("models.mamba_lm", "cli.ar_lm", "engine.eval_tasks", "cli.zero_shot_ev
           "cli.train_xgboost", "engine.server", "engine.client", "cli.serve",
           "pipelines.mutagenesis", "cli.mutagenesis", "cli.format_vcf",
           "models.heads", "models.caduceus", "train.lora", "compat.peft_adapter",
-          "cli.lora_fine_tune", "cli.finetune_suite", "compat.model_card", "cli.pretrain"):
+          "cli.lora_fine_tune", "cli.finetune_suite", "compat.model_card", "cli.pretrain",
+          "io.parquet", "train.data", "train.streaming", "utils.profiling", "train.loop",
+          "train.distill", "cli.distill", "train.convergence", "models.gpn"):
     importlib.import_module("plantcaduceus_tpu_torch." + m)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "plantcaduceus_tpu", "sklearn", "pandas",
-                                    "xgboost", "matplotlib", "datasets", "optax", "orbax",
-                                    "peft", "safetensors", "huggingface_hub")
+                                    "pyarrow", "zstandard", "xgboost", "matplotlib",
+                                    "datasets", "optax", "orbax", "peft", "safetensors",
+                                    "huggingface_hub")
              or m.startswith("scipy.stats"))
 assert not bad, bad
 print("clean")

@@ -38,6 +38,7 @@ import torch
 from plantcaduceus_tpu.compat import peft_adapter as jpeft
 from plantcaduceus_tpu_torch.compat import peft_adapter as tpeft
 from tests.test_peft_adapter import CFG, RANK, _synthetic_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 L = 32
 PRED_TOL = 1e-5

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_scan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -1262,3 +1263,93 @@ def test_merged_infer_runs_k2_and_equals_the_activation_path(cuda):
                                     lora=lora.lora_ctx(state.adapters, cfg_l))
     assert cuda_scan.scan_fwd.launches - k1 == 2 * cfg.n_layer
     _close_to_scale(merged, act, 1e-4, "logits")
+
+
+CONVERGENCE = dict(d_model=64, n_layer=2, vocab_size=16, d_state=8)  # train/convergence's
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convergence_shape_kernels_match_plain_path(cuda, dtype):
+    """The planted-structure harness's config (d_inner 128, N 8, R 4, 128
+    bp, batch 16, no remat): one training step's loss and gradients through
+    K2-res and K3 against the plain path (fp32: 1e-3 of each leaf's max
+    |grad|; bf16: within twice the plain path's own worst bf16 gap from its
+    fp32 gradient, the bound phase 11b of chip_smoke.py measures), and the
+    probe forward through K2."""
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, forward, init_params, mlm_loss
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import convergence
+    from plantcaduceus_tpu_torch.train.data import PretrainDataset
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    cfg = CaduceusConfig(**CONVERGENCE)
+    assert (cfg.d_inner, cfg.d_state, cfg.dt_rank) == (128, 8, 4)
+    corpus = convergence.planted_corpus(64, 128, seed=3)
+    batch = to_device(PretrainDataset(corpus, DnaTokenizer(), 16, seed=3).batch_at(0), cuda)
+    params = init_params(cfg, seed=4)
+    grads = {}
+    for use_kernels in (True, False):
+        for dt in {dtype, torch.float32}:
+            model = Caduceus(cfg, params).requires_grad_().to(cuda)
+            res, bwd = cuda_mixer.mixer_fwd.res_launches, cuda_scan.scan_bwd.launches
+            logits = forward(model, batch["input_ids"], dtype=dt, use_kernels=use_kernels)
+            mlm_loss(logits["logits"], batch["labels"], batch["loss_weights"]).backward()
+            torch.cuda.synchronize()
+            n = 2 * cfg.n_layer if use_kernels else 0
+            assert (cuda_mixer.mixer_fwd.res_launches - res, cuda_scan.scan_bwd.launches - bwd) \
+                == (n, n)
+            grads[use_kernels, dt] = {k: p.grad for k, p in model.named_parameters()}
+    tol = 1e-3
+    if dtype == torch.bfloat16:
+        ref = grads[False, torch.float32]
+        tol = 2 * max((grads[False, dtype][k].float() - w).abs().max().item()
+                      / w.abs().max().item() for k, w in ref.items())
+    for k, w in grads[False, dtype].items():
+        _close_to_scale(grads[True, dtype][k], w, tol, k)
+    with torch.inference_mode():
+        k2 = cuda_mixer.mixer_fwd.launches
+        got = forward(model, batch["input_ids"], dtype=torch.float32)["logits"]
+        assert cuda_mixer.mixer_fwd.launches - k2 == 2 * cfg.n_layer
+        want = forward(model, batch["input_ids"], dtype=torch.float32, use_kernels=False)
+    _close_to_scale(got, want["logits"], 1e-3, "logits")
+
+
+def test_distill_gradients_match_plain_path(cuda):
+    """One fp32 distillation objective of an l20-width Mamba-1 teacher (K2,
+    no grad) and an l20-ssd-width student (K5-res, K6 pre_silu), 2 layers, 2
+    rows x 512 bp: every student gradient within 1e-3 of its leaf's max
+    |grad| of the plain path, and the teacher records no graph."""
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+    from plantcaduceus_tpu_torch.train import data as data_lib
+    from plantcaduceus_tpu_torch.train.distill import distill_objective
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    tcfg = CaduceusConfig.preset("l20", n_layer=2)
+    scfg = CaduceusConfig.preset("l20-ssd", n_layer=2)
+    teacher = Caduceus(tcfg, init_params(tcfg, seed=1)).to(cuda)
+    seqs = data_lib.sequence_source("synthetic", window=512, synthetic_n=8, seed=2)
+    batch = to_device(data_lib.PretrainDataset(seqs, DnaTokenizer(), 2, seed=2).batch_at(0),
+                      cuda)
+    sp = init_params(scfg, seed=3)
+    counters = ((cuda_mixer.mixer_fwd, "launches"), (cuda_mixer.mixer_fwd, "res_launches"),
+                (cuda_mixer2.mamba2_mixer_interior, "res_launches"),
+                (cuda_ssd.ssd_dir_bwd, "pre_silu_launches"))
+    grads = {}
+    for use_kernels in (True, False):
+        student = Caduceus(scfg, sp).requires_grad_().to(cuda)
+        before = [getattr(f, a) for f, a in counters]
+        obj, (_, t_logits, *_) = distill_objective(teacher, student, batch, torch.float32,
+                                                   remat=True, use_kernels=use_kernels)
+        assert not t_logits.requires_grad
+        obj.backward()
+        torch.cuda.synchronize()
+        got = [getattr(f, a) - b for (f, a), b in zip(counters, before)]
+        n = 2 * scfg.n_layer
+        assert got == ([2 * tcfg.n_layer, 0, 2 * n, n] if use_kernels else [0, 0, 0, 0]), got
+        grads[use_kernels] = {k: p.grad for k, p in student.named_parameters()}
+    for k, w in grads[False].items():
+        _close_to_scale(grads[True][k], w, 1e-3, k)

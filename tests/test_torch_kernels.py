@@ -16,6 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from plantcaduceus_tpu.ops import pallas_mixer, pallas_scan
 from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_scan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=3e-4, atol=3e-4)
 

@@ -38,6 +38,7 @@ from plantcaduceus_tpu_torch.models import caduceus, heads
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.train import lora
 from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(d_model=16, n_layer=2, vocab_size=16, d_state=4)
 CONFIGS = {

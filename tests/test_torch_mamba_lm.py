@@ -34,6 +34,7 @@ import torch
 from plantcaduceus_tpu.models import mamba_lm as J
 from plantcaduceus_tpu_torch.compat.params import mamba_lm_from_jax_params, to_jax_params
 from plantcaduceus_tpu_torch.models import mamba_lm as T
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = {
     "mamba1": (dict(d_model=32, n_layer=2, vocab_size=16, d_state=4), 24),

@@ -21,6 +21,7 @@ from plantcaduceus_tpu_torch.compat import hf_import
 from plantcaduceus_tpu_torch.compat.params import from_jax_params
 from plantcaduceus_tpu_torch.models import caduceus as tcad
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 BASE = dict(d_model=16, n_layer=2, vocab_size=16, d_state=4)

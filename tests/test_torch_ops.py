@@ -14,6 +14,7 @@ from plantcaduceus_tpu.ops import conv as jconv
 from plantcaduceus_tpu.ops import norms as jnorms
 from plantcaduceus_tpu.ops import selective_scan as jscan
 from plantcaduceus_tpu_torch.ops import conv, norms, selective_scan
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _both(a):

@@ -19,6 +19,7 @@ from pathlib import Path
 import pytest
 
 from tests.test_torch_tables import tiny_ckpt  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 WINDOW, IDX = 48, 23

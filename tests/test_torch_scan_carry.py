@@ -16,6 +16,7 @@ import torch
 
 from plantcaduceus_tpu.ops.scan_bwd import selective_scan_grads as jax_grads
 from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK, scan_direction_bwd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("fuse", [True, False])

@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from plantcaduceus_tpu.ops import pallas_scan
 from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -27,6 +27,7 @@ from plantcaduceus_tpu_torch.engine.server import MicroBatcher, ScoringServer, S
 from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(d_model=32, n_layer=2, vocab_size=16, d_state=8)
 L = 128

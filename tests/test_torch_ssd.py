@@ -21,6 +21,7 @@ from plantcaduceus_tpu.ops import pallas_ssd as jpssd
 from plantcaduceus_tpu.ops import ssd as jssd
 from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
 from plantcaduceus_tpu_torch.ops import ssd as tssd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = 2e-5
 BF16_TOL = 2 ** -6

@@ -30,6 +30,7 @@ from jax.experimental.pallas import tpu as pltpu
 from plantcaduceus_tpu.ops import pallas_mixer2 as jmix2
 from plantcaduceus_tpu.ops import pallas_ssd as jpssd
 from plantcaduceus_tpu_torch.ops import cuda_mixer2, cuda_ssd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BWD_TOL = 1e-4
 RES_TOL = 2e-5

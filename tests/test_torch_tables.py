@@ -24,6 +24,7 @@ import pandas as pd
 import pytest
 
 from tests.test_torch_eval import fp32  # noqa: F401  (pins both runners to float32)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 WINDOW, IDX = 48, 23
 SCORE_TOL = 1e-4

@@ -34,6 +34,7 @@ from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.train import data as data_lib
 from plantcaduceus_tpu_torch.train import step as step_lib
 from plantcaduceus_tpu_torch.train.optimizer import decay_mask, jax_leaf, make_optimizer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(d_model=32, n_layer=2, vocab_size=16, d_state=4)
 PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -85,10 +86,21 @@ def test_batches_byte_identical_to_jax(tmp_path):
                 assert got[k].tobytes() == want[k].tobytes(), (spec, step, k)
 
 
-def test_unsupported_sources_raise():
-    for spec in ("hf:some/dataset", "shards:/data", "x.parquet"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            data_lib.sequence_source(spec)
+def test_unsupported_sources_raise(tmp_path):
+    """``hf:`` stays refused (network, ``datasets``); a parquet table and a
+    ``shards:`` directory load."""
+    from plantcaduceus_tpu_torch.io.parquet import write_parquet
+    from plantcaduceus_tpu_torch.train.streaming import StreamingPretrainDataset
+
+    with pytest.raises(NotImplementedError, match="HF dataset"):
+        data_lib.sequence_source("hf:some/dataset")
+    seqs = data_lib.sequence_source("synthetic", window=16, synthetic_n=8, seed=1)
+    write_parquet(tmp_path / "x.parquet", {"seq": seqs})
+    assert data_lib.sequence_source(str(tmp_path / "x.parquet")) == seqs
+    with pytest.raises(ValueError, match="streams"):
+        data_lib.sequence_source(f"shards:{tmp_path}")
+    batch = next(iter(StreamingPretrainDataset(tmp_path, DnaTokenizer(), 4, window=16)))
+    assert batch["input_ids"].shape == (4, 16)
 
 
 # -- optimizer ------------------------------------------------------------------
@@ -331,10 +343,13 @@ def test_cuda_absent_raises_in_trainer_and_cli(monkeypatch, tmp_path):
         pretrain.main(["--dataset", "synthetic", "--preset", "l20",
                        "--output-dir", str(tmp_path / "never")])
     assert not (tmp_path / "never").exists()
-    for extra in (["--fsdp", "2"], ["--tensor", "2"], ["--seq", "2"], ["--pipe", "2"],
-                  ["--profile-dir", str(tmp_path)]):
+    for extra in (["--fsdp", "2"], ["--tensor", "2"], ["--seq", "2"], ["--pipe", "2"]):
         with pytest.raises(SystemExit):
             pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x"] + extra)
+    # --profile-dir and --eval-shards are taken, as in JAX
+    args = pretrain.parse_args(["--dataset", "shards:d", "--output-dir", "x", "--eval-shards",
+                                "1", "--profile-dir", str(tmp_path)])
+    assert (args.profile_dir, args.eval_shards) == (str(tmp_path), 1)
     # --push-to-hub is taken, as in JAX: the export's push_to_hub raises offline
     assert pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x",
                                 "--push-to-hub", "me/model"]).push_to_hub == "me/model"

@@ -35,6 +35,7 @@ from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.train import data as data_lib
 from plantcaduceus_tpu_torch.train import step as step_lib
 from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY2 = dict(d_model=16, n_layer=2, vocab_size=16, ssm_variant="mamba2", d_state=4,
              head_dim=8, n_groups=2, chunk_size=16)

@@ -30,6 +30,7 @@ from plantcaduceus_tpu.ops import pallas_mixer, pallas_scan
 from plantcaduceus_tpu_torch.ops import cuda_mixer, cuda_scan, scan_bwd
 from plantcaduceus_tpu_torch.ops.selective_scan import (HB_CHUNK, scan_direction,
                                                          scan_direction_bwd)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _close(got, want, rel, name=""):
