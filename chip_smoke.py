@@ -157,7 +157,32 @@ and LoRA and full fine-tuning (``train/lora.py``, ``cli/lora_fine_tune.py``):
 14d. 3 bf16 LoRA steps of l20-ssd and an evaluation batch (K5-res, K6
     pre_silu, K5); then one profiled microbatch of an l20 LoRA step.
 
-Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13 and 14 go to
+and the rest of training (15: sharded streaming pre-training, distillation
+l20 -> l20-ssd, the planted-structure harness, a parquet evaluation table
+and the GPN baseline; see ``phase_rest_of_training``), then the files
+users have, read on the card's host by the port's own readers (no
+safetensors, zstandard, pandas or pyarrow there):
+
+16a. one seeded l20 state dict as ``export_hf_dir``'s pytorch_model.bin, as
+    one F32 model.safetensors, as two safetensors shards with
+    model.safetensors.index.json and as one BF16 model.safetensors, each
+    scored in-process on phase 6's windows (the shards also through
+    ``python -m``): scores equal to the .bin's byte for byte (the BF16
+    file's to those of a .bin rounded to bf16), K2 2 x n_layer a batch,
+    each load's seconds;
+16b. l20 streaming pre-training (batch 32 x 512, bf16, remat, 3 steps)
+    over the committed zstd shards JAX's ``convert_to_shards`` wrote
+    (``tests/format_fixtures``) and over the same sequences re-written by
+    the port's gzip writer: losses and final weights equal bit for bit,
+    K2-res 80 and K3 40 a step; the zstd decoder's MB/s on the host;
+16c. ``lora_fine_tune train`` with l20 (3 steps, batch 8) on the committed
+    JAX-tokenized zstd tables (a scalar label; multi-label lists) and on
+    the same rows as .npz: losses and adapters equal bit for bit;
+    ``tokenize`` to .parquet reads back equal to .npz; an adapter exported
+    as PEFT adapter_model.safetensors and run through ``evaluate`` gives
+    the in-memory adapter's metrics.
+
+Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13, 14, 15 and 16 go to
 ``build/chip_smoke/`` in the checkout.
 
 Every failure exits non-zero; no phase's failure is caught. Without CUDA it
@@ -3367,6 +3392,45 @@ def trace_kernels(prof_dir):
     return traces[0], [e["name"] for e in events if e.get("cat") == "kernel"]
 
 
+def stream_draws(shard_dir, n_batches, eval_shards=0):
+    """The stream's own host cost, as the trainer draws it (the loop reads a
+    batch before each step, with no prefetch): the ms of each of the first
+    ``n_batches`` batches (32 x 512 bp) of ``StreamingPretrainDataset`` over
+    ``shard_dir``, and which of them opened a shard (its parquet read
+    counted as it happens). The first batch fills the shuffle buffer."""
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.train import streaming
+
+    ds = streaming.StreamingPretrainDataset(shard_dir, DnaTokenizer(), 32, window=512,
+                                            eval_shards=eval_shards)
+    read, draw, opened, ms = streaming.read_parquet, [0], [], []
+
+    def counted(*args, **kwargs):
+        opened.append(draw[0])
+        return read(*args, **kwargs)
+
+    streaming.read_parquet = counted
+    try:
+        it = ds.iter_from(0)
+        for draw[0] in range(n_batches):
+            t = time.perf_counter()
+            next(it)
+            ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        streaming.read_parquet = read
+    opens = sorted(set(opened) - {0})
+    rest = [v for i, v in enumerate(ms[1:], 1) if i not in opens]
+    if not opens or not rest:
+        fail(f"{shard_dir}: no batch after the buffer's fill opened a shard ({opened})")
+    r = dict(fill_ms=ms[0], batch_ms=sum(rest) / len(rest),
+             open_ms=sum(ms[i] for i in opens) / len(opens), opens=opens)
+    r["note"] = (f"first batch (fills the {ds.shuffle_buffer}-window buffer from "
+                 f"{opened.count(0)} shards) {r['fill_ms']:.2f} ms; then {r['batch_ms']:.3f} ms a "
+                 f"batch, {r['open_ms']:.3f} ms for a batch that opens a shard (batches {opens}); "
+                 f"all {[round(v, 3) for v in ms]}")
+    return r
+
+
 def phase_streaming(dev, tsv, n_valid):
     """15a: the port's convert_to_shards writes a seeded 512-bp corpus as
     gzip parquet shards; ``cli.pretrain --dataset shards:`` with l20 at full
@@ -3379,7 +3443,6 @@ def phase_streaming(dev, tsv, n_valid):
     import torch
 
     from plantcaduceus_tpu_torch.cli import pretrain
-    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
     from plantcaduceus_tpu_torch.models.config import CaduceusConfig
     from plantcaduceus_tpu_torch.train import data as data_lib
     from plantcaduceus_tpu_torch.train import streaming
@@ -3398,28 +3461,9 @@ def phase_streaming(dev, tsv, n_valid):
     log(f"  convert_to_shards: {n} shards, {size} bytes, {time.perf_counter() - t:.2f} s")
     if n != STREAM_SHARDS:
         fail(f"phase 15a: {n} shards")
-    # The stream's own host cost, as the trainer draws it (the loop reads a
-    # batch before each step, with no prefetch): the first batch fills the
-    # shuffle buffer; a batch that crosses into a new shard opens it.
-    ds = streaming.StreamingPretrainDataset(tmp / "shards", DnaTokenizer(), 32, window=512,
-                                            eval_shards=1)
-    if (STREAM_SHARDS - 1) * STREAM_SHARD_WINDOWS <= ds.shuffle_buffer:
-        fail("phase 15a: the training shards fit in the shuffle buffer")
-    it, draw_ms = ds.iter_from(0), []
-    for _ in range(STREAM_BATCHES):
-        t = time.perf_counter()
-        next(it)
-        draw_ms.append((time.perf_counter() - t) * 1e3)
-    per_shard = STREAM_SHARD_WINDOWS // 32
-    opens = [i for i in range(1, STREAM_BATCHES) if i % per_shard == 0]
-    rest = [v for i, v in enumerate(draw_ms[1:], 1) if i not in opens]
-    stream = dict(fill_ms=draw_ms[0], batch_ms=sum(rest) / len(rest),
-                  open_ms=sum(draw_ms[i] for i in opens) / len(opens))
-    log(f"  the stream alone, batch 32 x 512: first batch (fills the {ds.shuffle_buffer}-window "
-        f"buffer from {ds.shuffle_buffer // STREAM_SHARD_WINDOWS} shards) {stream['fill_ms']:.2f} "
-        f"ms; then {stream['batch_ms']:.3f} ms a batch, {stream['open_ms']:.3f} ms for a batch "
-        f"that opens a shard (batches {opens}); all {[round(v, 3) for v in draw_ms]}")
-    del ds, it
+    r = stream_draws(tmp / "shards", STREAM_BATCHES, eval_shards=1)
+    stream = {k: r[k] for k in ("fill_ms", "batch_ms", "open_ms")}
+    log(f"  the stream alone, batch 32 x 512: {r['note']}")
     args = ["--preset", "l20", "--dataset", f"shards:{tmp / 'shards'}", "--eval-shards", "1",
             "--batch-size", "32", "--window", "512", "--dtype", "bfloat16", "--max-steps",
             str(STREAM_STEPS), "--eval-steps", str(STREAM_SAVE), "--save-steps",
@@ -3808,6 +3852,355 @@ def phase_rest_of_training(dev, tsv, n_valid, ev):
     return c, dict(streaming=fa, distill=fb, convergence=fc, gpn=fd)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the files users have, read on the card's host by the port's own
+# readers (io/safetensors.py, io/zstd.py, io/parquet.py's list columns). One
+# l20 state dict as pytorch_model.bin, one F32 safetensors file, two shards
+# with an index and a BF16 file, scored through the CLI; JAX's zstd parquet
+# shards (committed, written by its convert_to_shards) streamed into l20
+# pre-training beside the same sequences in the port's gzip shards;
+# JAX-tokenized zstd tables (list columns) fine-tuned beside .npz, and a
+# PEFT adapter saved as safetensors and evaluated.
+FIXTURES = REPO / "tests" / "format_fixtures"
+# 80 copies of the 2 committed 128-window shards: 10,240 windows, more than
+# the 8,192-window shuffle buffer, so after the fill every 4th batch opens
+# (and decodes) a shard; steps 2-9 draw batches 1-8, two of which open one
+FORMAT_STREAM_COPIES, FORMAT_STREAM_STEPS, FORMAT_STREAM_BATCHES = 80, 9, 12
+FORMAT_FT_STEPS, FORMAT_FT_BATCH, FORMAT_FT_EVAL = 3, 8, 16
+FORMAT_FT_TABLES = (("classification", "lora_cls"), ("multi_label", "lora_multi"))
+
+
+def phase_format_checkpoints(dev, tsv, n_valid):
+    """16a: one seeded l20 state dict written four ways (export_hf_dir's
+    pytorch_model.bin; one F32 model.safetensors; two safetensors shards
+    with model.safetensors.index.json; one BF16 model.safetensors) and a
+    .bin of the weights rounded to bf16; each scored in-process on phase 6's
+    windows (counted; its load timed), the shards once more through
+    ``python -m``. The safetensors files' scores equal the .bin's byte for
+    byte, the BF16 file's those of the rounded .bin."""
+    import torch
+
+    from plantcaduceus_tpu_torch.cli.zero_shot_score import main as score
+    from plantcaduceus_tpu_torch.compat.hf_export import export_hf_dir
+    from plantcaduceus_tpu_torch.io import safetensors
+    from plantcaduceus_tpu_torch.models.caduceus import init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    cfg = CaduceusConfig.preset("l20")
+    nl = cfg.n_layer
+    tmp = REPO / "build" / "chip_smoke" / "formats"
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 16a: safetensors checkpoints, l20 ({nl} layers, d_model {cfg.d_model}), scored "
+        f"on phase 6's {n_valid} windows, bf16, batch 128")
+    dirs = {k: tmp / f"ckpt_{k}" for k in ("bin", "st", "sharded", "bf16", "bin_bf16")}
+    export_hf_dir(dirs["bin"], init_params(cfg, seed=16), cfg)
+    sd = torch.load(dirs["bin"] / "pytorch_model.bin", weights_only=True)
+    for k in ("st", "sharded", "bf16", "bin_bf16"):
+        dirs[k].mkdir(parents=True)
+        shutil.copy(dirs["bin"] / "config.json", dirs[k] / "config.json")
+    safetensors.save_file(sd, dirs["st"] / "model.safetensors")
+    safetensors.save_sharded(sd, dirs["sharded"], 2)
+    safetensors.save_file({k: v.to(torch.bfloat16) for k, v in sd.items()},
+                          dirs["bf16"] / "model.safetensors")
+    torch.save({k: v.to(torch.bfloat16).float() for k, v in sd.items()},
+               dirs["bin_bf16"] / "pytorch_model.bin")
+    n_batches = math.ceil(n_valid / 128)
+    load_s, out, c = {}, {}, only()
+    for name, d in dirs.items():
+        t = time.perf_counter()
+        load_model_and_tokenizer(str(d))
+        load_s[name] = time.perf_counter() - t
+        out[name] = tmp / f"scores_{name}.tsv"
+        reset_counts()
+        score(["-input-table", str(tsv), "-model", str(d), "-output", str(out[name]),
+               "-no-progress"])
+        got = counts()
+        if got != only(mixer_fwd=2 * nl * n_batches):
+            fail(f"phase 16a scoring {name} launched {got}; expected mixer_fwd="
+                 f"{2 * nl * n_batches}")
+        c = {k: c[k] + got[k] for k in c}
+    sizes = {k: sum(f.stat().st_size for f in d.iterdir()) for k, d in dirs.items()}
+    for a, b in (("st", "bin"), ("sharded", "bin"), ("bf16", "bin_bf16")):
+        if out[a].read_bytes() != out[b].read_bytes():
+            fail(f"phase 16a: the {a} dir's scores differ from the {b} dir's")
+    if out["bf16"].read_bytes() == out["bin"].read_bytes():
+        fail("phase 16a: the BF16 file scored as the float32 weights")
+    by_m = tmp / "scores_sharded_m.tsv"
+    run_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model", str(dirs["sharded"]),
+                                       "-output", str(by_m), "-no-progress"])
+    if by_m.read_bytes() != out["bin"].read_bytes():
+        fail("phase 16a: python -m over the shards scored otherwise than the .bin dir")
+    log("  load seconds (import from the dir, model on the host): " + ", ".join(
+        f"{k} {load_s[k]:.3f} s ({sizes[k]} bytes)" for k in dirs))
+    log(f"  scores: model.safetensors and the 2 shards equal the .bin's byte for byte "
+        f"({n_valid} rows; also through python -m), BF16 equal to the bf16-rounded .bin's; "
+        f"K2 {2 * nl} a batch, {n_batches} batches a run")
+    return c, dict(load_s=load_s, sizes=sizes), dirs["bin"]
+
+
+def phase_format_streaming(dev):
+    """16b: l20 streaming pre-training (batch 32 x 512, bf16, remat) over
+    copies of JAX's committed zstd shards, enough that the timed steps open
+    shards after the buffer's fill, then over the same sequences written by
+    the port's gzip convert_to_shards: the step log and the final weights
+    equal bit for bit; K2-res 4 x n_layer and K3 2 x n_layer a step. The
+    zstd decoder's output rate on the host, over the shards' pages, and the
+    stream alone over both copies: the fill, a batch, a shard-opening batch."""
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import pretrain
+    from plantcaduceus_tpu_torch.io import parquet, zstd
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import streaming
+
+    nl = CaduceusConfig.preset("l20").n_layer
+    tmp = REPO / "build" / "chip_smoke" / "formats"
+    shards = sorted((FIXTURES / "shards").glob("*.parquet"))
+    per = [list(parquet.read_parquet(f, ["seq"])["seq"]) for f in shards]
+    zdir, gdir = tmp / "zstd_shards", tmp / "gzip_shards"
+    zdir.mkdir(parents=True)
+    for i in range(FORMAT_STREAM_COPIES):
+        shutil.copy(shards[i % len(shards)], zdir / f"shard_{i:05d}.parquet")
+    seqs = [s for i in range(FORMAT_STREAM_COPIES) for s in per[i % len(shards)]]
+    streaming.convert_to_shards(seqs, gdir, shard_size=len(per[0]))
+    log(f"phase 16b: streaming l20 pre-training over {FORMAT_STREAM_COPIES} copies of JAX's "
+        f"{len(shards)} zstd shards ({len(seqs)} windows, {len(per[0])} a shard, "
+        f"{sum(f.stat().st_size for f in shards)} bytes the pair) and the port's gzip copy, "
+        f"batch 32 x 512 bp, bf16, remat, {FORMAT_STREAM_STEPS} steps each")
+    # the decoder alone: every zstd page of the shards, timed inside read_parquet
+    spent, produced, decode = [0.0], [0], zstd.decompress
+
+    def timed(data, max_output=None):
+        t = time.perf_counter()
+        out = decode(data, max_output)
+        spent[0] += time.perf_counter() - t
+        produced[0] += len(out)
+        return out
+
+    zstd.decompress = timed
+    try:
+        t = time.perf_counter()
+        for _ in range(3):
+            for f in shards:
+                parquet.read_parquet(f)
+        read_s = (time.perf_counter() - t) / 3
+    finally:
+        zstd.decompress = decode
+    mbs = produced[0] / spent[0] / 1e6
+    log(f"  zstd on the host: {produced[0] // 3} bytes of pages a pass, {mbs:.2f} MB/s of "
+        f"output; the {len(shards)} shards read in {read_s * 1e3:.1f} ms a pass")
+    stream = {name: stream_draws(d, FORMAT_STREAM_BATCHES) for name, d in (("zstd", zdir),
+                                                                           ("gzip", gdir))}
+    if stream["zstd"]["opens"] != stream["gzip"]["opens"]:
+        fail(f"phase 16b: the zstd and gzip streams opened shards at other batches "
+             f"({stream['zstd']['opens']}, {stream['gzip']['opens']})")
+    for name, r in stream.items():
+        log(f"  the {name} stream alone, batch 32 x 512: {r['note']}")
+    runs, c = {}, only()
+    for name, src in (("zstd", zdir), ("gzip", gdir)):
+        args = ["--preset", "l20", "--dataset", f"shards:{src}", "--batch-size", "32",
+                "--window", "512", "--dtype", "bfloat16", "--max-steps",
+                str(FORMAT_STREAM_STEPS), "--save-steps", str(FORMAT_STREAM_STEPS),
+                "--log-steps", "1", "--warmup-steps", "1", "--lr", "1e-3",
+                "--output-dir", str(tmp / f"run_{name}")]
+        reset_counts()
+        t = time.perf_counter()
+        with StepLog() as steps:
+            pretrain.main(args)
+        wall = time.perf_counter() - t
+        got = counts()
+        want = only(mixer_fwd_res=FORMAT_STREAM_STEPS * 4 * nl,
+                    scan_bwd=FORMAT_STREAM_STEPS * 2 * nl)
+        if got != want:
+            fail(f"phase 16b over the {name} shards launched {got}; expected {want}")
+        c = {k: c[k] + got[k] for k in c}
+        losses = [s[1] for s in steps]
+        if [s[0] for s in steps] != list(range(1, FORMAT_STREAM_STEPS + 1)) or \
+                not all(map(math.isfinite, losses)):
+            fail(f"phase 16b: bad step log {steps}")
+        t_at = {s[0]: s[2] for s in steps}
+        runs[name] = dict(losses=losses, wall=wall,
+                          step_ms=steady_ms(steps, 1, FORMAT_STREAM_STEPS),
+                          each=[round(1e3 * (t_at[k] - t_at[k - 1]), 2)
+                                for k in range(2, FORMAT_STREAM_STEPS + 1)])
+    if runs["zstd"]["losses"] != runs["gzip"]["losses"]:
+        fail(f"phase 16b: losses over zstd {runs['zstd']['losses']} != over gzip "
+             f"{runs['gzip']['losses']}")
+    a = torch.load(tmp / "run_zstd" / "final" / "pytorch_model.bin", weights_only=True)
+    b = torch.load(tmp / "run_gzip" / "final" / "pytorch_model.bin", weights_only=True)
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        fail("phase 16b: the zstd and gzip runs reached other final weights")
+    opening = [i + 1 for i in stream["zstd"]["opens"] if i < FORMAT_STREAM_STEPS]
+    log(f"  losses {runs['zstd']['losses']} over both, final weights equal bit for bit; "
+        f"steps 2-{FORMAT_STREAM_STEPS} (steps {opening} draw a shard-opening batch): "
+        f"{runs['zstd']['step_ms']:.2f} ms a step over zstd {runs['zstd']['each']}, "
+        f"{runs['gzip']['step_ms']:.2f} over gzip {runs['gzip']['each']}; "
+        f"{runs['zstd']['wall']:.1f} / {runs['gzip']['wall']:.1f} s a run; K2-res {4 * nl}, "
+        f"K3 {2 * nl} a step")
+    return c, dict(zstd_mbs=mbs, read_ms=read_s * 1e3, zstd_step_ms=runs["zstd"]["step_ms"],
+                   gzip_step_ms=runs["gzip"]["step_ms"],
+                   **{f"{name}_{k}": r[k] for name, r in stream.items()
+                      for k in ("fill_ms", "batch_ms", "open_ms")})
+
+
+def phase_format_finetune(dev, base):
+    """16c: ``lora_fine_tune train`` with l20 (``base``), batch 8, bf16,
+    dropout 0.1, remat, 3 steps, on JAX's two committed zstd tables (scalar
+    label; multi-label lists) and on the same rows as .npz: step losses and
+    final adapters equal bit for bit. ``tokenize`` to .parquet reads back
+    equal to its .npz. An out_proj + head adapter exported as PEFT
+    (adapter_model.safetensors) and run through ``evaluate`` gives the
+    in-memory adapter's metrics."""
+    import argparse
+    import logging
+
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import lora_fine_tune as ft
+    from plantcaduceus_tpu_torch.compat import peft_adapter
+    from plantcaduceus_tpu_torch.downstream import metrics as M
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.train import lora
+
+    cfg = CaduceusConfig.preset("l20")
+    nl = cfg.n_layer
+    tmp = REPO / "build" / "chip_smoke" / "formats"
+    log(f"phase 16c: lora_fine_tune train with l20 on JAX's zstd tables and as .npz, batch "
+        f"{FORMAT_FT_BATCH}, bf16, dropout 0.1, {FORMAT_FT_STEPS} steps")
+    args = ["--model-name", str(base), "--max-steps", str(FORMAT_FT_STEPS), "--train-batch-size",
+            str(FORMAT_FT_BATCH), "--grad-accum", "1", "--lora-dropout", "0.1",
+            "--learning-rate", "1e-3", "--warmup-steps", "1", "--save-steps",
+            str(FORMAT_FT_STEPS), "--eval-steps", str(FORMAT_FT_STEPS), "--logging-steps", "1",
+            "--eval-batch-size", str(FORMAT_FT_EVAL)]
+    c, figs = only(), {}
+    for task, name in FORMAT_FT_TABLES:
+        table = FIXTURES / f"{name}.parquet"
+        ids, labels = ft._load_data(table)
+        npz = tmp / f"{name}.npz"
+        ft._save_data(npz, {"input_ids": ids,
+                            ("labels" if task == "multi_label" else "label"): labels})
+        runs = {}
+        for fmt, path in (("parquet", table), ("npz", npz)):
+            steps, handler = ft_step_log()
+            reset_counts()
+            t = time.perf_counter()
+            try:
+                ft.main(["train", "--train-dir", str(path), "--valid-dir", str(path),
+                         "--task-type", task, "--output-dir", str(tmp / f"ft_{name}_{fmt}"),
+                         *args])
+            finally:
+                logging.getLogger("plantcaduceus_tpu_torch.cli.lora_fine_tune") \
+                    .removeHandler(handler)
+            wall = time.perf_counter() - t
+            got = counts()
+            mb = 2 * nl  # a microbatch: both directions of every layer
+            n_eval = -(-len(ids) // FORMAT_FT_EVAL) * 2 * nl
+            want = only(scan_fwd_hb=FORMAT_FT_STEPS * 2 * mb, scan_bwd=FORMAT_FT_STEPS * mb,
+                        mixer_fwd=n_eval)
+            if got != want:
+                fail(f"phase 16c {name} from {fmt} launched {got}; expected {want}")
+            c = {k: c[k] + got[k] for k in c}
+            times = {s[0]: s[2] for s in steps}
+            runs[fmt] = dict(losses=[s[1] for s in steps], wall=wall,
+                             each=[1e3 * (times[k] - times[k - 1])
+                                   for k in range(2, FORMAT_FT_STEPS + 1)])
+        if runs["parquet"]["losses"] != runs["npz"]["losses"]:
+            fail(f"phase 16c {name}: losses from parquet {runs['parquet']['losses']} != from "
+                 f".npz {runs['npz']['losses']}")
+        a = _adapter_tensors(tmp / f"ft_{name}_parquet" / "final" / "adapter.pt")
+        b = _adapter_tensors(tmp / f"ft_{name}_npz" / "final" / "adapter.pt")
+        if not a or a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"phase 16c {name}: the parquet and .npz runs reached other adapters")
+        each = runs["parquet"]["each"] + runs["npz"]["each"]
+        figs[name] = float(np.median(each))
+        log(f"  {name} ({task}, {len(ids)} rows, labels {np.asarray(labels).shape}): losses "
+            f"{runs['parquet']['losses']} from parquet and .npz, final adapters equal bit for "
+            f"bit; {figs[name]:.2f} ms a step, the median of steps 2-{FORMAT_FT_STEPS} of both "
+            f"runs {[round(v, 2) for v in each]} (parquet, then .npz); "
+            f"{runs['parquet']['wall']:.1f} / {runs['npz']['wall']:.1f} s a run")
+
+    # tokenize on the card's host: .parquet (gzip, list columns) equal to .npz
+    rng = np.random.default_rng(16)
+    tsv = tmp / "tok.tsv"
+    tsv.write_text("sequence\tlabel\n" + "".join(
+        f"{''.join(rng.choice(list('ACGTN'), 512))}\t1{rng.integers(0, 2)}{rng.integers(0, 2)}\n"
+        for _ in range(32)))
+    for task in ("classification", "multi_label"):
+        got = {}
+        for suffix in ("parquet", "npz"):
+            out = tmp / f"tok_{task}.{suffix}"
+            ft.main(["tokenize", "--data-dir", str(tsv), "--output-path", str(out),
+                     "--model-name", str(base), "--sequence-length", "512", "--task-type", task])
+            got[suffix] = ft._load_data(out)
+        if not all(np.array_equal(x, y) for x, y in zip(got["parquet"], got["npz"])):
+            fail(f"phase 16c: tokenize {task} to .parquet reads back unlike its .npz")
+    log("  tokenize to .parquet (gzip, list columns) reads back equal to .npz: classification "
+        "and multi-label, 32 rows")
+
+    # the adapter as PEFT safetensors, through evaluate, vs in memory
+    table = FIXTURES / "lora_cls.parquet"
+    adapters, head, cfg_l, task, _ = lora.load_adapter(tmp / "ft_lora_cls_parquet" / "final")
+    sub = {"out_proj": adapters["out_proj"]}
+    peft_dir = tmp / "peft"
+    shutil.rmtree(peft_dir, ignore_errors=True)
+    peft_adapter.export_peft_adapter(peft_dir, sub, head, cfg, cfg_l, task, str(base))
+    if sorted(p.name for p in peft_dir.iterdir()) != ["adapter_config.json",
+                                                      "adapter_model.safetensors"]:
+        fail(f"phase 16c: the PEFT export wrote {sorted(p.name for p in peft_dir.iterdir())}")
+    mj = tmp / "peft_metrics.json"
+    reset_counts()
+    ft.main(["evaluate", "--checkpoint-dir", str(peft_dir), "--data-dir", str(table),
+             "--model-name", str(base), "--batch-size", str(FORMAT_FT_EVAL), "--metrics-json",
+             str(mj)])
+    got_c = counts()
+    ids, labels = ft._load_data(table)
+    n_eval = -(-len(ids) // FORMAT_FT_EVAL) * 2 * nl
+    if got_c != only(mixer_fwd=n_eval):
+        fail(f"phase 16c evaluate launched {got_c}; expected mixer_fwd={n_eval}")
+    c = {k: c[k] + got_c[k] for k in c}
+    ns = argparse.Namespace(model_name=str(base), lora_r=cfg_l.r, lora_alpha=cfg_l.alpha,
+                            lora_dropout=cfg_l.dropout, learning_rate=1e-3, warmup_steps=50,
+                            max_steps=500, weight_decay=0.01, bf16=True, device="cuda",
+                            full_finetune=False, grad_accum=1)
+    model, _, _, _, _, _, infer_fn, _, device = ft._build(ns, task, head["b"].shape[0])
+    state = lora.LoraTrainState(lora.trainable_copy(sub, device),
+                                lora.trainable_copy(head, device), None, 0)
+    logits = ft._predict_all(infer_fn, state, model, ids, FORMAT_FT_EVAL)
+    want = {k: float(v) for k, v in ft._task_metrics(task, logits, labels, M).items()}
+    metrics = json.loads(mj.read_text())
+    if metrics != want:
+        fail(f"phase 16c: evaluate on the safetensors adapter gave {metrics}; in memory {want}")
+    log(f"  PEFT adapter_model.safetensors (out_proj + head) through evaluate: "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in metrics.items())}, equal to the in-memory "
+        f"adapter's")
+    return c, figs
+
+
+def phase_formats(dev, tsv, n_valid):
+    """Phase 16. Each main path's counts are zeroed just before it and read
+    just after."""
+    t = time.perf_counter()
+    marks = [t]
+    ca, fa, base = phase_format_checkpoints(dev, tsv, n_valid)
+    marks.append(time.perf_counter())
+    cb, fb = phase_format_streaming(dev)
+    marks.append(time.perf_counter())
+    cc, fc = phase_format_finetune(dev, base)
+    marks.append(time.perf_counter())
+    c = {k: ca[k] + cb[k] + cc[k] for k in ca}
+    log("phase 16 seconds: " + ", ".join(f"{n} {b - a:.1f}" for n, a, b in zip(
+        ("16a checkpoints", "16b streaming", "16c fine-tuning"), marks, marks[1:])))
+    log(f"phase 16 ok in {time.perf_counter() - t:.1f} s: zstd {fb['zstd_mbs']:.2f} MB/s on "
+        f"the host; a shard-opening batch {fb['zstd_open_ms']:.2f} ms over zstd, "
+        f"{fb['gzip_open_ms']:.2f} over gzip; streaming l20 {fb['zstd_step_ms']:.2f} ms a step "
+        f"over zstd shards, {fb['gzip_step_ms']:.2f} over gzip; LoRA l20 median "
+        f"{', '.join(f'{k} {v:.2f}' for k, v in fc.items())} ms a step; launches "
+        f"{dict((k, v) for k, v in c.items() if v)}")
+    return c, dict(checkpoints=fa, streaming=fb, finetune=fc)
+
+
 def main():
     import torch
 
@@ -3872,6 +4265,9 @@ def main():
     # phase 15: the rest of training, after every earlier phase
     torch.cuda.empty_cache()
     rc, rf = phase_rest_of_training(dev, tsv, n_valid, ev)
+    # phase 16: the formats users have, after every earlier phase
+    torch.cuda.empty_cache()
+    gc16, gf = phase_formats(dev, tsv, n_valid)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
@@ -3884,28 +4280,30 @@ def main():
         f"{EVAL_L} bp; LoRA l20 {ff['step_ms']:.2f} ms per step ({ff['wps']:.2f} windows/s), "
         f"pc2-small x {PC2_L} bp {ff['pc2']['step_ms']:.2f} ms per step "
         f"({ff['pc2']['wps']:.2f} windows/s); streaming l20 {rf['streaming']['step_ms']:.2f} "
-        f"ms per step; distillation l20 -> l20-ssd {rf['distill']['step_ms']:.2f} ms per step")
+        f"ms per step; distillation l20 -> l20-ssd {rf['distill']['step_ms']:.2f} ms per step; "
+        f"zstd on the host {gf['streaming']['zstd_mbs']:.2f} MB/s")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                           launches=k2_launches + ek2 + xk2 + sk2 + tk2 + fc["mixer_fwd"]
-                          + rc["mixer_fwd"]),
+                          + rc["mixer_fwd"] + gc16["mixer_fwd"]),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                               launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]
-                              + rc["mixer_fwd_res"]),
+                              + rc["mixer_fwd_res"] + gc16["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                          launches=k1_launches + ar1["scan_fwd"]),
         "scan_fwd_hb": dict(source=src + "scan_fwd.cu",
                             replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
-                            launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]),
+                            launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]
+                            + gc16["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
                          launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]
-                         + rc["scan_bwd"]),
+                         + rc["scan_bwd"] + gc16["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
                         launches=k4_launches + ar2["ssd_fwd"]),
@@ -3985,13 +4383,15 @@ def main():
             **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
             **{k: "plantcaduceus_tpu/ops/pallas_attention.py" + v for k, v in also.items()},
             **extra))
-    # Phases 14 and 15: their launches beside each total; K1-hb and K3 at
-    # pc2-small x 600 bp.
+    # Phases 14, 15 and 16: their launches beside each total; K1-hb and K3
+    # at pc2-small x 600 bp.
     for k in kernels:
         if fc.get(k["name"]):
             k["phase14_launches"] = fc[k["name"]]
         if rc.get(k["name"]):
             k["phase15_launches"] = rc[k["name"]]
+        if gc16.get(k["name"]):
+            k["phase16_launches"] = gc16[k["name"]]
         if k["name"] in k600:
             r = k600[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], r["err"])

@@ -2,8 +2,8 @@
 
 Subcommands:
 
-  tokenize  — TSV -> fixed-length token ids (``.npz``, or ``.parquet``
-              through pandas)
+  tokenize  — TSV -> fixed-length token ids (``.npz``, or gzip ``.parquet``
+              with list columns)
   train     — LoRA adapters (r=8, alpha=32, dropout .1, the Mamba
               projections) + task head, or every weight with
               ``--full-finetune``; classification | regression | multi_label
@@ -13,8 +13,9 @@ Subcommands:
 
 Data files: the path's suffix decides the format. ``.npz`` holds
 ``input_ids`` (int32 [n, L]) and ``label`` or ``labels`` (numpy);
-``.parquet`` is read and written through pandas, as the JAX CLI does (hosts
-without pandas use ``.npz``). ``tokenize --data-dir`` reads TSVs through
+``.parquet`` holds them as columns, ``input_ids`` and ``labels`` as lists,
+read and written by the port's ``io.parquet`` (the JAX CLI's zstd files
+read too; the port writes gzip). ``tokenize --data-dir`` reads TSVs through
 ``io.tables`` (``.gz/.bz2/.xz/.zip`` too); hub datasets are refused.
 Checkpoints: ``<output-dir>/checkpoint-N`` (resumable with
 ``--resume-from``) and ``final/`` (the adapter export); ``evaluate`` and
@@ -43,18 +44,6 @@ import numpy as np
 import torch
 
 log = logging.getLogger(__name__)
-
-_PANDAS_MSG = ("reading or writing {path} needs pandas (and pyarrow), which this host "
-               "lacks; tokenize to a .npz file instead (tokenize --output-path data.npz)")
-
-
-def _pandas(path):
-    try:
-        import pandas as pd
-    except ImportError as e:
-        raise ImportError(_PANDAS_MSG.format(path=path)) from e
-    return pd
-
 
 # ---------------------------------------------------------------------------
 # tokenize
@@ -113,13 +102,9 @@ def _save_data(path, data):
     if str(path).endswith(".npz"):
         np.savez(path, **data)
         return
-    pd = _pandas(path)
-    df = pd.DataFrame({"input_ids": list(data["input_ids"])})
-    if "labels" in data:
-        df["labels"] = list(data["labels"])
-    elif "label" in data:
-        df["label"] = data["label"]
-    df.to_parquet(path, compression="zstd")
+    from plantcaduceus_tpu_torch.io.parquet import write_parquet
+
+    write_parquet(path, {k: data[k] for k in ("input_ids", "labels", "label") if k in data})
 
 
 # ---------------------------------------------------------------------------
@@ -138,14 +123,22 @@ def _load_data(path):
             elif "label" in z:
                 labels = z["label"]
         return ids, labels
-    pd = _pandas(path)
-    df = pd.read_parquet(path)
-    ids = np.stack(df["input_ids"].to_numpy()).astype(np.int32)
+    from plantcaduceus_tpu_torch.io.parquet import read_parquet
+
+    cols = read_parquet(path)
+
+    def rows(name):
+        if any(v is None for v in cols[name]):
+            raise ValueError(f"{path}: column {name!r} holds a null list")
+        return np.stack(cols[name])
+
+    ids = rows("input_ids").astype(np.int32)
     labels = None
-    if "labels" in df.columns:
-        labels = np.stack(df["labels"].to_numpy()).astype(np.float32)
-    elif "label" in df.columns:
-        labels = df["label"].to_numpy()
+    if "labels" in cols:
+        labels = rows("labels").astype(np.float32)
+    elif "label" in cols:  # text labels come as a list: an object array, as pandas gives
+        labels = cols["label"]
+        labels = labels if isinstance(labels, np.ndarray) else np.array(labels, dtype=object)
     return ids, labels
 
 
@@ -431,7 +424,7 @@ def main(argv=None):
     tkn = sub.add_parser("tokenize")
     tkn.add_argument("--data-dir", default=None)
     tkn.add_argument("--output-path", default=None,
-                     help=".npz (numpy) or .parquet (pandas); default: --data-dir as .parquet")
+                     help=".npz or .parquet; default: --data-dir as .parquet")
     tkn.add_argument("--model-name", default=None)
     tkn.add_argument("--sequence-length", type=int, default=8192)
     tkn.add_argument("--task-type", default="classification")

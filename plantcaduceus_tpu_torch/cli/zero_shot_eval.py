@@ -6,8 +6,9 @@ evo_cons | motif_acc | sv_effect | core_noncore.
 
 ``--repo-id`` is a local TSV (header row, tab-separated; ``.gz``, ``.bz2``,
 ``.xz`` or ``.zip`` by its suffix, as pandas reads them) or a local
-``.parquet`` table (the port's reader, ``io/parquet``: gzip, snappy or
-uncompressed; a zstd table is refused by name). Refused, with a message: a
+``.parquet`` table (the port's reader, ``io/parquet``: zstd, gzip, snappy
+or uncompressed; a codec or column it does not read exits with its
+message). Refused, with a message: a
 hub dataset id (no network), ``--seq > 1`` (context parallelism needs
 several GPUs). Logit caching via --save-logits / --logits-path and metrics
 via --metrics-json, in the JAX CLI's layouts (TSV).

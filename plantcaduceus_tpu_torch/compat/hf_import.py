@@ -1,4 +1,4 @@
-"""Strict HF Caduceus checkpoint loader: ``pytorch_model*.bin`` -> model.
+"""Strict HF Caduceus checkpoint loader: ``*.safetensors`` or ``pytorch_model*.bin`` -> model.
 
 Counterpart of ``plantcaduceus_tpu.compat.hf_import``, with the same
 contract: every state-dict tensor is consumed exactly once (known torch
@@ -26,18 +26,21 @@ import numpy as np
 import torch
 
 from plantcaduceus_tpu_torch.compat.params import from_jax_params
+from plantcaduceus_tpu_torch.io import safetensors
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
 
 def load_state_dict(model_dir) -> Dict[str, np.ndarray]:
-    """All tensors of ``pytorch_model*.bin`` (shards included), as float32
-    numpy arrays, read with ``torch.load(weights_only=True)``."""
+    """All tensors of a checkpoint dir as float32 numpy arrays, in the JAX
+    package's order: every ``*.safetensors`` file (sorted and merged, shards
+    included, read by the port's ``io.safetensors``), else every
+    ``pytorch_model*.bin`` (``torch.load(weights_only=True)``)."""
     p = Path(model_dir)
+    if any(p.glob("*.safetensors")):
+        return {k: np.asarray(v, np.float32) for k, v in safetensors.load_dir(p).items()}
     bin_files = sorted(p.glob("pytorch_model*.bin"))
     if not bin_files:
-        raise FileNotFoundError(
-            f"no pytorch_model*.bin under {p} (safetensors checkpoints are "
-            "not read by the PyTorch port)")
+        raise FileNotFoundError(f"no *.safetensors or pytorch_model*.bin under {p}")
     tensors: Dict[str, np.ndarray] = {}
     for f in bin_files:
         sd = torch.load(str(f), map_location="cpu", weights_only=True)

@@ -23,9 +23,10 @@ the route for adapters between the two packages:
 * strict ledger: every adapter tensor must be consumed, mirroring
   hf_import's bijection proof.
 
-Tensor files: ``adapter_model.safetensors`` through ``safetensors`` where
-it is installed, else ``adapter_model.bin`` through ``torch.save`` /
-``torch.load(weights_only=True)``, as the JAX package dispatches.
+Tensor files: ``adapter_model.safetensors`` through the port's
+``io.safetensors`` (the export always writes it, as the JAX package does
+where its ``safetensors`` package is installed), else ``adapter_model.bin``
+through ``torch.load(weights_only=True)``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from plantcaduceus_tpu_torch.compat.hf_import import _Resolver
+from plantcaduceus_tpu_torch.io import safetensors
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.train.lora import LoraConfig
 
@@ -49,18 +51,7 @@ _TASK_FROM_PEFT = {"SEQ_CLS": "classification"}
 def _load_adapter_tensors(adapter_dir: Path) -> Dict[str, np.ndarray]:
     st = adapter_dir / "adapter_model.safetensors"
     if st.exists():
-        try:
-            from safetensors.numpy import load_file
-
-            return dict(load_file(str(st)))
-        except ImportError:
-            from safetensors import safe_open  # type: ignore
-
-            out = {}
-            with safe_open(str(st), framework="np") as sf:
-                for k in sf.keys():
-                    out[k] = sf.get_tensor(k)
-            return out
+        return safetensors.load_file(st)
     bn = adapter_dir / "adapter_model.bin"
     if bn.exists():
         import torch
@@ -302,18 +293,8 @@ def export_peft_adapter(directory, adapters: Dict, head: Optional[Dict],
         sd["base_model.model.score.modules_to_save.bias"] = \
             np.asarray(head["b"], np.float32)
 
-    try:
-        from safetensors.numpy import save_file
-
-        save_file({k: np.ascontiguousarray(v, np.float32)
-                   for k, v in sd.items()},
-                  str(directory / "adapter_model.safetensors"))
-    except ImportError:
-        import torch
-
-        torch.save({k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-                    for k, v in sd.items()},
-                   str(directory / "adapter_model.bin"))
+    safetensors.save_file({k: np.ascontiguousarray(v, np.float32) for k, v in sd.items()},
+                          directory / "adapter_model.safetensors")
 
     peft_task = {v: k for k, v in _TASK_FROM_PEFT.items()}.get(task_type,
                                                                task_type)

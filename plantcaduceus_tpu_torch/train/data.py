@@ -6,10 +6,11 @@ src/HF_pre_train.py's tokenize/map path.
 
 * ``sequence_source`` resolves where raw sequences come from: a synthetic
   stream, a TSV/CSV with a ``seq`` column (read with the ``csv`` module), a
-  parquet table (the port's reader, ``io/parquet``), or a FASTA tiled into
-  windows. ``hf:`` datasets need the network and the ``datasets`` package,
-  which the GPU hosts lack: they raise. Corpora too large for memory stream
-  from shards (``train/streaming``, ``--dataset shards:<dir>``).
+  parquet table (the port's reader, ``io/parquet``, zstd pages included),
+  or a FASTA tiled into windows. ``hf:`` datasets need the network and the
+  ``datasets`` package, which the GPU hosts lack: they raise. Corpora too
+  large for memory stream from shards (``train/streaming``, ``--dataset
+  shards:<dir>``).
 * ``PretrainDataset`` tokenises, computes the lowercase soft-mask weights
   and applies the MLM collator. ``batch_at(step)`` is a pure function of
   (seed, step) and gives the JAX package's batches byte for byte.

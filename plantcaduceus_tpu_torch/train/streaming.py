@@ -15,14 +15,14 @@ readers (no pandas):
 The numpy generators are drawn in the JAX package's order, so both packages
 yield the same batches byte for byte from the same shards, from step 0, from
 a resume step and in ``eval_batches``. Parquet shards go through
-``io/parquet`` (gzip, snappy or uncompressed; the JAX package's zstd shards
-are refused by name), TSV shards through ``io/tables`` (the first column
+``io/parquet`` (zstd, gzip, snappy or uncompressed: the JAX package's zstd
+shards too), TSV shards through ``io/tables`` (the first column
 stands in for a missing ``seq_column``, as in JAX), FASTA shards one
 chromosome at a time through ``io/fasta``.
 
 ``convert_to_shards`` is the offline converter: it splits any iterable of
-sequences into fixed-size gzip parquet shards (JAX writes zstd, which the
-GPU hosts cannot read; both packages read the port's shards).
+sequences into fixed-size gzip parquet shards (JAX writes zstd, through
+pandas; both packages read both packages' shards).
 """
 
 from __future__ import annotations

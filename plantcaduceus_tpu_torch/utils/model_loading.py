@@ -1,7 +1,8 @@
 """Model + tokenizer resolution for the port's CLIs.
 
-Accepts an HF checkpoint directory (``pytorch_model*.bin`` + config.json,
-read by the strict loader of ``compat.hf_import``) or a preset spec
+Accepts an HF checkpoint directory (config.json and ``*.safetensors``, sharded
+or not, or ``pytorch_model*.bin``, read by the strict loader of
+``compat.hf_import``) or a preset spec
 ``<preset>[:random]`` that builds a model of the published size with
 weights drawn from a seeded ``torch.Generator``.
 """

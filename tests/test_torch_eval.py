@@ -267,8 +267,9 @@ def test_row_mismatch_asserts(tiny_ckpt, frames, tmp_path):
 
 @pytest.mark.parametrize("route", ["zstd", "hub", "seq"])
 def test_refused_routes(tiny_ckpt, frames, tmp_path, route, capsys):
-    """A zstd parquet table (no decoder on the GPU hosts; parquet in gzip,
-    snappy or none is read), a hub dataset id and ``--seq > 1``."""
+    """A hub dataset id and ``--seq > 1`` are refused. A zstd parquet table
+    is no longer refused (the port carries a zstd decoder): its metrics
+    equal the TSV's."""
     import pandas as pd
 
     from plantcaduceus_tpu_torch.cli.zero_shot_eval import main
@@ -276,14 +277,20 @@ def test_refused_routes(tiny_ckpt, frames, tmp_path, route, capsys):
     if route == "zstd":
         pd.read_csv(frames["evo"], sep="\t").to_parquet(tmp_path / "x.parquet",
                                                         compression="zstd")
-    repo = {"zstd": str(tmp_path / "x.parquet"), "hub": "kuleshov-group/cross-species",
-            "seq": str(frames["evo"])}[route]
+        metrics = {}
+        for name, table in (("zstd", tmp_path / "x.parquet"), ("tsv", frames["evo"])):
+            metrics[name] = tmp_path / f"{name}.json"
+            main(["evo_cons", "--repo-id", str(table), "--model", tiny_ckpt, "--device", "cpu",
+                  "--token-idx", str(CENTER), "--no-progress", "--metrics-json",
+                  str(metrics[name])])
+        assert json.loads(metrics["zstd"].read_text()) == json.loads(metrics["tsv"].read_text())
+        return
+    repo = {"hub": "kuleshov-group/cross-species", "seq": str(frames["evo"])}[route]
     with pytest.raises(SystemExit) as exc:
         main(["evo_cons", "--repo-id", repo, "--model", tiny_ckpt, "--device", "cpu",
               *(["--seq", "2"] if route == "seq" else [])])
     text = str(exc.value) + capsys.readouterr().err
-    assert {"zstd": "ZSTD compression is not read", "hub": "local TSV",
-            "seq": "--seq"}[route] in text
+    assert {"hub": "local TSV", "seq": "--seq"}[route] in text
 
 
 def test_load_tokenizer_only(tiny_ckpt):
@@ -313,7 +320,8 @@ for m in ("models.mamba_lm", "cli.ar_lm", "engine.eval_tasks", "cli.zero_shot_ev
           "models.heads", "models.caduceus", "train.lora", "compat.peft_adapter",
           "cli.lora_fine_tune", "cli.finetune_suite", "compat.model_card", "cli.pretrain",
           "io.parquet", "train.data", "train.streaming", "utils.profiling", "train.loop",
-          "train.distill", "cli.distill", "train.convergence", "models.gpn"):
+          "train.distill", "cli.distill", "train.convergence", "models.gpn",
+          "io.safetensors", "io.zstd", "compat.hf_import"):
     importlib.import_module("plantcaduceus_tpu_torch." + m)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "plantcaduceus_tpu", "sklearn", "pandas",

@@ -5,7 +5,8 @@ CPU.
 * PEFT import and export against JAX's on ``tests/test_peft_adapter.py``'s
   hand-built dirs, in ``adapter_model.safetensors`` and, with safetensors
   hidden, ``adapter_model.bin``: the same adapter tree, head, config and
-  task, the same files written, and the same strict refusals.
+  task, the same tensors written (the port always as
+  ``adapter_model.safetensors``), and the same strict refusals.
 * ``evaluate`` and ``predict`` of the port on a PEFT dir the JAX package
   exported, equal to the JAX CLI's within 1e-5 (both in float32 with
   ``--no-bf16``), and the JAX CLI's ``predict`` on the port's export equal
@@ -147,8 +148,12 @@ def test_peft_import_and_export_match_jax(tmp_path, fmt, per_direction, with_hea
     adapters, head, cfg_l, task, base = got
     tpeft.export_peft_adapter(tmp_path / "t", adapters, head, cfg, cfg_l, task, base)
     jpeft.export_peft_adapter(tmp_path / "j", *want[:2], jcfg, want[2], task, base)
-    name = "adapter_model" + fmt
-    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == ["adapter_config.json", name]
+    # the port always writes safetensors (its own writer); JAX writes .bin
+    # where its safetensors package is hidden
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == [
+        "adapter_config.json", "adapter_model.safetensors"]
+    assert sorted(p.name for p in (tmp_path / "j").iterdir()) == [
+        "adapter_config.json", "adapter_model" + fmt]
     assert ((tmp_path / "t" / "adapter_config.json").read_text()
             == (tmp_path / "j" / "adapter_config.json").read_text())
     t_sd, j_sd = (tpeft._load_adapter_tensors(tmp_path / k) for k in ("t", "j"))
@@ -315,13 +320,19 @@ def test_tokenize_matches_jax(tmp_path, base_dir, task):
 
 
 def test_hub_dataset_and_parquet_without_pandas_are_refused(tmp_path, monkeypatch):
-    from plantcaduceus_tpu_torch.cli.lora_fine_tune import _load_data, main
+    """A hub dataset is refused; a ``.parquet`` without pandas is no longer
+    refused: it is written and read by the port's ``io.parquet``."""
+    from plantcaduceus_tpu_torch.cli.lora_fine_tune import _load_data, _save_data, main
 
     with pytest.raises(SystemExit, match="--hf-dataset"):
         main(["tokenize", "--hf-dataset", "org/data"])
     monkeypatch.setitem(sys.modules, "pandas", None)
-    with pytest.raises(ImportError, match=r"\.npz"):
-        _load_data(tmp_path / "x.parquet")
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    ids = np.arange(12, dtype=np.int32).reshape(3, 4)
+    _save_data(tmp_path / "x.parquet", {"input_ids": ids, "label": np.array([0, 1, 0])})
+    got_ids, got_labels = _load_data(tmp_path / "x.parquet")
+    np.testing.assert_array_equal(got_ids, ids)
+    np.testing.assert_array_equal(got_labels, [0, 1, 0])
 
 
 def test_display_lists_jax_leaves(base_dir, capsys):

@@ -1353,3 +1353,31 @@ def test_distill_gradients_match_plain_path(cuda):
         grads[use_kernels] = {k: p.grad for k, p in student.named_parameters()}
     for k, w in grads[False].items():
         _close_to_scale(grads[True][k], w, 1e-3, k)
+
+
+def test_safetensors_checkpoint_scores_on_the_card(cuda, tmp_path):
+    """A checkpoint of safetensors shards (the port's writer) imports and
+    runs on the card through K2, with logits equal bit for bit to those of
+    the ``pytorch_model.bin`` dir holding the same weights."""
+    from plantcaduceus_tpu_torch.compat.hf_export import export_hf_dir
+    from plantcaduceus_tpu_torch.io import safetensors
+    from plantcaduceus_tpu_torch.models.caduceus import init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    cfg = CaduceusConfig(d_model=64, n_layer=2)
+    export_hf_dir(tmp_path / "bin", init_params(cfg, seed=4), cfg)
+    (tmp_path / "st").mkdir()
+    (tmp_path / "st" / "config.json").write_text((tmp_path / "bin" / "config.json").read_text())
+    safetensors.save_sharded(torch.load(tmp_path / "bin" / "pytorch_model.bin",
+                                        weights_only=True), tmp_path / "st", 2)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(7, 11, (4, 96))).to(cuda)
+    logits = {}
+    for name in ("bin", "st"):
+        model = load_model_and_tokenizer(str(tmp_path / name))[0].to(cuda)
+        before = cuda_mixer.mixer_fwd.launches
+        with torch.inference_mode():
+            logits[name] = model(ids, dtype=torch.float32)["logits"]
+        torch.cuda.synchronize()
+        assert cuda_mixer.mixer_fwd.launches - before == 2 * cfg.n_layer
+    assert torch.isfinite(logits["st"]).all() and torch.equal(logits["st"], logits["bin"])

@@ -6,8 +6,8 @@ the CPU.
   row groups; with a dictionary, with its fallback to PLAIN pages, and
   without; data pages v1 and v2; uncompressed, snappy and gzip) read equal
   to ``pyarrow.parquet.read_table``; snappy's overlapping copies; the
-  port's files read back equal by pyarrow and pandas; the JAX package's
-  zstd shards, and nested columns, refused by name.
+  port's files read back equal by pyarrow and pandas; zstd frames with a
+  dictionary, structs, maps and lists of lists refused by name.
 * ``train/streaming``: over one shard directory written by the port's
   ``convert_to_shards``, JAX's ``StreamingPretrainDataset`` and the port's
   give byte-equal batches from step 0, from a resume step and across epoch
@@ -145,15 +145,25 @@ def test_port_files_read_back_by_pyarrow_and_pandas(tmp_path):
 
 
 def test_zstd_and_nested_are_refused_by_name(tmp_path):
-    jstreaming.convert_to_shards(["ACGT" * 16] * 10, tmp_path / "jax", shard_size=10)
-    with pytest.raises(ValueError, match="ZSTD.*convert_to_shards"):
-        parquet.read_parquet(tmp_path / "jax" / "shard_00000.parquet")
-    with pytest.raises(ValueError, match="ZSTD"):
-        next(streaming.StreamingPretrainDataset(tmp_path / "jax", DnaTokenizer(), 2,
-                                                window=64).iter_from(0))
-    pq.write_table(pa.table({"input_ids": [[1, 2], [3]], "label": [0, 1]}),
-                   tmp_path / "nested.parquet")
-    with pytest.raises(ValueError, match="'input_ids' is nested"):
+    """What the reader still refuses of zstd and of nested columns, by name:
+    a zstd frame that needs a dictionary, structs, maps and lists of lists
+    (JAX's zstd shards and one-level list columns are read since the port
+    carries a zstd decoder: ``tests/test_torch_formats.py``); LZ4 pages."""
+    # zstandard.compress(b"") with a one-byte dictionary ID (7) in its header
+    framed = bytes.fromhex("28b52ffd" "21" "07" "00" "010000")
+    with pytest.raises(ValueError, match="x.parquet: column 'a'.*dictionary 7"):
+        parquet._decompress(framed, parquet.ZSTD, "x.parquet: column 'a'", 0)
+    pq.write_table(pa.table({
+        "input_ids": pa.array([[1, 2], [3]], pa.list_(pa.int32())), "label": [0, 1],
+        "s": pa.array([{"a": 1}, {"a": 2}]),
+        "m": pa.array([[("k", 1)], []], pa.map_(pa.string(), pa.int64())),
+        "ll": pa.array([[[1]], [[2, 3]]])}), tmp_path / "nested.parquet")
+    got = parquet.read_parquet(tmp_path / "nested.parquet", ["input_ids", "label"])
+    assert [list(v) for v in got["input_ids"]] == [[1, 2], [3]]
+    for col, what in (("s", "a struct"), ("m", "a map"), ("ll", "a list of lists")):
+        with pytest.raises(ValueError, match=f"'{col}' is {what}"):
+            parquet.read_parquet(tmp_path / "nested.parquet", [col])
+    with pytest.raises(ValueError, match="'s' is a struct"):
         parquet.read_parquet(tmp_path / "nested.parquet")
     pq.write_table(_table(n=8), tmp_path / "lz4.parquet", compression="lz4")
     with pytest.raises(ValueError, match="LZ4"):
