@@ -182,8 +182,21 @@ safetensors, zstandard, pandas or pyarrow there):
     as PEFT adapter_model.safetensors and run through ``evaluate`` gives
     the in-memory adapter's metrics.
 
-Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13, 14, 15 and 16 go to
-``build/chip_smoke/`` in the checkout.
+and last context and data parallelism (17; ``phase_parallel``): K3 with
+``g0``/``emit_dh0`` against its plain version at the seq path's local shape
+(pc2-small, 8 rows x 2048 x 1536, both directions, bf16 and fp32), chained
+over two halves against one call, K1-hb's first entry state equal to its
+h0; then ranks of ``torch.distributed.run`` (``chip_smoke.py
+--phase17-rank``) sharing ``cuda:0`` over gloo: pc2-small and
+pc2-small-ssd at 8192 bp scored at seq 4 (fp32 and bf16 logits) and
+trained 3 steps at data 2 x seq 2 (fp32 and bf16; the first step's
+gradients, the weights after), l20 scored with the records striped over
+data 2 and trained 2 steps; each against one process on the card; exact
+launches on every rank, each rank's peak memory, the seconds spent in the
+collectives.
+
+Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13, 14, 15, 16 and 17
+go to ``build/chip_smoke/`` in the checkout.
 
 Every failure exits non-zero; no phase's failure is caught. Without CUDA it
 exits 1 and prints no result. The last two lines of standard output are the
@@ -853,6 +866,7 @@ def _counters():
             "scan_fwd": (cuda_scan.scan_fwd, "launches"),
             "scan_fwd_hb": (cuda_scan.scan_fwd, "hb_launches"),
             "scan_bwd": (cuda_scan.scan_bwd, "launches"),
+            "scan_bwd_g0": (cuda_scan.scan_bwd, "g0_launches"),
             "ssd_fwd": (cuda_ssd.ssd_dir, "launches"),
             "ssd_fwd_fentry": (cuda_ssd.ssd_dir, "fentry_launches"),
             "mixer2_fwd": (cuda_mixer2.mamba2_mixer_interior, "launches"),
@@ -4201,6 +4215,523 @@ def phase_formats(dev, tsv, n_valid):
     return c, dict(checkpoints=fa, streaming=fb, finetune=fc)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: context and data parallelism (parallel/mesh.py,
+# parallel/collectives.py, ops/seq_parallel.py, ops/ssd_seq_parallel.py,
+# ops/conv.halo_depthwise_conv_silu, the data x seq runner, striping and train
+# step) on ranks of ``torch.distributed.run`` that share the one card over
+# gloo: every rank runs its kernels on the card, and gloo stages the
+# collectives through the host, so the times below are the card's for ranks
+# sharing it, not a scaling result. First K3's g0 / emit_dh0 at the seq
+# path's local shape (pc2-small, 4 windows + their RC stream = 8 rows x 2048
+# x 1536, R 48) against the plain version, and chained over two halves
+# against one call; then pc2-small and pc2-small-ssd at 8192 bp (scoring at
+# seq 4; pre-training at data 2 x seq 2, global batch 4, remat: 3 fp32 steps,
+# every step's gradients and the weights after them gated, and 2 bf16 steps,
+# the first's gradients gated and the second timed) and l20 at 512 bp
+# (scoring striped over data 2, K2; data-parallel training, K2-res and K3),
+# each against one process on the same card with the same weights and inputs.
+PAR_L, PAR_WINDOWS, PAR_STEPS, PAR_BF16_STEPS = 8192, 4, 3, 2
+PAR_MODELS = ("pc2-small", "pc2-small-ssd")
+DP_L, DP_WINDOWS, DP_BATCH, DP_ROWS = 512, 64, 16, 8
+PAR_SEED = 17
+DP_SCORE_TOL = 1e-5   # data-parallel scores: the same rows, the same kernels
+PAR_TIMEOUT_S = 420
+
+
+def par_inputs(workdir: Path) -> dict:
+    """The phase's inputs from a seed, written where the ranks read them:
+    per pc2 model 4 windows of 8192 ids and 4 training batches of 4 rows;
+    for l20 64 windows (striped scoring) and one training batch of 8 rows."""
+    import numpy as np
+
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.train import data as data_lib
+
+    tok = DnaTokenizer()
+    rng = np.random.default_rng(PAR_SEED)
+    inp = {"ids": tok.encode_batch(["".join(rng.choice(list("ACGT"), PAR_L))
+                                    for _ in range(PAR_WINDOWS)])}
+    seqs = data_lib.sequence_source("synthetic", window=PAR_L, synthetic_n=64, seed=PAR_SEED)
+    ds = data_lib.PretrainDataset(seqs, tok, PAR_WINDOWS, seed=PAR_SEED)
+    for s in range(1, 1 + PAR_STEPS):
+        inp.update({f"b{s}_{k}": v for k, v in ds.batch_at(s).items()})
+    windows = ["".join(rng.choice(list("ACGT"), DP_L)) for _ in range(DP_WINDOWS)]
+    inp["dp_windows"] = np.array(windows)
+    inp["dp_alt"] = np.array(["ACGT"[("ACGT".index(w[DP_L // 2 - 1]) + 1) % 4] for w in windows])
+    dseqs = data_lib.sequence_source("synthetic", window=DP_L, synthetic_n=64, seed=PAR_SEED)
+    dds = data_lib.PretrainDataset(dseqs, tok, DP_ROWS, seed=PAR_SEED)
+    for s in range(2):
+        inp.update({f"dpb{s}_{k}": v for k, v in dds.batch_at(s).items()})
+    workdir.mkdir(parents=True, exist_ok=True)
+    np.savez(workdir / "inputs.npz", **inp)
+    return inp
+
+
+def batch_of(inp, prefix):
+    return {k[len(prefix):]: inp[k] for k in inp if k.startswith(prefix)}
+
+
+def par_model(preset, dev):
+    from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    cfg = CaduceusConfig.preset(preset)
+    return cfg, Caduceus(cfg, init_params(cfg, seed=PAR_SEED)).to(dev)
+
+
+class KeptGrads:
+    """The optimizer with the gradients of each update kept on the host:
+    the train step's own gradients, checked without computing them twice."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads.append({n: g.detach().to("cpu", copy=True) for n, g in grads.items()})
+        return self.opt.update(grads, state, params)
+
+
+def par_run(preset, dev, inp, scoring_mesh, train_mesh, sync=None):
+    """One model's phase-17 work, in one process or on one rank (the meshes
+    None in one process): fp32 and bf16 logits of the 4 windows (the bf16
+    run timed), then training from the seeded weights: 3 fp32 steps (every
+    step's gradients, the weights after the third) and 2 bf16 steps (the
+    recipe's dtype: the first step's gradients, the second step timed); the
+    counts and seconds of each part."""
+    import torch
+
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.train import step as step_lib
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    sync = sync or torch.cuda.synchronize
+    t0 = time.perf_counter()
+    cfg, model = par_model(preset, dev)
+    seeded = {k: v.clone() for k, v in model.state_dict().items()}
+    out, cnt, secs = {}, {}, {"init": time.perf_counter() - t0}
+    reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        runner = InferenceRunner(model, cfg, dtype=dtype, batch_size=PAR_WINDOWS, device=dev,
+                                 mesh=scoring_mesh)
+        sync()
+        t = time.perf_counter()
+        out[f"logits_{dtype}"] = torch.from_numpy(
+            runner.run(inp["ids"], lambda o: o["logits"], progress=False))
+        sync()
+        out["score_s"] = time.perf_counter() - t
+    cnt["scoring"] = counts()
+    secs["scoring"] = time.perf_counter() - t0 - secs["init"]
+    reset_counts()
+    for dtype, n_steps in ((torch.float32, PAR_STEPS), (torch.bfloat16, PAR_BF16_STEPS)):
+        t1 = time.perf_counter()
+        model.load_state_dict(seeded)
+        # the pre-training recipe's learning rate, without its 1000-step warmup
+        opt = KeptGrads(make_optimizer(learning_rate=2e-4, warmup_steps=1,
+                                       total_steps=PAR_STEPS,
+                                       params=dict(model.named_parameters())))
+        init, step, _ = step_lib.make_train_step(cfg, opt, model, dtype=dtype, remat=True,
+                                                 device=dev, mesh=train_mesh)
+        state, times = init(), []
+        for s in range(1, n_steps + 1):
+            sync()
+            t = time.perf_counter()
+            state, m = step(state, batch_of(inp, f"b{s}_"))
+            out[f"step_loss{s}_{dtype}"] = float(m["loss"])
+            times.append(time.perf_counter() - t)
+        out[f"step_ms_{dtype}"] = 1e3 * sum(times[1:]) / len(times[1:])
+        out[f"grads_{dtype}"] = opt.grads
+        if dtype == torch.float32:
+            out["weights"] = {n: p.detach().to("cpu", copy=True)
+                              for n, p in model.named_parameters()}
+        secs[f"steps_{dtype}"] = time.perf_counter() - t1
+    cnt["steps"] = counts()
+    out["counts"], out["secs"] = cnt, secs
+    return out
+
+
+def dp_run(dev, inp, mesh, sync=None):
+    """l20 at 512 bp in one process or on one rank of a data-2 mesh: fp32
+    scores of the 64 windows (striped over data), their windows/s, and two
+    fp32 training steps (the second timed; the weights after)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.engine import zero_shot
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.train import step as step_lib
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    sync = sync or torch.cuda.synchronize
+    cfg, model = par_model("l20", dev)
+    runner = InferenceRunner(model, cfg, dtype=torch.float32, batch_size=DP_BATCH, device=dev,
+                             mesh=mesh)
+    seqs = [str(w) for w in inp["dp_windows"]]
+    out, cnt = {}, {}
+    reset_counts()
+    probs = zero_shot.nucleotide_probs(runner, DnaTokenizer(), seqs, DP_L // 2 - 1,
+                                       progress=False)
+    cnt["scoring"] = counts()
+    sync()
+    t = time.perf_counter()
+    zero_shot.nucleotide_probs(runner, DnaTokenizer(), seqs, DP_L // 2 - 1, progress=False)
+    sync()
+    out["score_s"] = time.perf_counter() - t
+    out["scores"] = torch.from_numpy(zero_shot.log_ratio_scores(
+        probs, [w[DP_L // 2 - 1] for w in seqs], [str(a) for a in inp["dp_alt"]]))
+    reset_counts()
+    opt = make_optimizer(learning_rate=1e-3, warmup_steps=1, total_steps=1,
+                         params=dict(model.named_parameters()))
+    init, step, _ = step_lib.make_train_step(cfg, opt, model, dtype=torch.float32, remat=True,
+                                             device=dev, mesh=mesh)
+    state = init()
+    for s in range(2):
+        sync()
+        t = time.perf_counter()
+        state, m = step(state, batch_of(inp, f"dpb{s}_"))
+        out[f"step_loss{s}"] = float(m["loss"])
+    out["step_ms"] = 1e3 * (time.perf_counter() - t)  # the second step's
+    cnt["step"] = counts()
+    out["weights"] = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    out["counts"] = cnt
+    return out
+
+
+def time_collectives() -> dict:
+    """Wrap the collectives' host-side bodies and the train step's gradient
+    sum so that each adds its wall seconds (the device synchronised at its
+    start: the staging copy waits for the card) to the returned dict."""
+    from plantcaduceus_tpu_torch.parallel import collectives
+    from plantcaduceus_tpu_torch.train import step as step_lib
+
+    spent = {}
+
+    def timed(mod, name, key):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+
+        setattr(mod, name, wrapper)
+
+    for name in ("_all_reduce", "_all_gather", "_reduce_scatter", "_ppermute"):
+        timed(collectives, name, name.lstrip("_"))
+    timed(step_lib, "sync_grads", "gradient_sum")
+    return spent
+
+
+def phase17_rank(job: str, workdir: Path) -> None:
+    """One rank of phase 17 (started by ``torch.distributed.run``): ``job``
+    "pc2" (4 ranks: seq 4 scoring, data 2 x seq 2 training) or "l20" (2
+    ranks, data 2). Rank 0 writes the results; every rank its counts and
+    peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from plantcaduceus_tpu_torch.parallel import mesh as meshlib
+
+    if not torch.cuda.is_available():
+        fail("phase 17 rank: no GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = meshlib.initialize_distributed("cuda", timeout_s=PAR_TIMEOUT_S)
+    rank = meshlib.world()[0]
+    inp = dict(np.load(workdir / "inputs.npz"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    comm = time_collectives()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    if job == "pc2":
+        seq4 = meshlib.make_mesh(meshlib.MeshConfig(seq=4))
+        d2s2 = meshlib.make_mesh(meshlib.MeshConfig(data=2, seq=2))
+        res = {p: par_run(p, dev, inp, seq4, d2s2, sync) for p in PAR_MODELS}
+    else:
+        res = {"l20": dp_run(dev, inp, meshlib.make_mesh(meshlib.MeshConfig(data=2)), sync)}
+    mine = {"counts": {p: r.pop("counts") for p, r in res.items()},
+            "secs": {p: r.pop("secs", None) for p, r in res.items()}, "comm_s": comm,
+            "peak": torch.cuda.max_memory_allocated(dev), "device": str(dev),
+            "backend": dist.get_backend()}
+    (workdir / f"{job}_rank{rank}.json").write_text(json.dumps(mine))
+    if rank == 0:
+        torch.save(res, workdir / f"{job}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks(n: int, job: str, workdir: Path) -> float:
+    """``python -m torch.distributed.run --standalone --nproc-per-node n
+    chip_smoke.py --phase17-rank job workdir``; fails the phase if a rank
+    fails (torch.distributed.run then stops its siblings) or the call
+    outlasts its limit (the whole process group is killed). Returns its
+    seconds."""
+    logf = workdir / f"{job}.log"
+    t = time.perf_counter()
+    with open(logf, "wb") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(n), str(REPO / "chip_smoke.py"), "--phase17-rank", job, str(workdir)],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1"),
+            stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PAR_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        tail = logf.read_text(errors="replace")[-6000:]
+        fail(f"phase 17: {n} ranks of {job} ended with {rc}:\n{tail}")
+    return time.perf_counter() - t
+
+
+def k3_options_check(dev):
+    """K3 with g0 and emit_dh0 at the seq path's local shape against its
+    plain version (both directions, bf16 and fp32, fused dt), K1-hb's first
+    entry state against the h0 it was given (K3 recomputes from it), and two
+    calls over the halves chained through dh0 -> g0 against one call."""
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.ops import cuda_scan
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    rows, L, D, N, R = 2 * PAR_WINDOWS, PAR_L // 4, 1536, 16, 48
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    r = lambda *shape, sc=1.0: torch.randn(*shape, generator=gen, device=dev) * sc
+    res, err = {}, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        x, gy = r(rows, L, D).to(dtype), r(rows, L, D).to(dtype)
+        dt = r(rows, L, R, sc=0.5).to(dtype)
+        Bm, Cm = r(rows, L, N).to(dtype), r(rows, L, N).to(dtype)
+        A = -torch.exp(r(D, N, sc=0.5))
+        Ds, dtb, w = r(D), r(D, sc=0.3), r(R, D, sc=0.3)
+        h0, g0 = r(rows, D, N), r(rows, D, N)
+        kres = {}
+        for reverse in (False, True):
+            _, hb = cuda_scan.scan_fwd(x, dt, A, Bm, Cm, Ds, dtb, w, reverse, HB_CHUNK, h0=h0)
+            if not torch.equal(hb[:, 0], h0):
+                fail("phase 17: K1-hb's first chunk-entry state is not the h0 it was given")
+            args = (x, gy, dt, A, Bm, Cm, Ds, dtb, hb, w, reverse, HB_CHUNK)
+            got = cuda_scan.scan_bwd(*args, g0=g0, emit_dh0=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()   # the plain version's one call, timed
+            want = cuda_scan.scan_bwd_plain(*args, g0=g0, emit_dh0=True)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t)
+            for n, g, wnt in zip(("dx", "ddt", "dB", "dC", "dA", "ddt_bias", "dD", "dW", "dh0"),
+                                 got, want):
+                err = max(err, compare(f"K3-g0/dh0 {dn} {'rev' if reverse else 'fwd'} {n}", g,
+                                       wnt, dn, F32_TOL))
+            nl = L // 2 // HB_CHUNK
+            spans = [((0, L // 2), hb[:, :nl]), ((L // 2, L), hb[:, nl:])]
+            if reverse:
+                spans = [((L // 2, L), hb[:, :nl]), ((0, L // 2), hb[:, nl:])]
+            part = lambda t, a, b: t[:, a:b].contiguous()
+            g, outs = g0, {}
+            for (a, b), hbp in reversed(spans):
+                outs[a] = cuda_scan.scan_bwd(part(x, a, b), part(gy, a, b), part(dt, a, b), A,
+                                             part(Bm, a, b), part(Cm, a, b), Ds, dtb,
+                                             hbp.contiguous(), w, reverse, HB_CHUNK, g0=g,
+                                             emit_dh0=True)
+                g = outs[a][-1]
+            for i, n in enumerate(("dx", "ddt", "dB", "dC")):
+                if not torch.equal(torch.cat([outs[0][i], outs[L // 2][i]], 1), got[i]):
+                    fail(f"phase 17: K3 chained over two halves: {n} differs from one call")
+            if not torch.equal(g, got[-1]):
+                fail("phase 17: K3 chained over two halves: dh0 differs from one call")
+            for i, n in zip(range(4, 8), ("dA", "ddt_bias", "dD", "dW")):
+                rel = rel_gap(outs[0][i] + outs[L // 2][i], got[i])
+                if rel > 1e-5:
+                    fail(f"phase 17: K3 chained over two halves: {n} off by {rel:.3e}")
+            kres[reverse] = dict(
+                ms=time_ms(lambda: cuda_scan.scan_bwd(*args, g0=g0, emit_dh0=True), 10),
+                plain_ms=plain_ms,
+                no_options_ms=time_ms(lambda: cuda_scan.scan_bwd(*args), 10))
+        nbytes, flops, sfu = scan_bwd_work(rows, L, D, N, R, x.element_size())
+        b, by, _ = bound_ms(nbytes + 8 * rows * D * N, flops, sfu)
+        res[dn] = dict(ms=max(k["ms"] for k in kres.values()),
+                       plain_ms=max(k["plain_ms"] for k in kres.values()),
+                       no_options_ms=max(k["no_options_ms"] for k in kres.values()),
+                       bound_ms=b, bound_by=by)
+        log(f"  K3-g0/dh0 {dn} at {rows} x {L} x {D} (N {N}, R {R}): "
+            + "; ".join(f"{'rev' if rv else 'fwd'} {k['ms']:.3f} ms (without the options "
+                        f"{k['no_options_ms']:.3f}, plain {k['plain_ms']:.1f})"
+                        for rv, k in kres.items())
+            + f"; bound {b:.3f} ms ({by}); chained halves equal bit for bit")
+    return res, err
+
+
+def worst_weight(name, sh, one) -> dict:
+    """Where the fp32 weights after the steps differ most in leaf ``name``:
+    the element, |w| there and the leaf's max |w|, the gap, and each step's
+    gradient there on the ranks and in one process, beside the leaf's max
+    |gradient| (a sign that differs on a gradient near zero becomes, under
+    Adam's normalised update, a weight gap of up to 2 x the learning rate)."""
+    import numpy as np
+
+    got, want = sh["weights"][name], one["weights"][name]
+    diff = (got - want).abs()
+    i = int(diff.argmax())
+    at = lambda t: float(t.flatten()[i])
+    return dict(
+        element=[int(j) for j in np.unravel_index(i, tuple(got.shape))],
+        gap=float(diff.flatten()[i]), w=at(want), leaf_max_w=float(want.abs().max()),
+        grads_ranks=[at(g[name]) for g in sh["grads_torch.float32"]],
+        grads_one=[at(g[name]) for g in one["grads_torch.float32"]],
+        leaf_max_grad=[float(g[name].abs().max()) for g in one["grads_torch.float32"]])
+
+
+# Expected launches of each part, on every rank (pc2: 24 layers x 2
+# directions; the sharded scan's two passes, remat's recompute; l20: 20 x 2).
+def par_expected(preset, n_layer, sharded):
+    per = 2 * n_layer
+    if preset == "pc2-small-ssd":
+        scoring = only(ssd_fwd=2 * per) if sharded else only(mixer2_fwd=2 * per)
+        step = (only(ssd_fwd_fentry=2 * per, ssd_bwd=per) if sharded
+                else only(mixer2_fwd_res=2 * per, ssd_bwd_pre_silu=per))
+    else:
+        scoring = only(scan_fwd=2 * 2 * per) if sharded else only(mixer_fwd=2 * per)
+        step = (only(scan_fwd_hb=2 * 2 * per, scan_bwd_g0=2 * per) if sharded
+                else only(mixer_fwd_res=2 * per, scan_bwd=per))
+    # scoring in fp32 and bf16; 3 steps in fp32 and 2 in bf16, a step the
+    # forward and remat's recompute (the sharded scan: two passes each) and
+    # the adjoint (the sharded scan's: one a pass)
+    return {"scoring": scoring,
+            "steps": {k: v * (PAR_STEPS + PAR_BF16_STEPS) for k, v in step.items()}}
+
+
+def phase_parallel(dev, card):
+    """Phase 17 (see above). Returns (the launches of the ranks' main paths
+    by kernel, summed over ranks; K3-g0/dh0's row; the figures)."""
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 17: context and data parallelism, ranks of torch.distributed.run sharing "
+        f"{card} over gloo")
+    k3, k3_err = k3_options_check(dev)
+    workdir = REPO / "build" / "chip_smoke" / "phase17"
+    inp = par_inputs(workdir)
+    single = {}
+    for preset in PAR_MODELS:   # one process, the same card, weights and inputs
+        single[preset] = par_run(preset, dev, inp, None, None)
+        torch.cuda.empty_cache()
+    single["l20"] = dp_run(dev, inp, None)
+    torch.cuda.empty_cache()
+    for preset, want in (*((p, par_expected(p, 24, False)) for p in PAR_MODELS),
+                         ("l20", {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // DP_BATCH),
+                                  "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})):
+        if single[preset]["counts"] != want:
+            fail(f"phase 17 one-process {preset} launched {single[preset]['counts']}; "
+                 f"expected {want}")
+    secs = {"pc2": run_ranks(4, "pc2", workdir), "l20": run_ranks(2, "l20", workdir)}
+    sharded = {**torch.load(workdir / "pc2.pt", weights_only=False),
+               **torch.load(workdir / "l20.pt", weights_only=False)}
+    ranks = {job: [json.loads((workdir / f"{job}_rank{r}.json").read_text()) for r in range(n)]
+             for job, n in (("pc2", 4), ("l20", 2))}
+    total = {k: 0 for k in _counters()}
+    total["scan_bwd_g0"] = 0
+    for job, rs in ranks.items():
+        for r, rr in enumerate(rs):
+            if rr["device"] != "cuda:0" or rr["backend"] != "gloo":
+                fail(f"phase 17 {job} rank {r} ran on {rr['device']} over {rr['backend']}")
+            for preset, parts in rr["counts"].items():
+                want = (par_expected(preset, 24, True) if job == "pc2" else
+                        {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // DP_BATCH // 2),
+                         "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})
+                if parts != want:
+                    fail(f"phase 17 {job} rank {r} {preset} launched {parts}; expected {want}")
+                for c in parts.values():
+                    for k, v in c.items():
+                        total[k] += v
+    figs = {}
+    for preset in PAR_MODELS:
+        one, sh = single[preset], sharded[preset]
+        f32, b16 = "logits_torch.float32", "logits_torch.bfloat16"
+        lg = rel_gap(sh[f32], one[f32])
+        if not (math.isfinite(lg) and lg <= FORWARD_TOL):
+            fail(f"phase 17 {preset}: seq-4 fp32 logits off by {lg:.3e} of max |logit|")
+        gap, bg = rel_gap(one[b16], one[f32]), rel_gap(sh[b16], one[f32])
+        if not (math.isfinite(bg) and bg <= 2 * gap):
+            fail(f"phase 17 {preset}: seq-4 bf16 logits {bg:.3e} from fp32, beyond 2 x the "
+                 f"one-process gap {gap:.3e}")
+        # every fp32 step's gradients, then step 1's bf16 gradients within
+        # 2 x the one process's bf16 gap from its fp32 gradients
+        wf, wfn = 0.0, ""
+        for s, (got, want) in enumerate(zip(sh["grads_torch.float32"],
+                                            one["grads_torch.float32"]), 1):
+            w, n = grads_agree(f"phase 17 {preset} fp32 step {s}", got, want)
+            if w >= wf:
+                wf, wfn = w, f"step {s} {n}"
+        ref = one["grads_torch.float32"][0]
+        ggap = max(rel_gap(one["grads_torch.bfloat16"][0][n], g) for n, g in ref.items())
+        wb, wbn = grads_agree(f"phase 17 {preset} bf16 step 1", sh["grads_torch.bfloat16"][0],
+                              one["grads_torch.bfloat16"][0], 2 * ggap)
+        ww, wwn = grads_agree(f"phase 17 {preset} fp32 weights after {PAR_STEPS} steps",
+                              sh["weights"], one["weights"])
+        figs[preset] = dict(
+            logits_fp32=lg, logits_bf16=bg, logits_bf16_gap=gap, grads_fp32=(wf, wfn),
+            grads_bf16=(wb, wbn), grads_bf16_gap=ggap, weights_fp32=(ww, wwn),
+            worst_weight=worst_weight(wwn, sh, one),
+            wps=PAR_WINDOWS / sh["score_s"], wps_single=PAR_WINDOWS / one["score_s"],
+            step_ms=sh["step_ms_torch.bfloat16"], step_ms_single=one["step_ms_torch.bfloat16"],
+            step_ms_fp32=sh["step_ms_torch.float32"],
+            step_ms_fp32_single=one["step_ms_torch.float32"],
+            losses=[sh[f"step_loss{s}_torch.float32"] for s in range(1, PAR_STEPS + 1)],
+            losses_single=[one[f"step_loss{s}_torch.float32"]
+                           for s in range(1, PAR_STEPS + 1)])
+        f = figs[preset]
+        f["secs"], f["secs_single"] = ranks["pc2"][0]["secs"][preset], one["secs"]
+        log(f"  {preset} seconds (rank 0 / one process): " + ", ".join(
+            f"{k} {v:.1f} / {f['secs_single'][k]:.1f}" for k, v in f["secs"].items()))
+        log(f"  {preset} x {PAR_L} bp: seq-4 logits fp32 {lg:.3e} of max (tol "
+            f"{FORWARD_TOL:.0e}), bf16 {bg:.3e} from fp32 (one process {gap:.3e}); data 2 x "
+            f"seq 2 gradients of {PAR_STEPS} fp32 steps worst {wfn} {wf:.3e} (tol "
+            f"{GRAD_TOL:.0e}), bf16 step 1 worst {wbn} {wb:.3e} (tol 2 x {ggap:.3e}); weights "
+            f"after {PAR_STEPS} fp32 steps worst {wwn} {ww:.3e} (tol {GRAD_TOL:.0e}); scoring "
+            f"{f['wps']:.2f} windows/s on 4 ranks, {f['wps_single']:.2f} in one process; bf16 "
+            f"step {f['step_ms']:.1f} ms on 4 ranks, {f['step_ms_single']:.1f} in one process "
+            f"(fp32 {f['step_ms_fp32']:.1f} / {f['step_ms_fp32_single']:.1f}); fp32 losses "
+            f"{f['losses']} / {f['losses_single']}")
+        log(f"  {preset} the weights gap's worst element: {f['worst_weight']}")
+    log("  seconds in the collectives on each pc2 rank (both models; the gradient "
+        "sum's all_reduce within all_reduce): " + "; ".join(
+            ", ".join(f"{k} {v:.1f}" for k, v in rr["comm_s"].items()) for rr in ranks["pc2"]))
+    one, sh = single["l20"], sharded["l20"]
+    sg = rel_gap(sh["scores"], one["scores"])
+    if not (math.isfinite(sg) and sg <= DP_SCORE_TOL):
+        fail(f"phase 17 l20: data-parallel scores off by {sg:.3e} of max |score|")
+    ww, wwn = grads_agree("phase 17 l20 weights after two data-parallel steps", sh["weights"],
+                          one["weights"])
+    figs["l20"] = dict(scores=sg, weights=(ww, wwn), wps=DP_WINDOWS / sh["score_s"],
+                       wps_single=DP_WINDOWS / one["score_s"], step_ms=sh["step_ms"],
+                       step_ms_single=one["step_ms"])
+    log(f"  l20 x {DP_L} bp, data 2: scores {sg:.3e} of max |score| (tol {DP_SCORE_TOL:.0e}); "
+        f"weights after two fp32 steps worst {wwn} {ww:.3e}; scoring "
+        f"{figs['l20']['wps']:.1f} windows/s on 2 ranks, {figs['l20']['wps_single']:.1f} in "
+        f"one process; second step {sh['step_ms']:.1f} ms on 2 ranks, {one['step_ms']:.1f} in "
+        "one")
+    figs["peak"] = {job: [rr["peak"] for rr in rs] for job, rs in ranks.items()}
+    figs["rank_s"] = secs
+    figs["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 ok in {figs['seconds']:.1f} s (ranks: pc2 {secs['pc2']:.1f} s, l20 "
+        f"{secs['l20']:.1f} s); peak bytes by rank {figs['peak']}; launches on the ranks "
+        f"{dict((k, v) for k, v in total.items() if v)}")
+    k3_row = dict(err=k3_err, **k3)
+    return total, k3_row, figs
+
+
 def main():
     import torch
 
@@ -4210,6 +4741,9 @@ def main():
         fail(f"plantcaduceus_tpu_torch not found beside {Path(__file__).name}: "
              "run from a checkout of the repository")
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--phase17-rank"]:  # one rank of phase 17, not a run of the script
+        phase17_rank(sys.argv[2], Path(sys.argv[3]))
+        return
     from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4268,6 +4802,9 @@ def main():
     # phase 16: the formats users have, after every earlier phase
     torch.cuda.empty_cache()
     gc16, gf = phase_formats(dev, tsv, n_valid)
+    # phase 17: context and data parallelism, after every earlier phase
+    torch.cuda.empty_cache()
+    pc17, k3g, pf = phase_parallel(dev, card)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
@@ -4281,45 +4818,49 @@ def main():
         f"pc2-small x {PC2_L} bp {ff['pc2']['step_ms']:.2f} ms per step "
         f"({ff['pc2']['wps']:.2f} windows/s); streaming l20 {rf['streaming']['step_ms']:.2f} "
         f"ms per step; distillation l20 -> l20-ssd {rf['distill']['step_ms']:.2f} ms per step; "
-        f"zstd on the host {gf['streaming']['zstd_mbs']:.2f} MB/s")
+        f"zstd on the host {gf['streaming']['zstd_mbs']:.2f} MB/s; phase 17 (ranks sharing "
+        f"the card) pc2-small seq 4 {pf['pc2-small']['wps']:.2f} windows/s, data 2 x seq 2 "
+        f"step {pf['pc2-small']['step_ms']:.1f} ms")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                           launches=k2_launches + ek2 + xk2 + sk2 + tk2 + fc["mixer_fwd"]
-                          + rc["mixer_fwd"] + gc16["mixer_fwd"]),
+                          + rc["mixer_fwd"] + gc16["mixer_fwd"] + pc17["mixer_fwd"]),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                               launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]
-                              + rc["mixer_fwd_res"] + gc16["mixer_fwd_res"]),
+                              + rc["mixer_fwd_res"] + gc16["mixer_fwd_res"]
+                              + pc17["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
-                         launches=k1_launches + ar1["scan_fwd"]),
+                         launches=k1_launches + ar1["scan_fwd"] + pc17["scan_fwd"]),
         "scan_fwd_hb": dict(source=src + "scan_fwd.cu",
                             replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                             launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]
-                            + gc16["scan_fwd_hb"]),
+                            + gc16["scan_fwd_hb"] + pc17["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
                          launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]
-                         + rc["scan_bwd"] + gc16["scan_bwd"]),
+                         + rc["scan_bwd"] + gc16["scan_bwd"] + pc17["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
-                        launches=k4_launches + ar2["ssd_fwd"]),
+                        launches=k4_launches + ar2["ssd_fwd"] + pc17["ssd_fwd"]),
         "mixer2_fwd": dict(source=src + "mixer2_fwd.cu",
                            replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
                            launches=k5_launches + ek5 + fc["mixer2_fwd"]),
         "ssd_fwd_fentry": dict(source=src + "ssd_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
-                               launches=fentry_launches + ar2["ssd_fwd_fentry"]),
+                               launches=fentry_launches + ar2["ssd_fwd_fentry"]
+                               + pc17["ssd_fwd_fentry"]),
         "mixer2_fwd_res": dict(source=src + "mixer2_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
                                launches=tc2["mixer2_fwd_res"] + fc["mixer2_fwd_res"]
                                + rc["mixer2_fwd_res"]),
         "ssd_bwd": dict(source=src + "ssd_bwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
-                        launches=k6_launches + ar2["ssd_bwd"]),
+                        launches=k6_launches + ar2["ssd_bwd"] + pc17["ssd_bwd"]),
         "ssd_bwd_pre_silu": dict(source=src + "ssd_bwd.cu",
                                  replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
                                  launches=tc2["ssd_bwd_pre_silu"] + fc["ssd_bwd_pre_silu"]
@@ -4383,8 +4924,20 @@ def main():
             **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
             **{k: "plantcaduceus_tpu/ops/pallas_attention.py" + v for k, v in also.items()},
             **extra))
-    # Phases 14, 15 and 16: their launches beside each total; K1-hb and K3
-    # at pc2-small x 600 bp.
+    # K3 with g0 / emit_dh0 (the context-parallel backward): bf16 at the seq
+    # path's local shape in the contract's keys, fp32 beside; launches from
+    # phase 17's ranks.
+    kernels.append(dict(
+        name="scan_bwd_g0", route="cuda", source=src + "scan_bwd.cu",
+        replaces="plantcaduceus_tpu/ops/pallas_scan.py:310", launches=pc17["scan_bwd_g0"],
+        max_abs_err=k3g["err"], ms=k3g["bfloat16"]["ms"], plain_ms=k3g["bfloat16"]["plain_ms"],
+        bound_ms=k3g["bfloat16"]["bound_ms"], bound_by=k3g["bfloat16"]["bound_by"],
+        library_ms=None, without_options_ms=k3g["bfloat16"]["no_options_ms"],
+        rows=2 * PAR_WINDOWS, L=PAR_L // 4, D=1536, R=48,
+        float32={k: k3g["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "no_options_ms")}))
+    # Phases 14, 15, 16 and 17: their launches beside each total; K1-hb and
+    # K3 at pc2-small x 600 bp.
     for k in kernels:
         if fc.get(k["name"]):
             k["phase14_launches"] = fc[k["name"]]
@@ -4392,6 +4945,8 @@ def main():
             k["phase15_launches"] = rc[k["name"]]
         if gc16.get(k["name"]):
             k["phase16_launches"] = gc16[k["name"]]
+        if pc17.get(k["name"]):
+            k["phase17_launches"] = pc17[k["name"]]
         if k["name"] in k600:
             r = k600[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], r["err"])

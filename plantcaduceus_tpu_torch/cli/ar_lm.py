@@ -32,6 +32,8 @@ from pathlib import Path
 
 import numpy as np
 
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+
 log = logging.getLogger(__name__)
 
 
@@ -170,6 +172,7 @@ def sample(args):
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.ar_lm")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__,

@@ -33,6 +33,7 @@ import torch
 
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
 from plantcaduceus_tpu_torch.models.config import PRESETS, CaduceusConfig
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
 from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
 from plantcaduceus_tpu_torch.train import data as data_lib
 from plantcaduceus_tpu_torch.train import distill as distill_lib
@@ -87,6 +88,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.distill")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S")

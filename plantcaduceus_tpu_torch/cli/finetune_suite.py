@@ -36,6 +36,7 @@ import logging
 from pathlib import Path
 
 from plantcaduceus_tpu_torch.cli import lora_fine_tune
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
 
 log = logging.getLogger(__name__)
 
@@ -105,6 +106,7 @@ def _print_table(results: dict) -> None:
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.finetune_suite")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__)

@@ -24,11 +24,13 @@ import logging
 
 from plantcaduceus_tpu_torch.io.fasta import FastaIndex
 from plantcaduceus_tpu_torch.io.vcf import VcfReader
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
 
 log = logging.getLogger(__name__)
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.format_vcf")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__)

@@ -43,6 +43,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+
 log = logging.getLogger(__name__)
 
 # ---------------------------------------------------------------------------
@@ -415,6 +417,7 @@ def cmd_display(args):
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.lora_fine_tune")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__,

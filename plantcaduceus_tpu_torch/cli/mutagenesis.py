@@ -16,12 +16,14 @@ from __future__ import annotations
 import argparse
 import logging
 
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
 from plantcaduceus_tpu_torch.pipelines import mutagenesis
 
 log = logging.getLogger(__name__)
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.mutagenesis")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__)

@@ -21,6 +21,8 @@ import argparse
 import csv
 import logging
 
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+
 log = logging.getLogger(__name__)
 
 
@@ -42,6 +44,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.predict_xgboost")
     import torch
 
     from plantcaduceus_tpu_torch.downstream.gbm import GbmClassifier

@@ -13,8 +13,16 @@ to ``<output-dir>/final`` as an HF checkpoint directory that
 dataset, final eval metrics); ``--push-to-hub`` then uploads it, and raises
 one clear error where ``huggingface_hub`` or the network is missing. Runs
 on CUDA unless ``--device cpu`` is given, and fails when CUDA is asked for
-and absent. One device: the multi-GPU axes (``--fsdp/--seq/--tensor/--pipe``
-> 1) are refused.
+and absent.
+
+Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
+plantcaduceus_tpu_torch.cli.pretrain ...``) train over a data × seq mesh:
+``--seq S`` shards each window's length over S ranks (context
+parallelism), the other ranks split the global batch (``--batch-size`` ×
+``--grad-accum`` rows a step) over ``data``. Every rank builds the same
+weights and batches from the seed; rank 0 alone writes checkpoints, logs
+and ``final/``. ``--fsdp/--tensor/--pipe/--pipe-microbatches`` are
+refused (``parallel.mesh.NOT_PORTED``).
 
 ``--dataset shards:<dir-or-file>`` streams a shard directory (or one large
 file) at O(buffer) memory (``train/streaming``); ``--eval-shards N`` holds
@@ -36,6 +44,7 @@ from plantcaduceus_tpu_torch.compat import model_card as card_lib
 from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
 from plantcaduceus_tpu_torch.models.config import PRESETS, CaduceusConfig
+from plantcaduceus_tpu_torch.parallel import mesh as meshlib
 from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
 from plantcaduceus_tpu_torch.train import data as data_lib
 from plantcaduceus_tpu_torch.train import loop as loop_lib
@@ -85,12 +94,14 @@ def parse_args(argv=None):
     p.add_argument("--log-steps", type=int, default=50)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--no-remat", action="store_true")
-    p.add_argument("--fsdp", type=int, default=1, help="fsdp axis size (multi-GPU; not supported yet)")
-    p.add_argument("--seq", type=int, default=1, help="context-parallel axis size (not supported yet)")
-    p.add_argument("--tensor", type=int, default=1, help="tensor axis size (not supported yet)")
-    p.add_argument("--pipe", type=int, default=1, help="pipeline axis size (not supported yet)")
+    p.add_argument("--fsdp", type=int, default=1, help="fsdp axis size (not ported yet)")
+    p.add_argument("--seq", type=int, default=1,
+                   help="sequence(context)-parallel mesh axis size (ranks of "
+                        "torch.distributed.run)")
+    p.add_argument("--tensor", type=int, default=1, help="tensor axis size (not ported yet)")
+    p.add_argument("--pipe", type=int, default=1, help="pipeline axis size (not ported yet)")
     p.add_argument("--pipe-microbatches", type=int, default=None,
-                   help="GPipe microbatch count (not supported yet)")
+                   help="GPipe microbatch count (not ported yet)")
     p.add_argument("--profile-dir", default=None,
                    help="torch.profiler trace dir (traces steps 10-12 of the run)")
     p.add_argument("--wandb-project", default=None)
@@ -98,11 +109,10 @@ def parse_args(argv=None):
     p.add_argument("--push-to-hub", default=None, metavar="REPO_ID")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    multi = {k: getattr(args, k) for k in ("fsdp", "seq", "tensor", "pipe")
-             if getattr(args, k) > 1}
-    if multi or args.pipe_microbatches:
-        p.error(f"multi-GPU layouts {multi or '--pipe-microbatches'} are not supported "
-                "by the PyTorch port yet; it trains on one device")
+    unported = {k: getattr(args, k) for k in ("fsdp", "tensor", "pipe")
+                if getattr(args, k) > 1}
+    if unported or args.pipe_microbatches:
+        p.error(f"{unported or '--pipe-microbatches'}: {meshlib.NOT_PORTED}")
     return args
 
 
@@ -111,7 +121,10 @@ def main(argv=None):
                         format="%(asctime)s - %(levelname)s - %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S")
     args = parse_args(argv)
-    device = resolve_device(args.device)  # before any work: no silent CPU run
+    resolve_device(args.device)  # before any work: no silent CPU run
+    device = meshlib.initialize_distributed(args.device)  # this rank's device
+    mesh = meshlib.cli_mesh(args.seq)
+    rank = meshlib.world()[0]
 
     if args.config:
         cfg = CaduceusConfig.load(args.config)
@@ -130,15 +143,17 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     init_state, train_step, eval_step = step_lib.make_train_step(
         cfg, optimizer, model, dtype=dtype, remat=not args.no_remat,
-        grad_accum=args.grad_accum, device=device)
+        grad_accum=args.grad_accum, device=device, mesh=mesh)
     state = init_state()
-    # One optimizer step consumes batch_size * grad_accum rows.
+    # One optimizer step consumes batch_size * grad_accum rows (over a mesh:
+    # the global batch, split over the data axis).
     step_rows = args.batch_size * args.grad_accum
 
     ckpt = ckpt_lib.CheckpointManager(args.output_dir,
                                       save_interval_steps=args.save_steps,
                                       max_to_keep=args.save_total_limit)
-    ckpt_lib.save_config(args.output_dir, cfg)
+    if rank == 0:
+        ckpt_lib.save_config(args.output_dir, cfg)
     resume_dir = args.resume_from or args.output_dir
     resume = ckpt_lib.CheckpointManager(resume_dir) if resume_dir != args.output_dir else ckpt
     if resume.latest_step() is not None:
@@ -206,9 +221,12 @@ def main(argv=None):
 
     final_metrics = None
     if eval_data is not None and args.eval_steps:
+        # every rank: the eval step's collectives need them all
         final_metrics = loop_lib.evaluate(state, eval_step, eval_data.eval_batches(),
                                           max_batches=20)
         logging.info("final eval: %s", final_metrics)
+    if rank != 0:
+        return 0
     final_dir = Path(args.output_dir) / "final"
     ckpt_lib.export_params(final_dir, state.model, cfg)
     card_lib.write_model_card(

@@ -26,6 +26,8 @@ import argparse
 import logging
 import sys
 
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
@@ -56,6 +58,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.serve")
     import numpy as np
     import torch
 

@@ -40,6 +40,8 @@ import re
 
 import numpy as np
 
+from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+
 log = logging.getLogger(__name__)
 
 _INT = re.compile(r"\s*[+-]?\d+\s*")
@@ -171,6 +173,7 @@ def score_test(args, embed, xgb_model, prefix, test_sequences):
 
 
 def main(argv=None):
+    refuse_multi_rank("cli.train_xgboost")
     from plantcaduceus_tpu_torch.downstream.gbm import GbmClassifier
 
     logging.basicConfig(force=True, level=logging.INFO,

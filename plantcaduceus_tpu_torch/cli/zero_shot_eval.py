@@ -9,9 +9,14 @@ evo_cons | motif_acc | sv_effect | core_noncore.
 ``.parquet`` table (the port's reader, ``io/parquet``: zstd, gzip, snappy
 or uncompressed; a codec or column it does not read exits with its
 message). Refused, with a message: a
-hub dataset id (no network), ``--seq > 1`` (context parallelism needs
-several GPUs). Logit caching via --save-logits / --logits-path and metrics
-via --metrics-json, in the JAX CLI's layouts (TSV).
+hub dataset id (no network). Logit caching via --save-logits /
+--logits-path and metrics via --metrics-json, in the JAX CLI's layouts
+(TSV).
+
+Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
+plantcaduceus_tpu_torch.cli.zero_shot_eval ...``) score over a data × seq
+mesh, ``--seq S`` sharding each window's length over S ranks; every rank
+gets every probability, and rank 0 alone prints and writes.
 
 Example:
   python -m plantcaduceus_tpu_torch.cli.zero_shot_eval evo_cons \\
@@ -104,18 +109,28 @@ def _load_frame(repo_id: str, task, split) -> Frame:
     return read_tsv(p)
 
 
+def _writes() -> bool:
+    """Whether this process prints and writes the outputs: rank 0."""
+    from plantcaduceus_tpu_torch.parallel.mesh import world
+
+    return world()[0] == 0
+
+
 def _runner(args):
     import torch
 
     from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
     from plantcaduceus_tpu_torch.io.tokenizer import nucleotide_ids
+    from plantcaduceus_tpu_torch.parallel import mesh as meshlib
     from plantcaduceus_tpu_torch.utils.device import resolve_device
     from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
 
-    device = resolve_device(args.device)  # before the model: no silent CPU run
+    resolve_device(args.device)  # before the model: no silent CPU run
+    device = meshlib.initialize_distributed(args.device)
+    mesh = meshlib.cli_mesh(args.seq)
     model, cfg, tok = load_model_and_tokenizer(args.model)
     runner = InferenceRunner(model, cfg, dtype=torch.bfloat16, batch_size=args.batch_size,
-                             device=device)
+                             device=device, mesh=mesh)
     return runner, tok, nucleotide_ids(tok)
 
 
@@ -128,13 +143,15 @@ def _masked_probs(args, sequences, positions):
     ids[:, list(positions)] = tok.mask_token_id
     probs = runner.multi_masked_probs(ids, nuc_ids, positions,
                                       progress=not args.no_progress)
-    if args.save_logits:
+    if args.save_logits and _writes():
         write_tsv(args.save_logits, list("ACGT"), probs)
         log.info("Saved logits TSV to %s", args.save_logits)
     return probs
 
 
 def _emit(metrics: dict, args):
+    if not _writes():
+        return
     for k, v in metrics.items():
         print(f"{k}\t{v:.6f}")
     if args.metrics_json:
@@ -154,7 +171,7 @@ def cmd_evo_cons(args):
     m = T.auroc_auprc(df.ints("label"), scores)
     m["token_idx"] = args.token_idx
     _emit({"AUROC": m["auroc"], "AUPRC": m["auprc"]}, args)
-    if args.metrics_json:
+    if args.metrics_json and _writes():
         with open(args.metrics_json, "w") as f:
             json.dump(m, f, indent=2)
 
@@ -204,14 +221,14 @@ def cmd_sv_effect(args):
                                           progress=not args.no_progress)
     mut_probs = runner.positionwise_probs(tok.encode_batch(df.col("MutSeq")), nuc_ids,
                                           progress=not args.no_progress)
-    if args.save_ref_logits:
+    if args.save_ref_logits and _writes():
         np.savez_compressed(args.save_ref_logits, logits=ref_probs)
-    if args.save_mut_logits:
+    if args.save_mut_logits and _writes():
         np.savez_compressed(args.save_mut_logits, logits=mut_probs)
 
     scores = T.sv_llr_boundary(df.rows, ref_probs, mut_probs, args.flanking)
     _emit({"AUPRC": T.average_precision(df.ints("label"), scores)}, args)
-    if args.output:
+    if args.output and _writes():
         cols = [c for c in df.columns if c not in ("Left5_Positions", "Right5_Positions")]
         write_tsv(args.output, cols + ["score"],
                   ([r[c] for c in cols] + [s] for r, s in zip(df.rows, scores)))
@@ -235,8 +252,8 @@ def main(argv=None):
         sp.add_argument("--logits-path", default=None)
         sp.add_argument("--metrics-json", default=None)
         sp.add_argument("--seq", type=int, default=1,
-                        help="context-parallel shards over the window length "
-                             "(multi-GPU; not supported by the PyTorch port yet)")
+                        help="context-parallel mesh shards over the window length "
+                             "(ranks of torch.distributed.run)")
         sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
         sp.add_argument("--no-progress", action="store_true")
 
@@ -267,9 +284,6 @@ def main(argv=None):
     sv.set_defaults(fn=cmd_sv_effect)
 
     args = p.parse_args(argv)
-    if args.seq != 1:
-        p.error("--seq > 1 (context parallelism) needs several GPUs and is not "
-                "supported by the PyTorch port yet")
     args.fn(args)
 
 

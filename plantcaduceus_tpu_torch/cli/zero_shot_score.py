@@ -11,6 +11,12 @@ Usage:
 ``-model`` takes an HF checkpoint directory or a preset name like ``l20``
 or ``l20-ssd`` (random weights from a seeded generator). Runs on CUDA unless ``-device
 cpu`` is given, and fails when CUDA is asked for and absent.
+
+Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
+plantcaduceus_tpu_torch.cli.zero_shot_score ...``) score over a data × seq
+mesh: ``-seq S`` shards each window's length over S ranks (context
+parallelism), and the records are striped over the data coordinates. Rank
+0 alone writes the output.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from plantcaduceus_tpu_torch.engine import zero_shot
 from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+from plantcaduceus_tpu_torch.parallel import mesh as meshlib
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
 
@@ -44,8 +51,8 @@ def parse_args(argv=None):
     p.add_argument("-tokenIdx", dest="token_idx", type=int, default=255)
     p.add_argument("-window", dest="window", type=int, default=512)
     p.add_argument("-seq", dest="seq", type=int, default=1,
-                   help="context-parallel shards over the window length "
-                        "(multi-GPU; not supported by the PyTorch port yet)")
+                   help="context-parallel mesh shards over the window "
+                        "length (ranks of torch.distributed.run)")
     p.add_argument("-dtype", dest="dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("-device", dest="device", default="cuda",
@@ -54,9 +61,6 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     if args.input_vcf and not args.input_fasta:
         p.error("-input-fasta is required with -input-vcf")
-    if args.seq != 1:
-        p.error("-seq > 1 (context parallelism) needs several GPUs and is not "
-                "supported by the PyTorch port yet")
     return args
 
 
@@ -68,13 +72,16 @@ def main(argv=None):
         datefmt="%Y-%m-%d %H:%M:%S",
     )
     args = parse_args(argv)
-    device = resolve_device(args.device)  # before any work: no silent CPU run
+    resolve_device(args.device)  # before any work: no silent CPU run
+    device = meshlib.initialize_distributed(args.device)  # this rank's device
+    mesh = meshlib.cli_mesh(args.seq, "-seq")
+    rank = meshlib.world()[0]
 
     model, cfg, tokenizer = load_model_and_tokenizer(args.model)
     runner = InferenceRunner(
         model, cfg,
         dtype=torch.float32 if args.dtype == "float32" else torch.bfloat16,
-        batch_size=args.batch_size, device=device)
+        batch_size=args.batch_size, device=device, mesh=mesh)
     progress = not args.no_progress
 
     if args.input_table:
@@ -82,7 +89,8 @@ def main(argv=None):
         table = zero_shot.read_table(args.input_table)
         table = zero_shot.score_table(runner, tokenizer, table,
                                       token_idx=args.token_idx, progress=progress)
-        zero_shot.write_table(table, args.output, as_bed=args.out_bed)
+        if rank == 0:
+            zero_shot.write_table(table, args.output, as_bed=args.out_bed)
     else:
         n = zero_shot.score_vcf(runner, tokenizer, args.input_vcf,
                                 args.input_fasta, args.output,

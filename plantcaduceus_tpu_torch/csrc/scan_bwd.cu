@@ -2,8 +2,12 @@
 //
 // Replaces plantcaduceus_tpu/ops/pallas_scan.py::_bwd_kernel (launched at
 // pallas_scan.py:564 through _pallas_bwd_group), the backward of K1
-// (_scan_op_bwd) and of K2 (pallas_mixer._bimamba_mixer_bwd). Both dt modes
-// and `reverse`; the g0 / dh0 options (sequence parallelism) are not ported.
+// (_scan_op_bwd), of K2 (pallas_mixer._bimamba_mixer_bwd) and of the
+// context-parallel scan (seq_parallel._sp_scan_op_bwd). Both dt modes,
+// `reverse`, and the options g0 (a cotangent state [rows, D, N] that seeds
+// the recurrence: the adjoint of an emitted final state) and dh0 (the
+// cotangent left after the earliest-processed step: the gradient with
+// respect to the processing-order initial state).
 //
 // Math (ops/scan_bwd.py), per row, channel d, state n, with dt' =
 // softplus(dt + bias), a = exp2(dt'*log2e*A), h the forward states:
@@ -124,6 +128,8 @@ struct BwdArgs {
   const float* dt_bias;  // [D]
   const float* wdt;    // [R, D] when FUSE
   const float* hb;     // [rows, ceil(L/hbc), D, N]
+  const float* g0;     // [rows, D, N] cotangent seed, or null (zeros)
+  float* dh0;          // [rows, D, N] initial-state gradient, or null
   float* dx;           // [rows, L, D]
   float* ddt;          // [rows, L, D] when not FUSE
   float* part_pos;     // [ntiles, rows, L, J], J = R + 2N: ddt_lr | dB | dC per tile
@@ -197,7 +203,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1024 / kBwdThreads) scan_bwd_kern
     }
   }
   const float A = live ? a.A[(long long)d * N + n] : 0.f;
-  float g = 0.f, dA = 0.f;
+  const long long state = (row * a.D + d) * N + n;  // this lane's [rows, D, N] index
+  float g = a.g0 && live ? a.g0[state] : 0.f, dA = 0.f;
 
   for (int c = nhb - 1; c >= 0; --c) {
     const int p0 = c * T;
@@ -329,6 +336,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1024 / kBwdThreads) scan_bwd_kern
     }
   }
 
+  // The cotangent after the earliest-processed step (its decay applied): dh0.
+  if (a.dh0 && live) a.dh0[state] = g;
+
   // This row's whole-run partials: dA per lane; dbias, dD and dW per channel
   // (dbias and dD summed over the step slots in order).
   __syncthreads();
@@ -408,12 +418,13 @@ cudaError_t launch_bwd_types(const BwdArgs& a, int N, int rows, bool fuse, cudaS
 
 // x_bf16 / bc_bf16: the dtype of x, gy and of dt, B, C (bf16 or fp32). The
 // combination x fp32 with dt/B/C bf16 is refused. out_pos [rows, L, J] and
-// out_run [P] receive the summed partials; part_pos has ceil(D / (1024 /
-// N)) tiles.
+// out_run [P] receive the summed partials; part_pos has ceil(D / (512 /
+// N)) tiles. g0 and dh0 may be null.
 extern "C" int pc_scan_bwd(const void* x, const void* gy, const void* dt, const void* B,
                            const void* C, const float* A, const float* Dskip,
                            const float* dt_bias, const float* wdt, const float* hb,
-                           float* dx, float* ddt, float* part_pos, float* part_run,
+                           const float* g0, float* dh0, float* dx, float* ddt,
+                           float* part_pos, float* part_run,
                            float* out_pos, float* out_run, int rows, int L, int D, int N,
                            int R, int fuse, int reverse, int hbc, long long dt_row,
                            long long dt_step, long long bc_row, long long bc_step,
@@ -421,6 +432,7 @@ extern "C" int pc_scan_bwd(const void* x, const void* gy, const void* dt, const 
   pc::BwdArgs a;
   a.x = x; a.gy = gy; a.dt = dt; a.B = B; a.C = C;
   a.A = A; a.Dskip = Dskip; a.dt_bias = dt_bias; a.wdt = wdt; a.hb = hb;
+  a.g0 = g0; a.dh0 = dh0;
   a.dx = dx; a.ddt = ddt; a.part_pos = part_pos; a.part_run = part_run;
   a.L = L; a.D = D; a.R = fuse ? R : 0; a.reverse = reverse; a.hbc = hbc;
   a.dt_row = dt_row; a.dt_step = dt_step; a.bc_row = bc_row; a.bc_step = bc_step;

@@ -1,15 +1,21 @@
-"""Batched inference engine on one device.
+"""Batched inference engine, on one device or over a data × seq mesh.
 
-Counterpart of ``plantcaduceus_tpu.engine.runner`` without the mesh: fixed
-batch shapes (ragged tails padded with ``pad_token_id``), forwards under
+Counterpart of ``plantcaduceus_tpu.engine.runner``: fixed batch shapes
+(ragged tails padded with ``pad_token_id``), forwards under
 ``torch.inference_mode``, outputs upcast to float32 before extraction, and
 a two-batch-deep queue so the card computes the next batches while the host
 copies the oldest result back.
+
+Over a mesh (``parallel.mesh``; every rank passes the same ids) each batch's
+rows are split over the ``data`` axis and, with ``seq`` above 1, its length
+over ``seq`` (context-parallel scoring of long windows); the raw outputs are
+gathered over ``seq`` before extraction and the extracted rows over
+``data``, so every rank ends with the full result.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -17,6 +23,8 @@ import torch
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.ops.cuda_ssd import check_kernel_shapes
+from plantcaduceus_tpu_torch.parallel import collectives
+from plantcaduceus_tpu_torch.parallel.mesh import Mesh, shard_length, shard_rows
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 
 
@@ -24,10 +32,18 @@ class InferenceRunner:
     """Owns the model on its device; yields numpy results."""
 
     def __init__(self, model: Caduceus, cfg: CaduceusConfig,
-                 dtype=torch.bfloat16, batch_size: int = 128, device="cuda"):
+                 dtype=torch.bfloat16, batch_size: int = 128, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.dtype = dtype
         self.batch_size = batch_size
+        self.mesh = mesh
+        if mesh is not None:
+            n = mesh.shape["data"] * mesh.shape["fsdp"]
+            if batch_size % n:
+                raise ValueError(f"batch_size {batch_size} must divide over the "
+                                 f"{n}-way batch axes")
+        self.sp = mesh.axis("seq") if mesh is not None and mesh.shape["seq"] > 1 else None
         self.device = resolve_device(device)
         if self.device.type == "cuda" and cfg.ssm_variant == "mamba2":
             # K5's shapes, checked before the model moves (L at each launch)
@@ -49,14 +65,42 @@ class InferenceRunner:
         for i in range(0, ids.shape[0], self.batch_size):
             yield self._pad(ids[i:i + self.batch_size])
 
+    def _forward(self, chunk: np.ndarray, extract, want_hidden: bool,
+                 split_rows: bool) -> torch.Tensor:
+        """One padded batch: this rank's part of it through the model, the
+        raw outputs gathered over ``seq``, extracted, and the extracted rows
+        gathered over ``data`` (when ``split_rows``)."""
+        mesh = self.mesh
+        if mesh is not None and split_rows:
+            chunk = chunk[shard_rows(chunk.shape[0], mesh)]
+        if self.sp is not None:
+            chunk = chunk[:, shard_length(chunk.shape[1], mesh)]
+        dev = torch.from_numpy(chunk.astype(np.int64)).to(self.device)
+        out = self.model(dev, dtype=self.dtype, output_hidden_states=want_hidden, sp=self.sp)
+        res = {"logits": out["logits"].float()}
+        if want_hidden:
+            res["hidden_states"] = out["hidden_states"].float()
+        if self.sp is not None:  # [S, rows, Lloc, ...] -> [rows, L, ...]
+            res = {k: torch.cat(list(collectives.all_gather(v, self.sp)), dim=1)
+                   for k, v in res.items()}
+        got = extract(res)
+        if mesh is not None and split_rows and mesh.shape["data"] > 1:
+            got = collectives.all_gather(got, mesh.axis("data")).flatten(0, 1)
+        return got
+
     def run(self, ids: np.ndarray,
             extract: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
-            want_hidden: bool = False, progress: bool = True) -> np.ndarray:
+            want_hidden: bool = False, progress: bool = True,
+            split_rows: bool = True) -> np.ndarray:
         """Run the forward over all rows of ``ids`` ([N, L] ints). ``extract``
-        reduces each batch's fp32 outputs on the device."""
+        reduces each batch's fp32 outputs on the device. Over a mesh every
+        rank passes the same ``ids`` and gets the whole result;
+        ``split_rows=False`` keeps each batch whole on this rank's ``seq``
+        line (the ranks of one ``data`` coordinate score the same rows, as
+        the striping of ``engine.zero_shot`` gives them)."""
         batches = list(self._iter_batches(ids))
         it = batches
-        if progress:
+        if progress and (self.mesh is None or self.mesh.rank == 0):
             try:
                 from tqdm import tqdm
 
@@ -66,13 +110,7 @@ class InferenceRunner:
         results, pending = [], []
         with torch.inference_mode():
             for chunk, n in it:
-                dev = torch.from_numpy(chunk.astype(np.int64)).to(self.device)
-                out = self.model(dev, dtype=self.dtype,
-                                 output_hidden_states=want_hidden)
-                res = {"logits": out["logits"].float()}
-                if want_hidden:
-                    res["hidden_states"] = out["hidden_states"].float()
-                pending.append((extract(res), n))
+                pending.append((self._forward(chunk, extract, want_hidden, split_rows), n))
                 if len(pending) > 2:
                     got, m = pending.pop(0)
                     results.append(got[:m].cpu().numpy())
@@ -83,7 +121,7 @@ class InferenceRunner:
     # -- workload-specific extractors --------------------------------------
 
     def masked_probs(self, ids: np.ndarray, nucleotide_ids, position: int,
-                     progress: bool = True) -> np.ndarray:
+                     progress: bool = True, split_rows: bool = True) -> np.ndarray:
         """Softmax over the 4 nucleotide logits at ``position`` for
         pre-masked inputs: the zero-shot scoring contract. [N, 4] float32."""
         nuc = torch.tensor(list(nucleotide_ids), device=self.device)
@@ -91,7 +129,7 @@ class InferenceRunner:
         def extract(out):
             return torch.softmax(out["logits"][:, position, :][:, nuc], dim=-1)
 
-        return self.run(ids, extract, progress=progress)
+        return self.run(ids, extract, progress=progress, split_rows=split_rows)
 
     def multi_masked_probs(self, ids: np.ndarray, nucleotide_ids, positions,
                            progress: bool = True) -> np.ndarray:

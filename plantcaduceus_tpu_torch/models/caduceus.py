@@ -30,6 +30,15 @@ Mixer paths:
   deltas at in_proj, x_proj and out_proj; Mamba-2 keeps K5, its adapted
   sites all being outside the interior.
 
+* context parallelism (``sp=``, a ``parallel.mesh.Axis`` over which L is
+  sharded; JAX's ``sp_axis``): Mamba-1 runs in_proj, the halo-exchanging
+  conv (``ops.conv.halo_depthwise_conv_silu``), x_proj, then the two-pass
+  sharded scan (``ops.seq_parallel``: K1 with h0/hfin, K3 with g0/dh0) per
+  direction; K2 does not run there, as in JAX. Mamba-2 runs the five
+  in-projections, halo convs, the sharded SSD (``ops.ssd_seq_parallel``:
+  K4, K6) and the gated norm; K5 does not run there. The RC stream's flip
+  and the LM head's flip reverse the shard order too.
+
 Under training (grad enabled, and the input or a weight requiring it) the
 same paths go through autograd Functions: ``BimambaMixerFn`` (K2's residual
 variant, K3 in the backward), ``SelectiveScanFn`` (K1 with chunk-entry
@@ -43,6 +52,7 @@ wrappers run their plain versions.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -52,13 +62,16 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
-from plantcaduceus_tpu_torch.ops.conv import causal_conv1d
+from plantcaduceus_tpu_torch.ops.conv import causal_conv1d, halo_depthwise_conv_silu
 from plantcaduceus_tpu_torch.ops.cuda_mixer import bimamba_mixer, bimamba_mixer_fused
 from plantcaduceus_tpu_torch.ops.cuda_mixer2 import (mamba2_mixer_interior,
                                                      mamba2_mixer_interior_plain,
                                                      mamba2_mixer_interior_train)
 from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd, scan_fwd_plain, selective_scan
 from plantcaduceus_tpu_torch.ops.norms import layer_norm, rms_norm
+from plantcaduceus_tpu_torch.ops.seq_parallel import scan_seq_sharded
+from plantcaduceus_tpu_torch.ops.ssd_seq_parallel import ssd_dir_seq_sharded
+from plantcaduceus_tpu_torch.parallel.collectives import ppermute
 
 LAYER_KEYS = ("norm_weight", "in_proj_x", "in_proj_z", "out_proj", "conv_w",
               "conv_b", "x_proj_dt", "x_proj_B", "x_proj_C", "dt_proj_w",
@@ -222,11 +235,12 @@ class Caduceus(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, dtype=torch.bfloat16,
                 output_hidden_states: bool = False, all_hidden_states: bool = False,
-                use_kernels: bool = True, remat: bool = False) -> Dict[str, torch.Tensor]:
+                use_kernels: bool = True, remat: bool = False,
+                sp=None) -> Dict[str, torch.Tensor]:
         return forward(self, input_ids, dtype=dtype,
                        output_hidden_states=output_hidden_states,
                        all_hidden_states=all_hidden_states, use_kernels=use_kernels,
-                       remat=remat)
+                       remat=remat, sp=sp)
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +248,25 @@ class Caduceus(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def rc_ids(input_ids: torch.Tensor, cmap: torch.Tensor) -> torch.Tensor:
-    """Reverse-complement token ids: complement map, then reverse along L."""
-    return cmap[input_ids].flip(-1)
+def _sp_flip(x: torch.Tensor, sp, dim: int) -> torch.Tensor:
+    """Flip a possibly sequence-sharded axis globally: the local flip, then
+    the shard order reversed over ``sp`` (JAX ``_sp_flip``). Differentiable."""
+    x = x.flip(dim)
+    if sp is None or sp.size == 1:
+        return x
+    return ppermute(x, sp, [(i, sp.size - 1 - i) for i in range(sp.size)])
+
+
+def rc_ids(input_ids: torch.Tensor, cmap: torch.Tensor, sp=None) -> torch.Tensor:
+    """Reverse-complement token ids: complement map, then reverse along L
+    (across the shards of ``sp`` too)."""
+    return _sp_flip(cmap[input_ids], sp, -1)
+
+
+SP_MAMBA_MSG = ("sequence parallelism needs bidirectional 'add', tied in_proj, "
+                "and no tensor axis")
+SP_LORA_MSG = ("activation-path LoRA does not compose with tensor/sequence "
+               "axes; merge adapters (train.lora.merge_lora) instead")
 
 
 def _norm(x, w, cfg):
@@ -344,7 +374,8 @@ def _add_lora(base: torch.Tensor, lora: Optional[dict], name: str, x: torch.Tens
 
 
 def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
-                use_kernels: bool = True, lora: Optional[dict] = None) -> torch.Tensor:
+                use_kernels: bool = True, lora: Optional[dict] = None,
+                sp=None) -> torch.Tensor:
     """One (Bi)Mamba mixer over ``x: [rows, L, d]``. ``p`` holds one layer's
     weights. Under training (grad enabled, and ``x``, a weight or an adapter
     requiring it) the kernels run through their autograd Functions.
@@ -355,15 +386,25 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
     whose fused interior hides the x_proj sites, for the decomposed route:
     in_proj, conv, x_proj with their deltas, then K1 (K1-hb and K3 under
     training) with dt_proj fused, both directions, and one out_proj on the
-    summed, gated streams (JAX ``caduceus.py:572-578``)."""
+    summed, gated streams (JAX ``caduceus.py:572-578``).
+
+    With ``sp`` (context parallelism; ``x`` holds this rank's chunk of L)
+    the tied + add config runs the same decomposed route with the halo conv
+    and the sharded scan (``ops.seq_parallel``), whatever ``use_kernels``
+    says; other configs and LoRA are refused, as in JAX."""
     G = cfg.n_directions
     cdtype = x.dtype
     Gio = p["in_proj_x"].shape[0]
     A = -torch.exp(p["A_log"].float())                          # [G, D, N]
     train = use_kernels and _training(p, x, lora)
     tied_add = G == 2 and Gio == 1 and cfg.bidirectional_strategy == "add"
+    if sp is not None:
+        if lora is not None:
+            raise NotImplementedError(SP_LORA_MSG)
+        if not tied_add:
+            raise NotImplementedError(SP_MAMBA_MSG)
 
-    if tied_add and lora is None:
+    if tied_add and lora is None and sp is None:
         # Released-model path: K2 once per direction (K2-res and K3 under training).
         xi = x @ p["in_proj_x"][0].to(cdtype)
         z = x @ p["in_proj_z"][0].to(cdtype)
@@ -382,12 +423,18 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
     conv_w, conv_b = p["conv_w"].to(cdtype), p["conv_b"].to(cdtype)
     ys = []
     for g in range(G):
-        xg = causal_conv1d(xi[min(g, Gx - 1)], conv_w[g], conv_b[g],
-                           activation="silu", anticausal=(g == 1))
+        if sp is not None:
+            xg = halo_depthwise_conv_silu(xi[0], conv_w[g], conv_b[g], g == 1, sp)
+        else:
+            xg = causal_conv1d(xi[min(g, Gx - 1)], conv_w[g], conv_b[g],
+                               activation="silu", anticausal=(g == 1))
         dt_lr, Bm, Cm = (
             _add_lora(xg @ p[k][g].to(cdtype), lora, k, xg, g=g)
             for k in ("x_proj_dt", "x_proj_B", "x_proj_C"))
-        if G == 2:  # dt projected inside the kernel
+        if sp is not None:
+            ys.append(scan_seq_sharded(xg, dt_lr, A[g], Bm, Cm, p["D"][g], p["dt_proj_b"][g],
+                                       p["dt_proj_w"][g].float(), sp, reverse=(g == 1)))
+        elif G == 2:  # dt projected inside the kernel
             ys.append(scan(xg, dt_lr, A[g], Bm, Cm, p["D"][g], p["dt_proj_b"][g],
                            p["dt_proj_w"][g], reverse=(g == 1)))
         else:
@@ -412,7 +459,8 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
 
 
 def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
-                 use_kernels: bool = True, lora: Optional[dict] = None) -> torch.Tensor:
+                 use_kernels: bool = True, lora: Optional[dict] = None,
+                 sp=None) -> torch.Tensor:
     """One (Bi)Mamba-2 (SSD) mixer over ``x: [rows, L, d]`` (JAX
     ``mamba2_mixer`` on one device). Per direction: the x, z, B, C and dt
     in-projections, K5 (conv, SiLU, the SSD chunk scan, gated RMS norm; the
@@ -424,10 +472,19 @@ def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfi
     ``use_kernels=False`` runs K5's plain version on any device,
     differentiated by autograd. ``lora``'s six sites (the five
     in-projections and out_proj) all lie outside the interior, so K5 serves
-    LoRA as it is."""
+    LoRA as it is.
+
+    With ``sp`` (context parallelism; ``x`` holds this rank's chunk of L)
+    the interior is decomposed as JAX decomposes it there: the three halo
+    convs, the sharded SSD (``ops.ssd_seq_parallel``: K4 and K6 on the
+    card), the gate and the RMS norm; LoRA is refused."""
     G = cfg.n_directions
     cdtype = x.dtype
-    if not use_kernels:
+    if sp is not None and lora is not None:
+        raise NotImplementedError(SP_LORA_MSG)
+    if sp is not None:
+        interior = functools.partial(_mamba2_interior_sp, sp=sp)
+    elif not use_kernels:
         interior = mamba2_mixer_interior_plain
     elif _training(p, x, lora):
         interior = mamba2_mixer_interior_train
@@ -460,14 +517,33 @@ def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfi
     return projs[0] * projs[1]  # ew_multiply
 
 
+def _mamba2_interior_sp(xi, z, Braw, Craw, dt, conv_x_w, conv_x_b, conv_B_w, conv_B_b,
+                        conv_C_w, conv_C_b, norm_w, A, Dskip, dt_bias, *, d_state, eps, chunk,
+                        reverse, sp):
+    """One Mamba-2 direction's interior over a sequence-sharded chunk (JAX
+    ``mamba2_mixer``'s ``sp`` branch), with ``mamba2_mixer_interior``'s
+    arguments."""
+    cd = xi.dtype
+    conv = lambda t, w, b: halo_depthwise_conv_silu(t, w.to(cd), b.to(cd), reverse, sp)
+    xs, Bs, Cs = conv(xi, conv_x_w, conv_x_b), conv(Braw, conv_B_w, conv_B_b), \
+        conv(Craw, conv_C_w, conv_C_b)
+    rows, L = xi.shape[:2]
+    NG = Bs.shape[-1] // d_state
+    y = ssd_dir_seq_sharded(xs, dt, A, Bs.reshape(rows, L, NG, d_state),
+                            Cs.reshape(rows, L, NG, d_state), Dskip, dt_bias, chunk, reverse,
+                            sp)
+    return rms_norm(y.to(cd) * F.silu(z), norm_w.to(cd), eps)
+
+
 def embed_residual(model: Caduceus, input_ids: torch.Tensor,
-                   dtype=torch.bfloat16) -> torch.Tensor:
+                   dtype=torch.bfloat16, sp=None) -> torch.Tensor:
     """Token embedding -> residual stream ``[S*B, L, d]`` (S=2 with rcps:
-    rows B: are the RC stream), float32 when cfg.residual_in_fp32."""
+    rows B: are the RC stream), float32 when cfg.residual_in_fp32. With
+    ``sp`` the ids are this rank's chunk of L."""
     cfg = model.cfg
     ids = input_ids
     if cfg.rcps:
-        ids = torch.cat([input_ids, rc_ids(input_ids, model.cmap)], dim=0)
+        ids = torch.cat([input_ids, rc_ids(input_ids, model.cmap, sp)], dim=0)
     table = model.embedding.to(dtype)
     if torch.is_grad_enabled() and model.embedding.requires_grad:
         # One-hot product: the same rows exactly (one nonzero term per sum),
@@ -481,7 +557,7 @@ def embed_residual(model: Caduceus, input_ids: torch.Tensor,
 
 def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
              collect_layers: bool = False, use_kernels: bool = True,
-             remat: bool = False, lora: Optional[dict] = None):
+             remat: bool = False, lora: Optional[dict] = None, sp=None):
     """Embedding, n_layer blocks, final norm. Returns the working-frame
     hidden states ``[S*B, L, d]``; with ``collect_layers`` also the list of
     each block's residual-stream input (in ``dtype``). ``remat=True``
@@ -493,10 +569,10 @@ def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
     ``{"adapters": {name: {"a", "b"}}, "scale", "dropout", "seed"}``; each
     layer takes its slice and the seed folded with its index, so its
     dropout masks are a function of (seed, layer) and a recompute draws
-    them again."""
+    them again. ``sp``: context parallelism over that axis (the mixers)."""
     cfg = model.cfg
     mixer = mamba2_mixer if cfg.ssm_variant == "mamba2" else mamba_mixer
-    residual = embed_residual(model, input_ids, dtype)
+    residual = embed_residual(model, input_ids, dtype, sp)
     per_layer = []
     for i, layer in enumerate(model.layers):
         p = layer.params()
@@ -514,7 +590,7 @@ def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
             normed = _norm(res.to(dtype), p["norm_weight"], cfg)
             # a fresh mask cache per call: the recompute draws its masks anew
             out = mixer(p, normed, cfg, use_kernels=use_kernels,
-                        lora=None if ctx is None else dict(ctx))
+                        lora=None if ctx is None else dict(ctx), sp=sp)
             return res + out.to(res.dtype)
 
         residual = (checkpoint(block, residual, use_reentrant=False)
@@ -523,26 +599,27 @@ def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
     return (final, per_layer) if collect_layers else final
 
 
-def readout_hidden(h_work: torch.Tensor, cfg: CaduceusConfig) -> torch.Tensor:
+def readout_hidden(h_work: torch.Tensor, cfg: CaduceusConfig, sp=None) -> torch.Tensor:
     """Working frame ``[S*B, L, d]`` -> HF-contract hidden states: with rcps
     ``[B, L, 2d]`` whose channels ``d:`` are the RC stream in its stored
-    frame (length and channels flipped)."""
+    frame (length and channels flipped; the length across ``sp``'s shards
+    too)."""
     if not cfg.rcps:
         return h_work
     B = h_work.shape[0] // 2
-    return torch.cat([h_work[:B], h_work[B:].flip(1).flip(2)], dim=-1)
+    return torch.cat([h_work[:B], _sp_flip(h_work[B:], sp, 1).flip(2)], dim=-1)
 
 
-def lm_logits(model: Caduceus, h_work: torch.Tensor) -> torch.Tensor:
-    """MLM head. RCPS head: forward logits plus the time-flipped,
-    complement-permuted RC logits."""
+def lm_logits(model: Caduceus, h_work: torch.Tensor, sp=None) -> torch.Tensor:
+    """MLM head. RCPS head: forward logits plus the time-flipped (across
+    ``sp``'s shards too), complement-permuted RC logits."""
     cfg = model.cfg
     W = (model.lm_head if model.lm_head is not None else model.embedding).to(h_work.dtype)
     logits = h_work @ W.T                                       # [SB, L, V]
     if not cfg.rcps:
         return logits
     B = logits.shape[0] // 2
-    out = logits[:B] + logits[B:].flip(1)[..., model.cmap]
+    out = logits[:B] + _sp_flip(logits[B:], sp, 1)[..., model.cmap]
     if cfg.lm_head_strategy == "mean":
         out = out * 0.5
     return out
@@ -550,22 +627,25 @@ def lm_logits(model: Caduceus, h_work: torch.Tensor) -> torch.Tensor:
 
 def forward(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
             output_hidden_states: bool = False, all_hidden_states: bool = False,
-            use_kernels: bool = True, remat: bool = False) -> Dict[str, torch.Tensor]:
+            use_kernels: bool = True, remat: bool = False,
+            sp=None) -> Dict[str, torch.Tensor]:
     """Masked-LM forward: ``logits [B, L, V]``, optionally ``hidden_states``
     (final layer) and ``all_hidden_states [n_layer+1, B, L, hidden]`` (entry
     k = block k's input, last = ``hidden_states``). ``remat`` as
-    :func:`backbone`."""
+    :func:`backbone`. ``sp`` (a ``parallel.mesh.Axis``): context
+    parallelism; ``input_ids`` hold this rank's chunk of L, and the outputs
+    come back sharded the same way."""
     h_work = backbone(model, input_ids, dtype, collect_layers=all_hidden_states,
-                      use_kernels=use_kernels, remat=remat)
+                      use_kernels=use_kernels, remat=remat, sp=sp)
     per_layer = None
     if all_hidden_states:
         h_work, per_layer = h_work
-    out = {"logits": lm_logits(model, h_work)}
+    out = {"logits": lm_logits(model, h_work, sp)}
     if output_hidden_states or all_hidden_states:
-        out["hidden_states"] = readout_hidden(h_work, model.cfg)
+        out["hidden_states"] = readout_hidden(h_work, model.cfg, sp)
     if all_hidden_states:
         out["all_hidden_states"] = torch.stack(
-            [readout_hidden(h, model.cfg) for h in per_layer] + [out["hidden_states"]])
+            [readout_hidden(h, model.cfg, sp) for h in per_layer] + [out["hidden_states"]])
     return out
 
 

@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from plantcaduceus_tpu_torch.parallel.collectives import ppermute
+
 
 def causal_conv1d(
     x: torch.Tensor,
@@ -71,3 +73,23 @@ def causal_conv1d_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
         dw[..., tap] = (dy * xp[..., k:k + L, :]).sum((0, 1))
     dx = dxp[..., :L, :] if anticausal else dxp[..., K - 1:, :]
     return dx, dw, dy.sum((0, 1))
+
+
+def halo_depthwise_conv_silu(inp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                             anticausal: bool, sp) -> torch.Tensor:
+    """Context-parallel depthwise conv + SiLU over a sequence-sharded ``inp
+    [B, Llocal, D]`` (JAX ``ops/conv.halo_depthwise_conv_silu``): the K-1
+    boundary rows come from the neighbouring shard of the ``sp`` axis
+    (``parallel.mesh.Axis``) — the next shard for the anticausal direction,
+    the previous one for the causal — and the sequence's edge shards get
+    zeros, the conv's own padding. Differentiable: the exchange's adjoint is
+    the reverse exchange."""
+    K = w.shape[-1]
+    S, L = sp.size, inp.shape[1]
+    if anticausal:  # halo = the next shard's first K-1 rows
+        halo = ppermute(inp[:, :K - 1], sp, [(i, i - 1) for i in range(1, S)])
+        ext = torch.cat([inp, halo], dim=1)
+        return causal_conv1d(ext, w, b, activation="silu", anticausal=True)[:, :L]
+    halo = ppermute(inp[:, L - (K - 1):], sp, [(i, i + 1) for i in range(S - 1)])
+    ext = torch.cat([halo, inp], dim=1)
+    return causal_conv1d(ext, w, b, activation="silu")[:, K - 1:]

@@ -49,7 +49,7 @@ scan_bwd_plain = scan_direction_bwd
 _require, _lib = cuda_build.require, cuda_build.bind
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = [_P] * 12 + [_I] * 8 + [_P]
-_BWD_ARGS = [_P] * 16 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P]
+_BWD_ARGS = [_P] * 18 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P]
 
 
 def _check_scan_args(what, x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, others=()):
@@ -95,6 +95,16 @@ def _check_scan_args(what, x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, others=(
     return fuse, rows, L, D, N, R
 
 
+def _check_state(what, name, t, x, rows, D, N):
+    """A [rows, D, N] float32 state (K1's h0, K3's g0): on x's device,
+    contiguous, 16-byte aligned (K1 reads each channel's N states as
+    float4s)."""
+    _require(t.device == x.device and t.dtype == torch.float32 and t.is_contiguous()
+             and tuple(t.shape) == (rows, D, N), what,
+             f"{name} must be contiguous float32 {(rows, D, N)} on {x.device}")
+    _require(t.data_ptr() % 16 == 0, what, f"{name} must be 16-byte aligned")
+
+
 def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, Dskip: torch.Tensor,
              dt_bias: torch.Tensor, dt_proj_w: Optional[torch.Tensor] = None,
@@ -126,11 +136,7 @@ def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _require(dt.dtype == x.dtype, "scan_fwd",
              f"x ({x.dtype}) and dt, Bm, Cm ({dt.dtype}) must share one dtype")
     if h0 is not None:
-        _require(h0.device == x.device and h0.dtype == torch.float32 and h0.is_contiguous()
-                 and tuple(h0.shape) == (rows, D, N), "scan_fwd",
-                 f"h0 must be contiguous float32 {(rows, D, N)} on {x.device}")
-        # the kernel reads each channel's N states as float4s
-        _require(h0.data_ptr() % 16 == 0, "scan_fwd", "h0 must be 16-byte aligned")
+        _check_state("scan_fwd", "h0", h0, x, rows, D, N)
     lib = _lib("scan_fwd", "pc_scan_fwd", _FWD_ARGS)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
@@ -160,17 +166,23 @@ def scan_bwd(x: torch.Tensor, gy: torch.Tensor, dt: torch.Tensor, A: torch.Tenso
              Bm: torch.Tensor, Cm: torch.Tensor, Dskip: torch.Tensor,
              dt_bias: torch.Tensor, hb: torch.Tensor,
              dt_proj_w: Optional[torch.Tensor] = None, reverse: bool = False,
-             hb_chunk: int = HB_CHUNK):
+             hb_chunk: int = HB_CHUNK, g0: Optional[torch.Tensor] = None,
+             emit_dh0: bool = False):
     """Adjoint of one scan direction (K3), the counterpart of JAX
     ``_pallas_bwd_group``. Inputs as :func:`scan_fwd`, plus the cotangent
     ``gy`` (x's dtype and shape) and the forward's ``hb``. dt, Bm and Cm may
     be views with a contiguous last axis (K2's fp32 dt_lr | B | C rows).
-    Returns float32 ``(dx, ddt, dB, dC, dA, ddt_bias, dD, dW)``: ddt is the
-    gradient of dt_lr ``[rows, L, R]`` when fused, else of dt ``[rows, L,
-    D]``; dW is that of dt_proj_w ``[R, D]``, None when not fused."""
+    ``g0 [rows, D, N]`` float32 seeds the cotangent state (the adjoint of
+    K1's ``hfin``; zeros when None). Returns float32 ``(dx, ddt, dB, dC, dA,
+    ddt_bias, dD, dW)``: ddt is the gradient of dt_lr ``[rows, L, R]`` when
+    fused, else of dt ``[rows, L, D]``; dW is that of dt_proj_w ``[R, D]``,
+    None when not fused; with ``emit_dh0`` also the float32 gradient of the
+    processing-order initial state (K1's ``h0``), ``dh0 [rows, D, N]``.
+    ``launches`` counts the calls without either option, ``g0_launches``
+    those with one or both (the context-parallel scan's)."""
     if x.device.type == "cpu":
         return scan_bwd_plain(x, gy, dt, A, Bm, Cm, Dskip, dt_bias, hb, dt_proj_w,
-                              reverse, hb_chunk)
+                              reverse, hb_chunk, g0, emit_dh0)
     fuse, rows, L, D, N, R = _check_scan_args("scan_bwd", x, dt, A, Bm, Cm, Dskip,
                                               dt_bias, dt_proj_w, others=(gy,))
     _require(hb.device == x.device and hb.dtype == torch.float32 and hb.is_contiguous()
@@ -178,6 +190,8 @@ def scan_bwd(x: torch.Tensor, gy: torch.Tensor, dt: torch.Tensor, A: torch.Tenso
              f"hb must be contiguous float32 [rows, ceil(L/{hb_chunk}), D, N]")
     _require(1 <= hb_chunk <= MAX_HB_CHUNK, "scan_bwd",
              f"hb_chunk {hb_chunk} outside 1..{MAX_HB_CHUNK}")
+    if g0 is not None:
+        _check_state("scan_bwd", "g0", g0, x, rows, D, N)
     lib = _lib("scan_bwd", "pc_scan_bwd", _BWD_ARGS)
     Rk = R if fuse else 0
     J = Rk + 2 * N
@@ -190,26 +204,35 @@ def scan_bwd(x: torch.Tensor, gy: torch.Tensor, dt: torch.Tensor, A: torch.Tenso
     part_run = torch.empty((rows, P), **f32)
     out_pos = torch.empty((rows, L, J), **f32)
     out_run = torch.empty((P,), **f32)
+    dh0 = torch.empty((rows, D, N), **f32) if emit_dh0 else None
+    ptr = lambda t: t.data_ptr() if t is not None else None
     rc = lib.pc_scan_bwd(
         x.data_ptr(), gy.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        A.data_ptr(), Dskip.data_ptr(), dt_bias.data_ptr(),
-        dt_proj_w.data_ptr() if fuse else None, hb.data_ptr(), dx.data_ptr(),
-        ddt.data_ptr() if ddt is not None else None, part_pos.data_ptr(),
+        A.data_ptr(), Dskip.data_ptr(), dt_bias.data_ptr(), ptr(dt_proj_w), hb.data_ptr(),
+        ptr(g0), ptr(dh0), dx.data_ptr(),
+        ptr(ddt), part_pos.data_ptr(),
         part_run.data_ptr(), out_pos.data_ptr(), out_run.data_ptr(), rows, L, D, N, Rk,
         int(fuse), int(reverse), hb_chunk, dt.stride(0), dt.stride(1), Bm.stride(0),
         Bm.stride(1), int(x.dtype == torch.bfloat16), int(dt.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, rc, "scan_bwd")
-    scan_bwd.launches += 1
+    if g0 is not None or emit_dh0:
+        scan_bwd.g0_launches += 1
+    else:
+        scan_bwd.launches += 1
     dB, dC = out_pos[..., Rk:Rk + N], out_pos[..., Rk + N:]
     dA = out_run[:D * N].view(D, N)
     ddt_bias, dD = out_run[D * N:D * N + D], out_run[D * N + D:D * N + 2 * D]
     if fuse:
-        return dx, out_pos[..., :Rk], dB, dC, dA, ddt_bias, dD, out_run[D * N + 2 * D:].view(Rk, D)
-    return dx, ddt, dB, dC, dA, ddt_bias, dD, None
+        out = (dx, out_pos[..., :Rk], dB, dC, dA, ddt_bias, dD,
+               out_run[D * N + 2 * D:].view(Rk, D))
+    else:
+        out = (dx, ddt, dB, dC, dA, ddt_bias, dD, None)
+    return out + (dh0,) if emit_dh0 else out
 
 
 scan_bwd.launches = 0
+scan_bwd.g0_launches = 0
 
 
 class SelectiveScanFn(torch.autograd.Function):

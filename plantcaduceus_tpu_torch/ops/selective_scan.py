@@ -144,7 +144,8 @@ def scan_direction(x, dt, A, Bm, Cm, Dskip, dt_bias, reverse: bool,
 
 def scan_direction_bwd(x, gy, dt, A, Bm, Cm, Dskip, dt_bias, hb=None,
                        dt_proj_w=None, reverse: bool = False,
-                       hb_chunk: int = HB_CHUNK):
+                       hb_chunk: int = HB_CHUNK, g0: Optional[torch.Tensor] = None,
+                       emit_dh0: bool = False):
     """Adjoint of :func:`scan_direction` (the plain version of kernel K3,
     ``csrc/scan_bwd.cu``), with its arithmetic: per ``hb_chunk`` chunk, in
     reverse processing order, the states are recomputed from the entry state
@@ -153,9 +154,13 @@ def scan_direction_bwd(x, gy, dt, A, Bm, Cm, Dskip, dt_bias, hb=None,
     x, gy: ``[R, L, D]``; dt: ``[R, L, D]``, or the low-rank ``dt_lr [R, L,
     Rk]`` when ``dt_proj_w [Rk, D]`` is given; Bm, Cm: ``[R, L, N]``; A:
     ``[D, N]``; Dskip, dt_bias: ``[D]``; hb: the forward's chunk-entry states
-    (recomputed when None). Returns float32 ``(dx, ddt, dB, dC, dA, ddt_bias,
-    dD, dW)``: ddt is ``d dt_lr [R, L, Rk]`` when fused, else ``d dt [R, L,
-    D]``; dW is ``d dt_proj_w [Rk, D]``, or None when not fused."""
+    (recomputed when None). ``g0 [R, D, N]`` seeds the cotangent state (the
+    adjoint of an emitted final state; zeros when None). Returns float32 ``(dx, ddt, dB, dC, dA, ddt_bias, dD,
+    dW)``: ddt is ``d dt_lr [R, L, Rk]`` when fused, else ``d dt [R, L,
+    D]``; dW is ``d dt_proj_w [Rk, D]``, or None when not fused; with
+    ``emit_dh0`` also ``dh0 [R, D, N]``, the cotangent left after the
+    earliest-processed step: the gradient with respect to the
+    processing-order initial state (JAX ``_pallas_bwd_group``'s options)."""
     x, gy, Bm, Cm, A = (t.float() for t in (x, gy, Bm, Cm, A))
     dt_in = dt.float()
     dt_raw = dt_in @ dt_proj_w.float() if dt_proj_w is not None else dt_in
@@ -174,7 +179,7 @@ def scan_direction_bwd(x, gy, dt, A, Bm, Cm, Dskip, dt_bias, hb=None,
     dB = torch.empty_like(Bm)
     dC = torch.empty_like(Cm)
     dA = torch.zeros_like(A)
-    g = x.new_zeros((R, D, A.shape[-1]))
+    g = g0.float().clone() if g0 is not None else x.new_zeros((R, D, A.shape[-1]))
     for c in reversed(range(hb.shape[1])):
         ts = order[c * hb_chunk:(c + 1) * hb_chunk]
         hs, h = [], hb[:, c]
@@ -196,6 +201,8 @@ def scan_direction_bwd(x, gy, dt, A, Bm, Cm, Dskip, dt_bias, hb=None,
     ddt_bias = ddt.sum((0, 1))
     dD = (gy * x).sum((0, 1))
     if dt_proj_w is None:
-        return dx, ddt, dB, dC, dA, ddt_bias, dD, None
-    dW = torch.einsum("rlk,rld->kd", dt_in, ddt)
-    return dx, ddt @ dt_proj_w.float().T, dB, dC, dA, ddt_bias, dD, dW
+        out = (dx, ddt, dB, dC, dA, ddt_bias, dD, None)
+    else:
+        dW = torch.einsum("rlk,rld->kd", dt_in, ddt)
+        out = (dx, ddt @ dt_proj_w.float().T, dB, dC, dA, ddt_bias, dD, dW)
+    return out + (g,) if emit_dh0 else out

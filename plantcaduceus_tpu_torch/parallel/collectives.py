@@ -1,0 +1,138 @@
+"""Differentiable collectives over one mesh axis: the ``jax.lax``
+primitives the context-parallel code uses (``all_gather``, ``ppermute``,
+``psum``; ``axis_index`` is ``Axis.index``), as ``torch.autograd``
+Functions over ``torch.distributed``.
+
+Adjoints, as JAX transposes them:
+* ``all_gather`` stacks every rank's tensor; its adjoint is the sum over
+  the ranks of their cotangents, each rank taking its own slice (a
+  reduce-scatter: each rank receives only the sum of its slice);
+* ``ppermute`` moves tensors along (source, destination) pairs of axis
+  coordinates, a rank that receives nothing getting zeros; its adjoint is
+  the reverse ``ppermute``;
+* ``psum`` sums over the axis; its adjoint sums the cotangents.
+
+Under gloo (``Axis.staged``) every collective copies its tensors to the
+host, runs there and copies the result back to the tensor's device,
+whatever the device: nothing depends on which device operations gloo
+supports. Under NCCL the tensors stay on the rank's card, and a tensor on
+the host is refused. On an axis of size 1 each is the identity (or a stack
+of one).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from plantcaduceus_tpu_torch.parallel.mesh import Axis
+
+
+def _buffer(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """A contiguous copy of ``t`` for the backend to work in: on the host
+    under gloo, on ``t``'s card under NCCL, which takes no host tensor."""
+    if axis.staged:
+        return t.detach().to("cpu", copy=True)
+    if t.device.type != "cuda":
+        raise ValueError(f"collective over {axis.name!r}: NCCL takes tensors on the rank's "
+                         f"card, got one on {t.device}")
+    return t.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _all_reduce(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    buf = _buffer(t, axis)
+    dist.all_reduce(buf, group=axis.group)
+    return buf.to(t.device)
+
+
+def _all_gather(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    buf = _buffer(t, axis)
+    out = [torch.empty_like(buf) for _ in range(axis.size)]
+    dist.all_gather(out, buf, group=axis.group)
+    return torch.stack(out).to(t.device)
+
+
+def _reduce_scatter(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``[axis.size, *s] -> [*s]``: the sum over the ranks of their
+    ``t[axis.index]``."""
+    buf = _buffer(t, axis)
+    out = torch.empty_like(buf[0])
+    dist.reduce_scatter(out, list(buf.unbind(0)), group=axis.group)
+    return out.to(t.device)
+
+
+def _ppermute(t: torch.Tensor, axis: Axis, perm: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+    buf = _buffer(t, axis)
+    recv = torch.zeros_like(buf)
+    ops = []
+    for src, dst in perm:
+        if src == dst == axis.index:  # to itself: no message
+            recv = buf
+        elif src == axis.index:
+            ops.append(dist.P2POp(dist.isend, buf, axis.ranks[dst], axis.group))
+        elif dst == axis.index:
+            ops.append(dist.P2POp(dist.irecv, recv, axis.ranks[src], axis.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return recv.to(t.device)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return _all_gather(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.axis), None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, perm):
+        ctx.axis, ctx.perm = axis, perm
+        return _ppermute(t, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.axis, tuple((d, s) for s, d in ctx.perm)), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return _all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis), None
+
+
+def all_gather(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``[axis.size, *t.shape]``: every rank's ``t`` in axis order
+    (``jax.lax.all_gather``, untiled)."""
+    if axis.size == 1:
+        return t[None]
+    return _AllGather.apply(t, axis)
+
+
+def ppermute(t: torch.Tensor, axis: Axis, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Send ``t`` from coordinate ``src`` to ``dst`` for each pair of
+    ``perm``; a rank that receives nothing gets zeros
+    (``jax.lax.ppermute``)."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if axis.size == 1:
+        return t if (0, 0) in perm else torch.zeros_like(t)
+    return _Ppermute.apply(t, axis, perm)
+
+
+def psum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of ``t`` over the axis (``jax.lax.psum``)."""
+    if axis.size == 1:
+        return t
+    return _Psum.apply(t, axis)

@@ -1,12 +1,13 @@
 """Training loop with monitoring, eval, and checkpoint/resume.
 
-Counterpart of ``plantcaduceus_tpu.train.loop`` on one device: steps-based
-loop, periodic eval + perplexity, periodic checkpoints with autoresume, and
-a SpeedMonitor-style throughput/step-time tracker with optional wandb
+Counterpart of ``plantcaduceus_tpu.train.loop``: steps-based loop,
+periodic eval + perplexity, periodic checkpoints with autoresume, and a
+SpeedMonitor-style throughput/step-time tracker with optional wandb
 logging. Each logged line carries ``elapsed_s``, the seconds since the loop
 started, read after the step's metrics reached the host. ``profile_dir``
 traces the loop's steps ``start + 10`` to ``start + 12`` there
-(``utils/profiling``).
+(``utils/profiling``). Under ``torch.distributed`` every rank steps and
+evaluates; rank 0 alone logs, profiles and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from plantcaduceus_tpu_torch.parallel.mesh import world
 from plantcaduceus_tpu_torch.train.checkpoint import CheckpointManager
 from plantcaduceus_tpu_torch.train.step import TrainState
 from plantcaduceus_tpu_torch.utils.profiling import StepWindowProfiler
@@ -63,7 +65,8 @@ def run_training(
     """Run to max_steps (resuming from state.step). Returns the final state."""
     start_step = int(state.step)
     monitor = SpeedMonitor()
-    profiler = StepWindowProfiler(profile_dir, start_step + 10, 3)
+    rank0 = world()[0] == 0
+    profiler = StepWindowProfiler(profile_dir if rank0 else None, start_step + 10, 3)
     t0 = time.perf_counter()
 
     for step in range(start_step, max_steps):
@@ -85,7 +88,7 @@ def run_training(
             state, metrics_dev = train_step(state, batch)
         monitor.tick()
 
-        if (step + 1) % log_every == 0:
+        if rank0 and (step + 1) % log_every == 0:
             m = {k: float(v) for k, v in metrics_dev.items()}
             m.update(monitor.stats(tokens_per_step))
             m["elapsed_s"] = time.perf_counter() - t0
@@ -98,16 +101,17 @@ def run_training(
 
         if eval_every and eval_batches is not None and (step + 1) % eval_every == 0:
             ev = evaluate(state, eval_step, eval_batches(), eval_max_batches)
-            log.info("eval @ %d: loss=%.4f ppl=%.2f acc=%.4f", step + 1,
-                     ev["loss"], ev["perplexity"], ev["accuracy"])
-            if wandb_run is not None:
-                wandb_run.log({"eval/" + k: v for k, v in ev.items()}, step=step + 1)
+            if rank0:
+                log.info("eval @ %d: loss=%.4f ppl=%.2f acc=%.4f", step + 1,
+                         ev["loss"], ev["perplexity"], ev["accuracy"])
+                if wandb_run is not None:
+                    wandb_run.log({"eval/" + k: v for k, v in ev.items()}, step=step + 1)
 
-        if ckpt is not None:
+        if ckpt is not None and rank0:
             ckpt.save(step + 1, state)
 
     profiler.close()
-    if ckpt is not None:
+    if ckpt is not None and rank0:
         if ckpt.latest_step() != max_steps:
             ckpt.save(max_steps, state, force=True)
         ckpt.wait()

@@ -306,7 +306,9 @@ def test_load_tokenizer_only(tiny_ckpt):
 def test_new_modules_import_nothing_the_gpu_hosts_lack():
     """The AR LM, evaluation, XGBoost, serving, input-tool, fine-tuning,
     streaming, profiling, distillation, convergence and GPN modules, the
-    table opener and the parquet reader import neither jax nor the JAX
+    table opener, the parquet reader, the mesh and its collectives, the
+    sequence-sharded scans, the runner, the zero-shot engine, the train step
+    and the scoring CLI import neither jax nor the JAX
     package, nor sklearn, pandas, pyarrow, zstandard, xgboost, matplotlib,
     datasets, optax, orbax, peft, safetensors, huggingface_hub or scipy.stats
     (absent or unused on the GPU hosts), in a fresh interpreter."""
@@ -321,7 +323,9 @@ for m in ("models.mamba_lm", "cli.ar_lm", "engine.eval_tasks", "cli.zero_shot_ev
           "cli.lora_fine_tune", "cli.finetune_suite", "compat.model_card", "cli.pretrain",
           "io.parquet", "train.data", "train.streaming", "utils.profiling", "train.loop",
           "train.distill", "cli.distill", "train.convergence", "models.gpn",
-          "io.safetensors", "io.zstd", "compat.hf_import"):
+          "io.safetensors", "io.zstd", "compat.hf_import", "parallel.mesh",
+          "parallel.collectives", "ops.seq_parallel", "ops.ssd_seq_parallel", "ops.conv",
+          "engine.runner", "engine.zero_shot", "train.step", "cli.zero_shot_score"):
     importlib.import_module("plantcaduceus_tpu_torch." + m)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "plantcaduceus_tpu", "sklearn", "pandas",

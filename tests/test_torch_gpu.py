@@ -1381,3 +1381,123 @@ def test_safetensors_checkpoint_scores_on_the_card(cuda, tmp_path):
         torch.cuda.synchronize()
         assert cuda_mixer.mixer_fwd.launches - before == 2 * cfg.n_layer
     assert torch.isfinite(logits["st"]).all() and torch.equal(logits["st"], logits["bin"])
+
+
+# ---------------------------------------------------------------------------
+# K3's g0 / emit_dh0 (the context-parallel scan's backward) and the
+# sequence-sharded scan on 2 ranks sharing the card.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_bwd_g0_dh0_matches_plain(cuda, dtype, fuse, reverse):
+    """K3 with a g0 seed and emit_dh0 against its plain version (every
+    output within 1e-4 of its scale); and with g0 = 0 the other outputs
+    equal the launch without the options bit for bit."""
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    rng = np.random.default_rng(70)
+    x, dt, A, Bm, Cm, Ds, dtb, w = _scan_case(rng, cuda, dtype, fuse, rows=2, L=200, D=136)
+    gy = _t(rng.standard_normal(tuple(x.shape)), cuda, dtype)
+    g0 = _t(rng.standard_normal((2, 136, 16)), cuda)
+    _, hb = cuda_scan.scan_fwd_plain(x, dt, A, Bm, Cm, Ds, dtb, w, reverse, HB_CHUNK)
+    before = cuda_scan.scan_bwd.g0_launches
+    got = cuda_scan.scan_bwd(x, gy, dt, A, Bm, Cm, Ds, dtb, hb, w, reverse, g0=g0,
+                             emit_dh0=True)
+    torch.cuda.synchronize()
+    assert cuda_scan.scan_bwd.g0_launches == before + 1
+    want = cuda_scan.scan_bwd_plain(x, gy, dt, A, Bm, Cm, Ds, dtb, hb, w, reverse, g0=g0,
+                                    emit_dh0=True)
+    names = ["dx", "ddt", "dB", "dC", "dA", "ddt_bias", "dD", "dW", "dh0"]
+    for n, g, wnt in zip(names, got, want):
+        if wnt is None:
+            assert g is None, n
+            continue
+        _close_to_scale(g, wnt, 1e-4, n)
+    plain = cuda_scan.scan_bwd(x, gy, dt, A, Bm, Cm, Ds, dtb, hb, w, reverse)
+    zero = cuda_scan.scan_bwd(x, gy, dt, A, Bm, Cm, Ds, dtb, hb, w, reverse,
+                              g0=torch.zeros_like(g0), emit_dh0=True)
+    for n, a, b in zip(names, plain, zero):
+        assert (a is None and b is None) or torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_scan_bwd_g0_chains_halves(cuda, dtype, fuse):
+    """Two K3 calls over the halves, the later-processed half's dh0 seeding
+    the earlier one's g0, against one call over the whole (both starting
+    from one g0): the per-step outputs and dh0 bit for bit, the whole-run
+    sums (dA, ddt_bias, dD, dW: two partial sums added) within 1e-5."""
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    rng = np.random.default_rng(71)
+    L, split = 512, 256
+    x, dt, A, Bm, Cm, Ds, dtb, w = _scan_case(rng, cuda, dtype, fuse, rows=2, L=L, D=136)
+    gy = _t(rng.standard_normal(tuple(x.shape)), cuda, dtype)
+    g0 = _t(rng.standard_normal((2, 136, 16)), cuda)
+    part = lambda t, a, b: t[:, a:b].contiguous()
+    nl = split // HB_CHUNK
+    for reverse in (False, True):
+        _, hb = cuda_scan.scan_fwd(x, dt, A, Bm, Cm, Ds, dtb, w, reverse, HB_CHUNK)
+        full = cuda_scan.scan_bwd(x, gy, dt, A, Bm, Cm, Ds, dtb, hb, w, reverse, g0=g0,
+                                  emit_dh0=True)
+        # processing order: the first-processed half's hb chunks come first
+        spans = [((0, split), hb[:, :nl]), ((split, L), hb[:, nl:])]
+        if reverse:
+            spans = [((split, L), hb[:, :nl]), ((0, split), hb[:, nl:])]
+        g, outs = g0, {}
+        for (a, b), hbp in reversed(spans):  # the adjoint runs the processing order back
+            outs[a] = cuda_scan.scan_bwd(part(x, a, b), part(gy, a, b), part(dt, a, b), A,
+                                         part(Bm, a, b), part(Cm, a, b), Ds, dtb,
+                                         hbp.contiguous(), w, reverse, g0=g, emit_dh0=True)
+            g = outs[a][-1]
+        for i, n in enumerate(["dx", "ddt", "dB", "dC"]):
+            assert torch.equal(torch.cat([outs[0][i], outs[split][i]], 1), full[i]), n
+        assert torch.equal(g, full[-1]), "dh0"
+        for i, n in zip(range(4, 8), ["dA", "ddt_bias", "dD", "dW"]):
+            if full[i] is not None:
+                _close_to_scale(outs[0][i] + outs[split][i], full[i], 1e-5, n)
+
+
+def test_scan_bwd_rejects_bad_g0(cuda):
+    """g0 is held to K1's h0 checks: device, float32, contiguous, shape,
+    16-byte alignment."""
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    rng = np.random.default_rng(72)
+    x, dt, A, Bm, Cm, Ds, dtb, w = _scan_case(rng, cuda, torch.float32, True, rows=2, L=64,
+                                              D=32)
+    gy = _t(rng.standard_normal(tuple(x.shape)), cuda)
+    _, hb = cuda_scan.scan_fwd_plain(x, dt, A, Bm, Cm, Ds, dtb, w, False, HB_CHUNK)
+    good = torch.zeros((2, 32, 16), device=cuda)
+    flat = torch.zeros(2 * 32 * 16 + 1, device=cuda)
+    for bad in (good.cpu(), good.double(), good.transpose(1, 2).contiguous().transpose(1, 2),
+                good[:1], flat[1:].view(2, 32, 16)):
+        with pytest.raises((ValueError, RuntimeError), match="g0"):
+            cuda_scan.scan_bwd(x, gy, dt, A, Bm, Cm, Ds, dtb, hb, w, g0=bad, emit_dh0=True)
+
+
+def test_seq_sharded_scan_two_ranks_on_the_card(cuda, tmp_path):
+    """``selective_scan_seq_sharded`` on 2 gloo ranks whose tensors share
+    ``cuda:0`` (K1 with h0/hfin, K3 with g0/dh0): the gathered y and the
+    summed gradients against the single-device scan (``SelectiveScanFn``,
+    K1-hb and K3) on the same card; 1e-4 and 1e-3 of each output's scale."""
+    from tests.torch_parallel_ranks import Ranks, scan_inputs
+
+    inp = scan_inputs()
+    np.savez(tmp_path / "inputs.npz", **inp)
+    Ranks(2, "tests.torch_parallel_ranks:scans_on_card", tmp_path).wait()
+    for pre, fuse in (("m1f_", True), ("m1u_", False)):
+        got = dict(np.load(tmp_path / f"{pre}scan.npz"))
+        names = ["x", "dt", "A", "Bm", "Cm", "Ds", "dtb"] + (["W"] if fuse else [])
+        t = {k: _t(inp[pre + k], cuda).requires_grad_(True) for k in names}
+        ys = [cuda_scan.selective_scan(t["x"][g], t["dt"][g], t["A"][g], t["Bm"][g],
+                                       t["Cm"][g], t["Ds"][g], t["dtb"][g],
+                                       t["W"][g] if fuse else None, reverse=(g == 1))
+              for g in range(2)]
+        y = torch.stack(ys)
+        (y * _t(inp[pre + "cot"], cuda)).sum().backward()
+        _close_to_scale(torch.from_numpy(got["y"]), y.detach().cpu(), 1e-4, "y")
+        for k in names:
+            _close_to_scale(torch.from_numpy(got["d_" + k]), t[k].grad.cpu(), 1e-3, k)

@@ -50,6 +50,15 @@ GRAD_TOL = 1e-4
 BF16_TOL = 2 ** -6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fast_jax_compiles():
+    """XLA's optimisation passes off for this module's tiny JAX programs: the
+    same functions, compiled in less time."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 @pytest.fixture(scope="module", params=list(CONFIGS))
 def case(request):
     kw, L = CONFIGS[request.param]
@@ -107,8 +116,10 @@ def test_plain_scan_impl_skips_the_kernels(monkeypatch, impl):
 
 def test_forward_and_loss_match_jax(case):
     _, jcfg, params, model, ids = case
-    out = J.forward(params, jnp.asarray(ids, jnp.int32), jcfg, dtype=jnp.float32)
-    want_loss = float(J.nll_loss(params, jnp.asarray(ids, jnp.int32), jcfg, dtype=jnp.float32))
+    out, want_loss = jax.jit(lambda p, i: (J.forward(p, i, jcfg, dtype=jnp.float32),
+                                           J.nll_loss(p, i, jcfg, dtype=jnp.float32)))(
+        params, jnp.asarray(ids, jnp.int32))
+    want_loss = float(want_loss)
     with torch.no_grad():
         got = T.forward(model, torch.from_numpy(ids), dtype=torch.float32)
         loss = float(T.nll_loss(model, torch.from_numpy(ids), dtype=torch.float32))
@@ -121,8 +132,8 @@ def test_forward_and_loss_match_jax(case):
 
 def test_bf16_forward_within_bound(case):
     _, jcfg, params, model, ids = case
-    want = np.asarray(J.forward(params, jnp.asarray(ids, jnp.int32), jcfg)["logits"]
-                      .astype(jnp.float32))
+    want = np.asarray(jax.jit(lambda p, i: J.forward(p, i, jcfg)["logits"].astype(jnp.float32))(
+        params, jnp.asarray(ids, jnp.int32)))
     with torch.no_grad():
         got = T.forward(model, torch.from_numpy(ids))["logits"]
     assert got.dtype == torch.bfloat16
@@ -133,8 +144,8 @@ def test_gradients_match_jax(case):
     """fp32 ``nll_loss`` gradients: autograd through the kernels' autograd
     Functions (their plain versions on the CPU) against ``jax.grad``."""
     _, jcfg, params, model, ids = case
-    want = jax.grad(lambda p: J.nll_loss(p, jnp.asarray(ids, jnp.int32), jcfg,
-                                         dtype=jnp.float32))(params)
+    want = jax.jit(jax.grad(lambda p: J.nll_loss(p, jnp.asarray(ids, jnp.int32), jcfg,
+                                                 dtype=jnp.float32)))(params)
     model.requires_grad_()
     try:
         names, ps = zip(*model.named_parameters())
@@ -158,9 +169,9 @@ def test_step_matches_jax(case):
     n = 6
     jcache = J.init_cache(jcfg, ids.shape[0])
     tcache = T.init_cache(model.cfg, ids.shape[0])
+    jstep = jax.jit(lambda p, c, tok: J.step(p, c, tok, jcfg, dtype=jnp.float32))
     for t in range(n):
-        jl, jcache = J.step(params, jcache, jnp.asarray(ids[:, t], jnp.int32), jcfg,
-                            dtype=jnp.float32)
+        jl, jcache = jstep(params, jcache, jnp.asarray(ids[:, t], jnp.int32))
         with torch.no_grad():
             tl, tcache = T.step(model, tcache, torch.from_numpy(ids[:, t]), dtype=torch.float32)
         _close(tl.numpy(), np.asarray(jl), LOGIT_TOL)

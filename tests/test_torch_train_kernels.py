@@ -33,6 +33,15 @@ from plantcaduceus_tpu_torch.ops.selective_scan import (HB_CHUNK, scan_direction
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fast_jax_compiles():
+    """XLA's optimisation passes off for this module's tiny JAX programs: the
+    same functions, compiled in less time."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 def _close(got, want, rel, name=""):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, (name, got.shape, want.shape)

@@ -14,7 +14,8 @@ the split by kernel from torch.profiler over 10 calls):
   P = N = chunk = 128, NG 1), each beside its bound (``ssd_train_work``);
 * K3 (``scan_bwd``), fused dt, both directions, bf16 and fp32, at phase
   3b's shape (64 rows x 512 x 768, N 16, R 24, hb chunk 16) on K2-res's
-  residuals, beside its bound (``scan_bwd_work``);
+  residuals, beside its bound (``scan_bwd_work``), with the SHA-256 of its
+  outputs (compare two checkouts' bits);
 * the l20 and l20-ssd training steps (bf16, batch 32 x 512, remat, as
   phases 9/10 and 9b/10b): the mean step over 8 steps after 3 warm ones,
   and one profiled step's wall, device busy time, busy share and its five
@@ -31,6 +32,7 @@ JSON line per run. The helpers (timing, inputs, bounds) are those of
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import re
@@ -151,8 +153,10 @@ def k3(cs, dev):
                 return cuda_scan.scan_bwd(*a)
 
             b, by, _ = cs.bound_ms(*cs.scan_bwd_work(rows, L, D, N, R, dtype.itemsize))
+            digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in fn()
+                                             if t is not None)).hexdigest()
             out.setdefault(dn, {})["rev" if g else "fwd"] = dict(
-                ms=cs.time_ms(fn, 10), bound_ms=b, bound_by=by,
+                ms=cs.time_ms(fn, 10), bound_ms=b, bound_by=by, sha256=digest,
                 split_ms=cs.device_ms_by_kernel(fn))
             del res, kargs
         del x, gy
