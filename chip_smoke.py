@@ -190,13 +190,38 @@ h0; then ranks of ``torch.distributed.run`` (``chip_smoke.py
 --phase17-rank``) sharing ``cuda:0`` over gloo: pc2-small and
 pc2-small-ssd at 8192 bp scored at seq 4 (fp32 and bf16 logits) and
 trained 3 steps at data 2 x seq 2 (fp32 and bf16; the first step's
-gradients, the weights after), l20 scored with the records striped over
-data 2 and trained 2 steps; each against one process on the card; exact
-launches on every rank, each rank's peak memory, the seconds spent in the
-collectives.
+gradients, the weights after), l20 scored with each batch's rows split
+over data 2 (against one process at the rows of a rank's forward) and
+trained 2 steps; each against one process on the card;
+exact launches on every rank, each rank's peak memory, the seconds spent
+in the collectives.
 
-Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13, 14, 15, 16 and 17
-go to ``build/chip_smoke/`` in the checkout.
+Then FSDP and the data axis on the entry points (18; ``phase_fsdp_entry``),
+l20 at 512 bp on 2 ranks of ``torch.distributed.run`` (``chip_smoke.py
+--phase18-rank``) sharing ``cuda:0`` over gloo, each against one process
+on the card with the same weights and inputs, exact launches equal on
+every rank:
+
+18a. pre-training at ``fsdp`` 2 (8 rows, remat): 3 fp32 steps, each step's
+    gradients (gathered from the blocks) and the weights after within 1e-3
+    of each leaf's max, grad_norm within 1e-5 relative; a checkpoint at
+    step 2 resumed under fsdp 2 gives step 3's weights bit for bit, and in
+    one process within the fp32 gate; what a rank holds between steps; 1
+    bf16 step timed; peak memory a rank (K2-res, K3);
+18b. distillation l20 -> l20-ssd at fsdp 2, 2 fp32 steps gated the same way
+    (K2, K5-res, K6 pre_silu);
+18c. ``lora_fine_tune train`` on 2 data ranks (8 rows, fp32, dropout 0, 2
+    steps): the adapters within 1e-3; ``predict`` byte-equal (K1-hb, K3,
+    K2);
+18d. ``predict_xgboost`` on 2 data ranks at batch 16: the embeddings and
+    the output equal bit for bit to one process at batch 8, the rows of a
+    rank's forward (K2);
+18e. ``python -m torch.distributed.run ... cli.serve -model l20 -seq 2`` on
+    a free port: /score and /embed within 1e-5 of the in-process one-rank
+    service; SIGTERM to the leader, and every rank exits 0.
+
+Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13, 14, 15, 16, 17
+and 18 go to ``build/chip_smoke/`` in the checkout.
 
 Every failure exits non-zero; no phase's failure is caught. Without CUDA it
 exits 1 and prints no result. The last two lines of standard output are the
@@ -4218,7 +4243,7 @@ def phase_formats(dev, tsv, n_valid):
 # ---------------------------------------------------------------------------
 # Phase 17: context and data parallelism (parallel/mesh.py,
 # parallel/collectives.py, ops/seq_parallel.py, ops/ssd_seq_parallel.py,
-# ops/conv.halo_depthwise_conv_silu, the data x seq runner, striping and train
+# ops/conv.halo_depthwise_conv_silu, the data x seq runner and train
 # step) on ranks of ``torch.distributed.run`` that share the one card over
 # gloo: every rank runs its kernels on the card, and gloo stages the
 # collectives through the host, so the times below are the card's for ranks
@@ -4229,20 +4254,20 @@ def phase_formats(dev, tsv, n_valid):
 # seq 4; pre-training at data 2 x seq 2, global batch 4, remat: 3 fp32 steps,
 # every step's gradients and the weights after them gated, and 2 bf16 steps,
 # the first's gradients gated and the second timed) and l20 at 512 bp
-# (scoring striped over data 2, K2; data-parallel training, K2-res and K3),
+# (scoring with each batch's rows split over data 2, K2; data-parallel
+# training, K2-res and K3),
 # each against one process on the same card with the same weights and inputs.
 PAR_L, PAR_WINDOWS, PAR_STEPS, PAR_BF16_STEPS = 8192, 4, 3, 2
 PAR_MODELS = ("pc2-small", "pc2-small-ssd")
 DP_L, DP_WINDOWS, DP_BATCH, DP_ROWS = 512, 64, 16, 8
 PAR_SEED = 17
-DP_SCORE_TOL = 1e-5   # data-parallel scores: the same rows, the same kernels
 PAR_TIMEOUT_S = 420
 
 
 def par_inputs(workdir: Path) -> dict:
     """The phase's inputs from a seed, written where the ranks read them:
     per pc2 model 4 windows of 8192 ids and 4 training batches of 4 rows;
-    for l20 64 windows (striped scoring) and one training batch of 8 rows."""
+    for l20 64 windows (row-split scoring) and one training batch of 8 rows."""
     import numpy as np
 
     from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
@@ -4290,9 +4315,9 @@ class KeptGrads:
     def init(self, params):
         return self.opt.init(params)
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, **kw):
         self.grads.append({n: g.detach().to("cpu", copy=True) for n, g in grads.items()})
-        return self.opt.update(grads, state, params)
+        return self.opt.update(grads, state, params, **kw)
 
 
 def par_run(preset, dev, inp, scoring_mesh, train_mesh, sync=None):
@@ -4355,7 +4380,8 @@ def par_run(preset, dev, inp, scoring_mesh, train_mesh, sync=None):
 
 def dp_run(dev, inp, mesh, sync=None):
     """l20 at 512 bp in one process or on one rank of a data-2 mesh: fp32
-    scores of the 64 windows (striped over data), their windows/s, and two
+    scores of the 64 windows (each batch of 16 rows split over data, one
+    process at the 8 rows of a rank's forward), their windows/s, and two
     fp32 training steps (the second timed; the weights after)."""
     import torch
 
@@ -4367,8 +4393,9 @@ def dp_run(dev, inp, mesh, sync=None):
 
     sync = sync or torch.cuda.synchronize
     cfg, model = par_model("l20", dev)
-    runner = InferenceRunner(model, cfg, dtype=torch.float32, batch_size=DP_BATCH, device=dev,
-                             mesh=mesh)
+    runner = InferenceRunner(model, cfg, dtype=torch.float32,
+                             batch_size=DP_BATCH if mesh is not None else DP_BATCH // 2,
+                             device=dev, mesh=mesh)
     seqs = [str(w) for w in inp["dp_windows"]]
     out, cnt = {}, {}
     reset_counts()
@@ -4469,29 +4496,42 @@ def phase17_rank(job: str, workdir: Path) -> None:
     dist.destroy_process_group()
 
 
-def run_ranks(n: int, job: str, workdir: Path) -> float:
+def stop_ranks(proc, grace_s: float = 60) -> None:
+    """End a ``torch.distributed.run`` still running: SIGTERM to it stops its
+    ranks (they run in sessions of their own, out of reach of a kill of its
+    group); SIGKILL to its group after ``grace_s``."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=grace_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+
+
+def run_ranks(n: int, rank_args: list, workdir: Path, name: str, timeout_s: float,
+              phase: str) -> float:
     """``python -m torch.distributed.run --standalone --nproc-per-node n
-    chip_smoke.py --phase17-rank job workdir``; fails the phase if a rank
-    fails (torch.distributed.run then stops its siblings) or the call
-    outlasts its limit (the whole process group is killed). Returns its
-    seconds."""
-    logf = workdir / f"{job}.log"
+    chip_smoke.py *rank_args`` with its output in ``workdir/name.log``;
+    fails ``phase`` if a rank fails (torch.distributed.run then stops its
+    siblings) or the call outlasts ``timeout_s`` (the ranks are stopped).
+    Returns its seconds."""
+    logf = workdir / f"{name}.log"
     t = time.perf_counter()
     with open(logf, "wb") as fh:
         proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-             str(n), str(REPO / "chip_smoke.py"), "--phase17-rank", job, str(workdir)],
+             str(n), str(REPO / "chip_smoke.py"), *rank_args],
             cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1"),
             stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
         try:
-            rc = proc.wait(timeout=PAR_TIMEOUT_S)
+            rc = proc.wait(timeout=timeout_s)
         except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)
-            proc.wait()
+            stop_ranks(proc)
             rc = "timeout"
     if rc != 0:
         tail = logf.read_text(errors="replace")[-6000:]
-        fail(f"phase 17: {n} ranks of {job} ended with {rc}:\n{tail}")
+        fail(f"{phase}: {n} ranks of {name} ended with {rc}:\n{tail}")
     return time.perf_counter() - t
 
 
@@ -4630,12 +4670,13 @@ def phase_parallel(dev, card):
     single["l20"] = dp_run(dev, inp, None)
     torch.cuda.empty_cache()
     for preset, want in (*((p, par_expected(p, 24, False)) for p in PAR_MODELS),
-                         ("l20", {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // DP_BATCH),
+                         ("l20", {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // (DP_BATCH // 2)),
                                   "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})):
         if single[preset]["counts"] != want:
             fail(f"phase 17 one-process {preset} launched {single[preset]['counts']}; "
                  f"expected {want}")
-    secs = {"pc2": run_ranks(4, "pc2", workdir), "l20": run_ranks(2, "l20", workdir)}
+    secs = {job: run_ranks(n, ["--phase17-rank", job, str(workdir)], workdir, job,
+                           PAR_TIMEOUT_S, "phase 17") for job, n in (("pc2", 4), ("l20", 2))}
     sharded = {**torch.load(workdir / "pc2.pt", weights_only=False),
                **torch.load(workdir / "l20.pt", weights_only=False)}
     ranks = {job: [json.loads((workdir / f"{job}_rank{r}.json").read_text()) for r in range(n)]
@@ -4648,7 +4689,7 @@ def phase_parallel(dev, card):
                 fail(f"phase 17 {job} rank {r} ran on {rr['device']} over {rr['backend']}")
             for preset, parts in rr["counts"].items():
                 want = (par_expected(preset, 24, True) if job == "pc2" else
-                        {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // DP_BATCH // 2),
+                        {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // DP_BATCH),
                          "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})
                 if parts != want:
                     fail(f"phase 17 {job} rank {r} {preset} launched {parts}; expected {want}")
@@ -4710,14 +4751,15 @@ def phase_parallel(dev, card):
             ", ".join(f"{k} {v:.1f}" for k, v in rr["comm_s"].items()) for rr in ranks["pc2"]))
     one, sh = single["l20"], sharded["l20"]
     sg = rel_gap(sh["scores"], one["scores"])
-    if not (math.isfinite(sg) and sg <= DP_SCORE_TOL):
-        fail(f"phase 17 l20: data-parallel scores off by {sg:.3e} of max |score|")
+    if not torch.equal(sh["scores"], one["scores"]):
+        fail(f"phase 17 l20: data-parallel scores differ from one process's ({sg:.3e} of max "
+             "|score|)")
     ww, wwn = grads_agree("phase 17 l20 weights after two data-parallel steps", sh["weights"],
                           one["weights"])
     figs["l20"] = dict(scores=sg, weights=(ww, wwn), wps=DP_WINDOWS / sh["score_s"],
                        wps_single=DP_WINDOWS / one["score_s"], step_ms=sh["step_ms"],
                        step_ms_single=one["step_ms"])
-    log(f"  l20 x {DP_L} bp, data 2: scores {sg:.3e} of max |score| (tol {DP_SCORE_TOL:.0e}); "
+    log(f"  l20 x {DP_L} bp, data 2: scores through the row split equal bit for bit; "
         f"weights after two fp32 steps worst {wwn} {ww:.3e}; scoring "
         f"{figs['l20']['wps']:.1f} windows/s on 2 ranks, {figs['l20']['wps_single']:.1f} in "
         f"one process; second step {sh['step_ms']:.1f} ms on 2 ranks, {one['step_ms']:.1f} in "
@@ -4732,6 +4774,497 @@ def phase_parallel(dev, card):
     return total, k3_row, figs
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: FSDP for pre-training and distillation, and the data axis on
+# fine-tuning, embeddings and serving, on ranks sharing the card over gloo.
+
+P18_RANKS, P18_L, P18_ROWS, P18_STEPS = 2, 512, 8, 3
+P18_FT_ROWS, P18_EMB_ROWS, P18_EMB_BATCH, P18_SERVE = 16, 64, 16, 4
+P18_TIMEOUT_S = 420
+P18_SEED = 18
+
+
+def p18_inputs(workdir: Path) -> dict:
+    """The phase's inputs from a seed: l20 pre-training batches of 8 x 512
+    (steps 1-3 fp32, 4 bf16), 2 distillation batches, a tokenized
+    fine-tuning file of 16 rows, 64 windows to embed with their TSV and a
+    classifier over their one-process embeddings (written later), and 4
+    windows to serve."""
+    import numpy as np
+
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.train import data as data_lib
+
+    tok = DnaTokenizer()
+    rng = np.random.default_rng(P18_SEED)
+    seqs = data_lib.sequence_source("synthetic", window=P18_L, synthetic_n=64, seed=P18_SEED)
+    ds = data_lib.PretrainDataset(seqs, tok, P18_ROWS, seed=P18_SEED)
+    inp = {}
+    for s in range(1, P18_STEPS + 2):
+        inp.update({f"b{s}_{k}": v for k, v in ds.batch_at(s).items()})
+    for s in range(2):
+        inp.update({f"d{s}_{k}": v for k, v in ds.batch_at(10 + s).items()})
+    windows = ["".join(rng.choice(list("ACGT"), P18_L)) for _ in range(P18_EMB_ROWS)]
+    inp["windows"] = np.array(windows)
+    workdir.mkdir(parents=True, exist_ok=True)
+    ids = tok.encode_batch(windows[:P18_FT_ROWS])
+    np.savez(workdir / "ft.npz", input_ids=ids.astype(np.int32),
+             label=np.array([int(w.count("G") + w.count("C") > P18_L // 2)
+                             for w in windows[:P18_FT_ROWS]]))
+    with open(workdir / "emb.tsv", "w") as fh:
+        fh.write("sequences\tlabel\n")
+        fh.writelines(f"{w}\t{i % 2}\n" for i, w in enumerate(windows))
+    np.savez(workdir / "inputs.npz", **inp)
+    return inp
+
+
+def p18_ft_args(workdir: Path, out: Path) -> list:
+    """``lora_fine_tune train``: l20 from its HF dir, 2 steps of 8 rows,
+    fp32, dropout 0, an evaluation of 16 rows at the end."""
+    return ["train", "--train-dir", str(workdir / "ft.npz"), "--valid-dir",
+            str(workdir / "ft.npz"), "--model-name", str(workdir / "l20"), "--output-dir",
+            str(out), "--max-steps", "2", "--save-steps", "2", "--eval-steps", "2",
+            "--train-batch-size", "8", "--grad-accum", "1", "--eval-batch-size", "16",
+            "--lora-dropout", "0", "--learning-rate", "1e-3", "--warmup-steps", "1",
+            "--no-bf16", "--device", "cuda"]
+
+
+def p18_predict_args(workdir: Path, adapter: Path, out: Path) -> list:
+    return ["predict", "--checkpoint-dir", str(adapter), "--data-dir", str(workdir / "ft.npz"),
+            "--batch-size", "8", "--output-file", str(out), "--no-bf16", "--device", "cuda"]
+
+
+def p18_xgb_args(workdir: Path, out: Path, batch: int) -> list:
+    return ["-input", str(workdir / "emb.tsv"), "-model", str(workdir / "l20"), "-classifier",
+            str(workdir / "clf.json"), "-output", str(out), "-batchSize", str(batch),
+            "-device", "cuda", "-no-progress"]
+
+
+def p18_emb_batch(mesh) -> int:
+    """The runner's global batch: 16 over the ranks, and in one process the
+    8 rows of a rank's forward."""
+    return P18_EMB_BATCH if mesh is not None else P18_EMB_BATCH // P18_RANKS
+
+
+def p18_trainer(dev, mesh, dtype):
+    """l20 from the seeded weights, its optimizer (keeping each update's
+    gradients) and train step, over ``mesh`` or in one process."""
+    from plantcaduceus_tpu_torch.train import step as step_lib
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    cfg, model = par_model("l20", dev)
+    opt = KeptGrads(make_optimizer(learning_rate=2e-4, warmup_steps=1, total_steps=P18_STEPS,
+                                   params=dict(model.named_parameters())))
+    init, step, _ = step_lib.make_train_step(cfg, opt, model, dtype=dtype, remat=True,
+                                             device=dev, mesh=mesh)
+    return model, opt, step, init()
+
+
+def p18_weights(model, state):
+    """The full fp32 weights on the host (under fsdp gathered: every rank
+    calls it)."""
+    f = state.fsdp
+    weights = f.full(f.masters()) if f else dict(model.named_parameters())
+    return {n: w.detach().to("cpu", copy=True) for n, w in weights.items()}
+
+
+def p18_resume(dev, inp, mesh, ckpt_dir):
+    """A new trainer restored from ``ckpt_dir``'s step 2, then step 3: the
+    weights after."""
+    import torch
+
+    from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
+
+    model, _, step, state = p18_trainer(dev, mesh, torch.float32)
+    state = ckpt_lib.CheckpointManager(ckpt_dir).restore(state, step=2)
+    state, _ = step(state, batch_of(inp, f"b{P18_STEPS}_"))
+    return p18_weights(model, state)
+
+
+def p18_train(dev, inp, mesh, ckpt_dir, sync):
+    """18a: l20 pre-training from the seeded weights, in one process or
+    over ``mesh`` (fsdp 2): 3 fp32 steps (each step's gradients, under
+    fsdp gathered from the blocks; grad_norm; the weights after) with a
+    checkpoint at step 2, resumed into a new trainer under the same layout
+    for step 3; then 1 bf16 step from the seeded weights, timed; what a
+    rank holds between steps."""
+    import torch
+
+    from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
+
+    model, opt, step, state = p18_trainer(dev, mesh, torch.float32)
+    f, out = state.fsdp, {}
+    ckpt = ckpt_lib.CheckpointManager(ckpt_dir, save_interval_steps=2)
+    for s in range(1, P18_STEPS + 1):
+        state, m = step(state, batch_of(inp, f"b{s}_"))
+        out[f"loss{s}"], out[f"grad_norm{s}"] = float(m["loss"]), float(m["grad_norm"])
+        ckpt.save(s, state)
+    out["grads"] = [{n: g.cpu() for n, g in (f.full({k: v.to(dev) for k, v in gs.items()})
+                                             if f else gs).items()} for gs in opt.grads]
+    out["weights"] = p18_weights(model, state)
+    if f:
+        count = lambda tree: sum(t.numel() for t in tree.values())
+        out["held"] = dict(module=count(dict(model.named_parameters())),
+                           blocks=count(f.shards), mu=count(state.opt_state["mu"]),
+                           nu=count(state.opt_state["nu"]),
+                           full=sum(math.prod(s) for s in f.shapes.values()))
+    del model, opt, state
+    out["resumed"] = p18_resume(dev, inp, mesh, ckpt_dir)
+    model, _, step, state = p18_trainer(dev, mesh, torch.bfloat16)
+    sync()
+    t = time.perf_counter()
+    state, m = step(state, batch_of(inp, f"b{P18_STEPS + 1}_"))
+    sync()
+    out["bf16_ms"], out["bf16_loss"] = 1e3 * (time.perf_counter() - t), float(m["loss"])
+    return out
+
+
+def p18_distill(dev, inp, mesh):
+    """18b: distillation l20 -> l20-ssd, 2 fp32 steps from seeded weights:
+    each step's gradients (under fsdp gathered), the metrics, the student's
+    weights after."""
+    import torch
+
+    from plantcaduceus_tpu_torch.train.distill import make_distill_step
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    tcfg, teacher = par_model("l20", dev)
+    scfg, student = par_model("l20-ssd", dev)
+    opt = KeptGrads(make_optimizer(learning_rate=2e-4, warmup_steps=1, total_steps=2,
+                                   params=dict(student.named_parameters())))
+    init, step = make_distill_step(tcfg, scfg, opt, student, dtype=torch.float32, remat=True,
+                                   device=dev, mesh=mesh)
+    state, out = init(), {}
+    for s in range(2):
+        state, m = step(state, teacher, batch_of(inp, f"d{s}_"))
+        out.update({f"{k}{s}": float(v) for k, v in m.items()})
+    f = state.fsdp
+    out["grads"] = [{n: g.cpu() for n, g in (f.full({k: v.to(dev) for k, v in gs.items()})
+                                             if f else gs).items()} for gs in opt.grads]
+    weights = f.full(f.masters()) if f else dict(student.named_parameters())
+    out["weights"] = {n: w.detach().to("cpu", copy=True) for n, w in weights.items()}
+    return out
+
+
+def p18_embed(dev, inp, mesh):
+    """18d's library half: the bf16 RC-averaged centre embeddings of the 64
+    windows through the runner (rows split over ``mesh``)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+
+    cfg, model = par_model("l20", dev)
+    runner = InferenceRunner(model, cfg, dtype=torch.bfloat16, batch_size=p18_emb_batch(mesh),
+                             device=dev, mesh=mesh)
+    ids = DnaTokenizer().encode_batch([str(w) for w in inp["windows"]])
+    return torch.from_numpy(runner.center_embeddings(ids, P18_L // 2 - 1, progress=False))
+
+
+def p18_work(dev, inp, workdir, meshes, tag, sync):
+    """Phase 18a-d in one process (``meshes`` all None, ``tag`` "one") or on
+    one rank: each part's result, launches and seconds."""
+    import torch
+
+    from plantcaduceus_tpu_torch.cli import lora_fine_tune, predict_xgboost
+
+    res, cnt, secs = {}, {}, {}
+    for part, fn in (
+            ("train", lambda: p18_train(dev, inp, meshes["fsdp"], workdir / f"ckpt_{tag}", sync)),
+            ("distill", lambda: p18_distill(dev, inp, meshes["fsdp"])),
+            ("lora", lambda: (lora_fine_tune.main(p18_ft_args(workdir, workdir / f"ft_{tag}")),
+                              lora_fine_tune.main(p18_predict_args(
+                                  workdir, workdir / "ft_one" / "final",
+                                  workdir / f"pred_{tag}.csv")))),
+            ("embed", lambda: (p18_embed(dev, inp, meshes["data"]),
+                               predict_xgboost.main(p18_xgb_args(
+                                   workdir, workdir / f"xgb_{tag}.tsv",
+                                   p18_emb_batch(meshes["data"])))))):
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        t = time.perf_counter()
+        res[part] = fn()
+        sync()
+        secs[part] = time.perf_counter() - t
+        cnt[part] = counts()
+        res[part + "_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    res["embed"] = res["embed"][0]
+    del res["lora"]
+    return res, cnt, secs
+
+
+def phase18_rank(workdir: Path) -> None:
+    """One rank of phase 18 (started by ``torch.distributed.run``): 18a-d
+    over fsdp 2 and data 2. Rank 0 writes the results; every rank its
+    counts, seconds and peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from plantcaduceus_tpu_torch.parallel import mesh as meshlib
+
+    if not torch.cuda.is_available():
+        fail("phase 18 rank: no GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = meshlib.initialize_distributed("cuda", timeout_s=P18_TIMEOUT_S)
+    rank = meshlib.world()[0]
+    inp = dict(np.load(workdir / "inputs.npz"))
+    comm = time_collectives()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    meshes = {"fsdp": meshlib.make_mesh(meshlib.MeshConfig(fsdp=P18_RANKS)),
+              "data": meshlib.make_mesh(meshlib.MeshConfig(data=P18_RANKS))}
+    res, cnt, secs = p18_work(dev, inp, workdir, meshes, "ranks", sync)
+    (workdir / f"rank{rank}.json").write_text(json.dumps(
+        {"counts": cnt, "secs": secs, "comm_s": comm, "device": str(dev),
+         "backend": dist.get_backend(),
+         "peak": {k: v for k, v in res.items() if k.endswith("_peak")}}))
+    if rank == 0:
+        torch.save(res, workdir / "ranks.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p18_serve_start(workdir: Path):
+    """18e: ``cli.serve -model l20 -seq 2`` (fp32) on 2 ranks of
+    ``torch.distributed.run``, on a free port; (process, port, log)."""
+    port = free_port()
+    logf = open(workdir / "serve.log", "w+b")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         str(P18_RANKS), "-m", "plantcaduceus_tpu_torch.cli.serve", "-model", "l20", "-seq",
+         str(P18_RANKS), "-batchSize", str(P18_SERVE), "-dtype", "float32", "-port", str(port),
+         "-device", "cuda"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1"),
+        stdout=logf, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, port, logf
+
+
+def p18_serve_check(dev, inp, proc, port, logf):
+    """18e: /score and /embed of 4 windows from the 2 ranks against the
+    in-process one-rank service (1e-5 of max |value|); SIGTERM to the
+    leader, and every rank exits 0 within the timeout. Returns figures."""
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
+    from plantcaduceus_tpu_torch.engine.server import ScoringService
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+
+    def text():
+        logf.seek(0)
+        return logf.read().decode(errors="replace")
+
+    seqs = [str(w) for w in inp["windows"][:P18_SERVE]]
+    refs = [s[P18_L // 2 - 1] for s in seqs]
+    alts = ["ACGT"[("ACGT".index(r) + 1) % 4] for r in refs]
+    items = [{"sequence": s, "ref": r, "alt": a} for s, r, a in zip(seqs, refs, alts)]
+    base, t = f"http://127.0.0.1:{port}", time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            fail(f"phase 18e: cli.serve -seq 2 exited {proc.returncode}:\n{text()[-4000:]}")
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=5):
+                break
+        except OSError:
+            if time.perf_counter() - t > P18_TIMEOUT_S:
+                fail("phase 18e: cli.serve -seq 2 did not answer /healthz")
+            time.sleep(0.5)
+    replies = {}
+    t = time.perf_counter()
+    for path, body, key in (("/score", {"items": items}, "scores"),
+                            ("/embed", {"sequences": seqs}, "embeddings")):
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            replies[key] = torch.tensor(json.loads(r.read())[key], dtype=torch.float64)
+    req_s = time.perf_counter() - t
+    model, cfg, tok = load_model_and_tokenizer("l20")
+    service = ScoringService(InferenceRunner(model, cfg, dtype=torch.float32,
+                                             batch_size=P18_SERVE, device=dev), DnaTokenizer())
+    want = {"scores": torch.from_numpy(np.asarray(service.score(seqs, refs, alts), np.float64)),
+            "embeddings": torch.from_numpy(np.asarray(service.embed(seqs), np.float64))}
+    gaps = {k: rel_gap(replies[k], want[k]) for k in want}
+    for k, g in gaps.items():
+        if not (math.isfinite(g) and g <= 1e-5):
+            fail(f"phase 18e: /{k} of the 2 ranks off by {g:.3e} of max |value| (tol 1e-5)")
+    import re
+
+    m = re.search(r"leader of 2 ranks .*pid (\d+)", text())
+    if m is None:
+        fail(f"phase 18e: no leader pid in the log:\n{text()[-4000:]}")
+    t = time.perf_counter()
+    os.kill(int(m.group(1)), signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        stop_ranks(proc)
+        rc = "timeout"
+    stop_s = time.perf_counter() - t
+    if rc != 0 or "released by the leader" not in text():
+        fail(f"phase 18e: cli.serve -seq 2 did not stop cleanly ({rc}):\n{text()[-4000:]}")
+    return dict(gaps=gaps, request_s=req_s, stop_s=stop_s)
+
+
+def phase_fsdp_entry(dev, card):
+    """Phase 18 (see the module docstring). Returns (the launches of the
+    ranks' main paths by kernel, summed over ranks; the figures)."""
+    t0 = time.perf_counter()
+    log(f"phase 18: FSDP and the data axis on the entry points, {P18_RANKS} ranks of "
+        f"torch.distributed.run sharing {card} over gloo, l20 at {P18_L} bp")
+    workdir = REPO / "build" / "chip_smoke" / "phase18"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    serve = p18_serve_start(workdir)
+    try:
+        return p18_checks(dev, workdir, serve, t0)
+    finally:   # on a failure too
+        stop_ranks(serve[0])
+        serve[2].close()
+
+
+def p18_checks(dev, workdir, serve, t0):
+    """Phase 18's runs and gates, with 18e's ranks started (``serve``)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.compat.hf_export import export_hf_dir
+    from plantcaduceus_tpu_torch.models.caduceus import init_params
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+
+    inp = p18_inputs(workdir)
+    cfg = CaduceusConfig.preset("l20")
+    export_hf_dir(workdir / "l20", init_params(cfg, seed=PAR_SEED), cfg)
+    emb = p18_embed(dev, inp, None)
+    (workdir / "clf.json").write_text(json.dumps(xgb_classifier(emb.numpy())))
+    none = {"fsdp": None, "data": None}
+    one, one_cnt, one_secs = p18_work(dev, inp, workdir, none, "one", torch.cuda.synchronize)
+    rank_s = run_ranks(P18_RANKS, ["--phase18-rank", str(workdir)], workdir, "ranks",
+                       P18_TIMEOUT_S, "phase 18")
+    sh = torch.load(workdir / "ranks.pt", weights_only=False)
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(P18_RANKS)]
+    total = {k: 0 for k in _counters()}
+    # every rank runs one process's forwards and steps, but half the
+    # runner's batches (each a batch of one process's shape)
+    want = dict(one_cnt, embed={k: v // P18_RANKS for k, v in one_cnt["embed"].items()})
+    for r, rr in enumerate(ranks):
+        if rr["device"] != "cuda:0" or rr["backend"] != "gloo":
+            fail(f"phase 18 rank {r} ran on {rr['device']} over {rr['backend']}")
+        if rr["counts"] != want:
+            fail(f"phase 18 rank {r} launched {rr['counts']}; expected {want}")
+        for c in rr["counts"].values():
+            for k, v in c.items():
+                total[k] += v
+    path = {"train": ("mixer_fwd_res", "scan_bwd"),
+            "distill": ("mixer_fwd", "mixer2_fwd_res", "ssd_bwd_pre_silu"),
+            "lora": ("scan_fwd_hb", "scan_bwd", "mixer_fwd"), "embed": ("mixer_fwd",)}
+    for part, names in path.items():
+        if not all(one_cnt[part][k] for k in names):
+            fail(f"phase 18 {part}: a kernel of its path did not launch: {one_cnt[part]}")
+    figs = {}
+    # 18a
+    a, b = sh["train"], one["train"]
+    wg, wgn = 0.0, ""
+    for s, (got, want) in enumerate(zip(a["grads"], b["grads"]), 1):
+        w, n = grads_agree(f"phase 18a fsdp 2 fp32 step {s}", got, want)
+        if w >= wg:
+            wg, wgn = w, f"step {s} {n}"
+    gn = max(abs(a[f"grad_norm{s}"] / b[f"grad_norm{s}"] - 1) for s in range(1, P18_STEPS + 1))
+    if not gn <= 1e-5:
+        fail(f"phase 18a: grad_norm off by {gn:.3e} relative (tol 1e-5)")
+    ww, wwn = grads_agree("phase 18a fsdp 2 fp32 weights after 3 steps", a["weights"],
+                          b["weights"])
+    for run, what in ((a, "under fsdp 2"), (b, "in one process from its own")):
+        if not all(torch.equal(run["resumed"][n], run["weights"][n]) for n in run["weights"]):
+            fail(f"phase 18a: the step-2 checkpoint resumed {what} did not give step 3's "
+                 "weights bit for bit")
+    wr, wrn = grads_agree("phase 18a the fsdp-2 checkpoint resumed in one process",
+                          p18_resume(dev, inp, None, workdir / "ckpt_ranks"), a["weights"])
+    held = a["held"]
+    if not (held["module"] == 0 and 2 * held["blocks"] == 2 * held["mu"] == 2 * held["nu"]
+            == held["full"]):
+        fail(f"phase 18a: a rank holds {held} between steps")
+    figs["train"] = dict(grads=(wg, wgn), grad_norm=gn, weights=(ww, wwn), resumed_one=(wr, wrn),
+                         bf16_ms=a["bf16_ms"], bf16_ms_one=b["bf16_ms"],
+                         losses=[a[f"loss{s}"] for s in range(1, 4)],
+                         losses_one=[b[f"loss{s}"] for s in range(1, 4)], held=held,
+                         peak=[rr["peak"]["train_peak"] for rr in ranks],
+                         peak_one=one["train_peak"])
+    f = figs["train"]
+    log(f"  18a pretrain --fsdp 2, l20 8 x {P18_L}: fp32 gradients of 3 steps worst {wgn} "
+        f"{wg:.3e}, grad_norm {gn:.3e} relative, weights after 3 steps worst {wwn} {ww:.3e} "
+        f"(tol {GRAD_TOL:.0e}); the step-2 checkpoint resumed under fsdp 2: step 3 equal bit "
+        f"for bit; in one process worst {wrn} {wr:.3e}; a rank holds {held}; bf16 step "
+        f"{f['bf16_ms']:.1f} ms on 2 ranks, {f['bf16_ms_one']:.1f} in one process; peak "
+        f"bytes above the start a rank {f['peak']}, one process {f['peak_one']}")
+    # 18b
+    a, b = sh["distill"], one["distill"]
+    wg, wgn = 0.0, ""
+    for s, (got, want) in enumerate(zip(a["grads"], b["grads"]), 1):
+        w, n = grads_agree(f"phase 18b distill fsdp 2 fp32 step {s}", got, want)
+        if w >= wg:
+            wg, wgn = w, f"step {s} {n}"
+    ww, wwn = grads_agree("phase 18b distill fsdp 2 weights after 2 steps", a["weights"],
+                          b["weights"])
+    lg = max(abs(a[f"loss{s}"] / b[f"loss{s}"] - 1) for s in range(2))
+    if not lg <= 1e-5:
+        fail(f"phase 18b: losses off by {lg:.3e} relative")
+    figs["distill"] = dict(grads=(wg, wgn), weights=(ww, wwn), loss=lg,
+                           secs=ranks[0]["secs"]["distill"], secs_one=one_secs["distill"])
+    log(f"  18b distill l20 -> l20-ssd --fsdp 2: fp32 gradients of 2 steps worst {wgn} "
+        f"{wg:.3e}, weights worst {wwn} {ww:.3e}, losses {lg:.3e} relative; K5-res "
+        f"{ranks[0]['counts']['distill']['mixer2_fwd_res']}, K6 "
+        f"{ranks[0]['counts']['distill']['ssd_bwd_pre_silu']} a rank")
+    # 18c
+    load = lambda d: torch.load(d / "final" / "adapter.pt", weights_only=True)
+    flat = lambda tree: {f"head.{k}": v for k, v in tree["head"].items()} | {
+        f"{n}.{k}": v for n, ab in tree["adapters"].items() for k, v in ab.items()}
+    wa, wan = grads_agree("phase 18c lora_fine_tune on 2 data ranks, adapters after 2 steps",
+                          flat(load(workdir / "ft_ranks")), flat(load(workdir / "ft_one")))
+    if (workdir / "pred_ranks.csv").read_bytes() != (workdir / "pred_one.csv").read_bytes():
+        fail("phase 18c: predict on 2 data ranks differs from one process")
+    figs["lora"] = dict(adapters=(wa, wan), secs=ranks[0]["secs"]["lora"],
+                        secs_one=one_secs["lora"])
+    log(f"  18c lora_fine_tune on 2 data ranks (8 x {P18_L}, fp32, dropout 0, 2 steps): "
+        f"adapters worst {wan} {wa:.3e} (tol {GRAD_TOL:.0e}); predict byte-equal to one "
+        f"process")
+    # 18d
+    if not torch.equal(sh["embed"], one["embed"]):
+        fail("phase 18d: the embeddings on 2 data ranks differ from one process's")
+    if (workdir / "xgb_ranks.tsv").read_bytes() != (workdir / "xgb_one.tsv").read_bytes():
+        fail("phase 18d: predict_xgboost on 2 data ranks differs from one process")
+    figs["embed"] = dict(secs=ranks[0]["secs"]["embed"], secs_one=one_secs["embed"])
+    log(f"  18d predict_xgboost on 2 data ranks ({P18_EMB_ROWS} windows, batch "
+        f"{P18_EMB_BATCH} over the ranks, {P18_EMB_BATCH // P18_RANKS} in one process, bf16): "
+        "embeddings and predictions equal bit for bit")
+    # 18e
+    t = time.perf_counter()
+    figs["serve"] = p18_serve_check(dev, inp, *serve)
+    s = figs["serve"]
+    log(f"  18e serve -seq 2: /score {s['gaps']['scores']:.3e}, /embed "
+        f"{s['gaps']['embeddings']:.3e} of max |value| from the one-rank service (tol 1e-5); "
+        f"both requests {s['request_s']:.2f} s; SIGTERM to the leader: every rank exited 0 in "
+        f"{s['stop_s']:.1f} s")
+    figs["secs"] = dict(one=one_secs, ranks=ranks[0]["secs"], rank_run=rank_s,
+                        serve=time.perf_counter() - t)
+    figs["comm_s"] = [rr["comm_s"] for rr in ranks]
+    figs["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 ok in {figs['seconds']:.1f} s (one process {sum(one_secs.values()):.1f} s, "
+        f"the ranks {rank_s:.1f} s: {ranks[0]['secs']}); seconds in the collectives a rank "
+        f"{figs['comm_s']}; launches on the ranks {dict((k, v) for k, v in total.items() if v)}")
+    return total, figs
+
+
 def main():
     import torch
 
@@ -4743,6 +5276,9 @@ def main():
     sys.path.insert(0, str(REPO))
     if sys.argv[1:2] == ["--phase17-rank"]:  # one rank of phase 17, not a run of the script
         phase17_rank(sys.argv[2], Path(sys.argv[3]))
+        return
+    if sys.argv[1:2] == ["--phase18-rank"]:  # one rank of phase 18
+        phase18_rank(Path(sys.argv[2]))
         return
     from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
@@ -4805,6 +5341,9 @@ def main():
     # phase 17: context and data parallelism, after every earlier phase
     torch.cuda.empty_cache()
     pc17, k3g, pf = phase_parallel(dev, card)
+    # phase 18: FSDP and the data axis on the entry points, after every earlier phase
+    torch.cuda.empty_cache()
+    pc18, qf = phase_fsdp_entry(dev, card)
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
@@ -4820,30 +5359,34 @@ def main():
         f"ms per step; distillation l20 -> l20-ssd {rf['distill']['step_ms']:.2f} ms per step; "
         f"zstd on the host {gf['streaming']['zstd_mbs']:.2f} MB/s; phase 17 (ranks sharing "
         f"the card) pc2-small seq 4 {pf['pc2-small']['wps']:.2f} windows/s, data 2 x seq 2 "
-        f"step {pf['pc2-small']['step_ms']:.1f} ms")
+        f"step {pf['pc2-small']['step_ms']:.1f} ms; phase 18 l20 --fsdp 2 bf16 step "
+        f"{qf['train']['bf16_ms']:.1f} ms (one process {qf['train']['bf16_ms_one']:.1f})")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                           launches=k2_launches + ek2 + xk2 + sk2 + tk2 + fc["mixer_fwd"]
-                          + rc["mixer_fwd"] + gc16["mixer_fwd"] + pc17["mixer_fwd"]),
+                          + rc["mixer_fwd"] + gc16["mixer_fwd"] + pc17["mixer_fwd"]
+                          + pc18["mixer_fwd"]),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                               launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]
                               + rc["mixer_fwd_res"] + gc16["mixer_fwd_res"]
-                              + pc17["mixer_fwd_res"]),
+                              + pc17["mixer_fwd_res"] + pc18["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                          launches=k1_launches + ar1["scan_fwd"] + pc17["scan_fwd"]),
         "scan_fwd_hb": dict(source=src + "scan_fwd.cu",
                             replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                             launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]
-                            + gc16["scan_fwd_hb"] + pc17["scan_fwd_hb"]),
+                            + gc16["scan_fwd_hb"] + pc17["scan_fwd_hb"]
+                            + pc18["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
                          launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]
-                         + rc["scan_bwd"] + gc16["scan_bwd"] + pc17["scan_bwd"]),
+                         + rc["scan_bwd"] + gc16["scan_bwd"] + pc17["scan_bwd"]
+                         + pc18["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
                         launches=k4_launches + ar2["ssd_fwd"] + pc17["ssd_fwd"]),
@@ -4857,14 +5400,14 @@ def main():
         "mixer2_fwd_res": dict(source=src + "mixer2_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
                                launches=tc2["mixer2_fwd_res"] + fc["mixer2_fwd_res"]
-                               + rc["mixer2_fwd_res"]),
+                               + rc["mixer2_fwd_res"] + pc18["mixer2_fwd_res"]),
         "ssd_bwd": dict(source=src + "ssd_bwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
                         launches=k6_launches + ar2["ssd_bwd"] + pc17["ssd_bwd"]),
         "ssd_bwd_pre_silu": dict(source=src + "ssd_bwd.cu",
                                  replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
                                  launches=tc2["ssd_bwd_pre_silu"] + fc["ssd_bwd_pre_silu"]
-                                 + rc["ssd_bwd_pre_silu"]),
+                                 + rc["ssd_bwd_pre_silu"] + pc18["ssd_bwd_pre_silu"]),
     }
     kernels = []
     for name in ("mixer_fwd", "scan_fwd"):
@@ -4936,7 +5479,7 @@ def main():
         rows=2 * PAR_WINDOWS, L=PAR_L // 4, D=1536, R=48,
         float32={k: k3g["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "no_options_ms")}))
-    # Phases 14, 15, 16 and 17: their launches beside each total; K1-hb and
+    # Phases 14 to 18: their launches beside each total; K1-hb and
     # K3 at pc2-small x 600 bp.
     for k in kernels:
         if fc.get(k["name"]):
@@ -4947,6 +5490,8 @@ def main():
             k["phase16_launches"] = gc16[k["name"]]
         if pc17.get(k["name"]):
             k["phase17_launches"] = pc17[k["name"]]
+        if pc18.get(k["name"]):
+            k["phase18_launches"] = pc18[k["name"]]
         if k["name"] in k600:
             r = k600[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], r["err"])

@@ -18,8 +18,14 @@ the student's ``final/`` is an HF checkpoint dir that the inference CLIs of
 both packages load (``-model <output>/final``). A preset name as
 ``--teacher`` means random weights and is refused unless
 ``--allow-random-teacher``. Runs on CUDA unless ``--device cpu`` is given,
-and fails when CUDA is asked for and absent; ``--fsdp > 1`` (several GPUs)
-is refused.
+and fails when CUDA is asked for and absent.
+
+Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
+plantcaduceus_tpu_torch.cli.distill ...``) distil over a data × fsdp mesh,
+as JAX's ``MeshConfig(fsdp=--fsdp)``: the global batch (``--batch-size``
+rows) splits over the ranks, ``--fsdp F`` shards the student's weights and
+optimizer state over F of them, and the teacher is replicated. Rank 0
+alone writes checkpoints and ``final/``.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
 from plantcaduceus_tpu_torch.models.config import PRESETS, CaduceusConfig
-from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+from plantcaduceus_tpu_torch.parallel import mesh as meshlib
 from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
 from plantcaduceus_tpu_torch.train import data as data_lib
 from plantcaduceus_tpu_torch.train import distill as distill_lib
@@ -78,17 +84,13 @@ def parse_args(argv=None):
                    help="permit a preset (randomly initialised) teacher — for smoke "
                         "tests only")
     p.add_argument("--fsdp", type=int, default=1,
-                   help="fsdp axis size (several GPUs; not supported by the port yet)")
+                   help="fsdp mesh axis size: the student's weights and optimizer state "
+                        "sharded over that many ranks of torch.distributed.run")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-    if args.fsdp > 1:
-        p.error(f"multi-GPU layout --fsdp {args.fsdp} is not supported by the PyTorch "
-                "port yet; it distils on one device")
-    return args
+    return p.parse_args(argv)
 
 
 def main(argv=None):
-    refuse_multi_rank("cli.distill")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S")
@@ -106,7 +108,9 @@ def main(argv=None):
         student_cfg = CaduceusConfig.preset(args.student_preset)
     else:
         raise SystemExit("one of --student-preset / --student-config required")
-    device = resolve_device(args.device)  # before any work: no silent CPU run
+    resolve_device(args.device)  # before any work: no silent CPU run
+    device = meshlib.initialize_distributed(args.device)  # this rank's device
+    mesh = meshlib.cli_mesh(fsdp=args.fsdp)
 
     teacher, teacher_cfg, tokenizer = load_model_and_tokenizer(args.teacher, seed=args.seed)
     teacher.to(device)
@@ -123,11 +127,12 @@ def main(argv=None):
     init_state, distill_step = distill_lib.make_distill_step(
         teacher_cfg, student_cfg, optimizer, student, dtype=dtype,
         temperature=args.temperature, alpha=args.alpha, remat=not args.no_remat,
-        device=device)
+        device=device, mesh=mesh)
     state = init_state()
 
     ckpt = ckpt_lib.CheckpointManager(args.output_dir, save_interval_steps=args.save_steps)
-    ckpt_lib.save_config(args.output_dir, student_cfg)
+    if meshlib.world()[0] == 0:
+        ckpt_lib.save_config(args.output_dir, student_cfg)
     if ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         logging.info("Resumed from step %d", state.step)
@@ -145,7 +150,8 @@ def main(argv=None):
         tokens_per_step=args.batch_size * args.window)
 
     final_dir = Path(args.output_dir) / "final"
-    ckpt_lib.export_params(final_dir, state.model, student_cfg)
+    if not ckpt_lib.export_final(final_dir, state, student_cfg):
+        return 0
     logging.info("Exported distilled student to %s", final_dir)
     if device.type == "cuda":
         logging.info("peak device memory allocated: %d bytes",

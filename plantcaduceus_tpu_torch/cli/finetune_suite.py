@@ -26,6 +26,10 @@ Manifest format:
 ``defaults``/``overrides`` keys are ``lora_fine_tune`` flags without the
 leading ``--``. Use ``--only a,b`` to run a subset and ``--skip-train`` to
 re-aggregate metrics from existing checkpoints.
+
+Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
+plantcaduceus_tpu_torch.cli.finetune_suite ...``) run every job over the
+data axis (``cli.lora_fine_tune``); rank 0 alone writes and prints.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import logging
 from pathlib import Path
 
 from plantcaduceus_tpu_torch.cli import lora_fine_tune
-from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+from plantcaduceus_tpu_torch.parallel.mesh import world
 
 log = logging.getLogger(__name__)
 
@@ -84,10 +88,12 @@ def run_suite(manifest: dict, output_dir: Path, only=None,
             ["evaluate", "--checkpoint-dir", str(job_dir / "final"),
              "--data-dir", job.get("eval_dir", job["valid_dir"]),
              "--metrics-json", str(metrics_path)] + _flags(eval_flags))
-        results[name] = json.loads(metrics_path.read_text())
+        if world()[0] == 0:   # rank 0 wrote it
+            results[name] = json.loads(metrics_path.read_text())
 
-    (output_dir / "suite_metrics.json").write_text(
-        json.dumps(results, indent=1))
+    if world()[0] == 0:
+        (output_dir / "suite_metrics.json").write_text(
+            json.dumps(results, indent=1))
     return results
 
 
@@ -106,7 +112,6 @@ def _print_table(results: dict) -> None:
 
 
 def main(argv=None):
-    refuse_multi_rank("cli.finetune_suite")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
@@ -122,7 +127,8 @@ def main(argv=None):
     only = set(args.only.split(",")) if args.only else None
     results = run_suite(manifest, Path(args.output_dir), only,
                         args.skip_train)
-    _print_table(results)
+    if world()[0] == 0:
+        _print_table(results)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,15 @@ Checkpoints: ``<output-dir>/checkpoint-N`` (resumable with
 CUDA unless ``--device cpu`` is given; raises when CUDA is asked for and
 absent.
 
+Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
+plantcaduceus_tpu_torch.cli.lora_fine_tune train ...``) fine-tune over a
+data axis, as JAX's ``make_mesh()``: each step's global batch
+(``--train-batch-size`` × ``--grad-accum`` rows) splits over the ranks,
+and ``evaluate``/``predict`` split each batch's rows (batch sizes must
+divide by the ranks). Rank 0 alone writes and prints. Dropout masks are
+drawn per rank from the one seed over its own rows, as JAX draws them
+(``train/lora.py``).
+
 Examples:
   python -m plantcaduceus_tpu_torch.cli.lora_fine_tune tokenize \\
       --data-dir data.tsv --output-path data.npz --sequence-length 512
@@ -43,7 +52,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+from plantcaduceus_tpu_torch.parallel import mesh as meshlib
 
 log = logging.getLogger(__name__)
 
@@ -96,6 +105,8 @@ def cmd_tokenize(args):
         else:
             out["label"] = _column(cols[label_col])
     output = args.output_path or str(Path(args.data_dir).with_suffix(".parquet"))
+    if not _rank0():
+        return
     _save_data(output, out)
     log.info("Wrote %d tokenized rows to %s", len(ids), output)
 
@@ -168,13 +179,19 @@ def _batch_at(ids, labels, batch_size, step, seed=0, shuffle=True):
     return batch
 
 
+def _rank0() -> bool:
+    return meshlib.world()[0] == 0
+
+
 def _build(args, task_type, num_labels):
     from plantcaduceus_tpu_torch.train import lora as lora_lib
     from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
     from plantcaduceus_tpu_torch.utils.device import resolve_device
     from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
 
-    device = resolve_device(args.device)  # before any work: no silent CPU run
+    resolve_device(args.device)  # before any work: no silent CPU run
+    device = meshlib.initialize_distributed(args.device)  # this rank's device
+    mesh = meshlib.cli_mesh()
     model, cfg, tok = load_model_and_tokenizer(args.model_name)
     cfg_l = lora_lib.LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout)
     if num_labels is None:
@@ -188,11 +205,11 @@ def _build(args, task_type, num_labels):
     if getattr(args, "full_finetune", False):
         train_step, infer_fn = lora_lib.make_full_finetune_step(
             cfg, optimizer, model, task_type=task_type, dtype=dtype, grad_accum=grad_accum,
-            device=device)
+            device=device, mesh=mesh)
     else:
         train_step, infer_fn = lora_lib.make_lora_train_step(
             cfg, cfg_l, optimizer, model, task_type=task_type, dtype=dtype,
-            grad_accum=grad_accum, device=device)
+            grad_accum=grad_accum, device=device, mesh=mesh)
     return model, cfg, tok, cfg_l, optimizer, train_step, infer_fn, num_labels, device
 
 
@@ -280,12 +297,15 @@ def cmd_train(args):
             _save_state(args, Path(args.output_dir) / f"checkpoint-{step+1}", state, cfg_l,
                         task_type, resumable=True)
     _save_state(args, Path(args.output_dir) / "final", state, cfg_l, task_type)
+    meshlib.barrier()   # on disk before any rank goes on (a suite evaluates it next)
     log.info("Saved adapter to %s/final", args.output_dir)
 
 
 def _save_state(args, path, state, cfg_l, task_type, resumable=False):
     from plantcaduceus_tpu_torch.train import lora as lora_lib
 
+    if not _rank0():
+        return
     if args.full_finetune:
         cfg_l = lora_lib.LoraConfig(r=0, alpha=0.0, dropout=0.0, targets=())
     if resumable:  # checkpoint-N: adapter + optimizer/step for --resume-from
@@ -354,6 +374,8 @@ def cmd_evaluate(args):
     ids, labels = _load_data(args.data_dir)
     logits = _predict_all(infer_fn, state, model, ids, args.batch_size)
     m = _task_metrics(task_type, logits, labels, M)
+    if not _rank0():
+        return
     log.info("Results: %s", m)
     print("\n".join(f"{k}\t{v:.6f}" for k, v in m.items()))
     if getattr(args, "metrics_json", None):
@@ -367,6 +389,8 @@ def cmd_predict(args):
     state, model, infer_fn, task_type = _load_for_eval(args)
     ids, _ = _load_data(args.data_dir)
     logits = _predict_all(infer_fn, state, model, ids, args.batch_size)
+    if not _rank0():
+        return
     if task_type == "classification":
         header, values = ["probability_positive"], softmax(logits, 1)[:, 1:2]
     elif task_type == "regression":
@@ -403,6 +427,8 @@ def cmd_display(args):
             for path, leaf in _jax_leaves(to_jax_params(model))]
     rows += [("lora" + path, True, tuple(leaf.shape), leaf.numel())
              for path, leaf in _jax_leaves(adapters)]
+    if not _rank0():
+        return
     total = sum(r[3] for r in rows)
     trainable = sum(r[3] for r in rows if r[1])
     w = max(len(r[0]) for r in rows) + 2
@@ -417,7 +443,6 @@ def cmd_display(args):
 
 
 def main(argv=None):
-    refuse_multi_rank("cli.lora_fine_tune")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__,

@@ -12,7 +12,10 @@ sklearn model), extracts RC-averaged centre embeddings of the input TSV's
 float64. Tables may be ``.gz``, ``.bz2``, ``.xz`` or ``.zip`` by suffix.
 
 Runs on CUDA unless ``-device cpu`` is given, and fails when CUDA is asked
-for and absent.
+for and absent. Several ranks (``python -m torch.distributed.run
+--nproc-per-node N -m plantcaduceus_tpu_torch.cli.predict_xgboost ...``)
+split each batch's rows over a data axis, as JAX's runner spans every
+device; the embeddings equal one process's, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import argparse
 import csv
 import logging
 
-from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+from plantcaduceus_tpu_torch.parallel import mesh as meshlib
 
 log = logging.getLogger(__name__)
 
@@ -36,7 +39,8 @@ def parse_args(argv=None):
     p.add_argument("-classifier", dest="classifier", required=True,
                    help="XGBoost classifier JSON")
     p.add_argument("-output", dest="output", required=True)
-    p.add_argument("-batchSize", dest="batch_size", type=int, default=128)
+    p.add_argument("-batchSize", dest="batch_size", type=int, default=128,
+                   help="rows of each forward, split over the ranks of the data axis")
     p.add_argument("-tokenIdx", dest="token_idx", type=int, default=255)
     p.add_argument("-device", dest="device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("-no-progress", action="store_true", dest="no_progress")
@@ -44,7 +48,6 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    refuse_multi_rank("cli.predict_xgboost")
     import torch
 
     from plantcaduceus_tpu_torch.downstream.gbm import GbmClassifier
@@ -58,14 +61,18 @@ def main(argv=None):
                         format="%(asctime)s - %(levelname)s - %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S")
     args = parse_args(argv)
-    device = resolve_device(args.device)  # before any work: no silent CPU run
+    resolve_device(args.device)  # before any work: no silent CPU run
+    device = meshlib.initialize_distributed(args.device)  # this rank's device
+    mesh = meshlib.cli_mesh()
 
     table = read_table(args.input)
     model, cfg, tok = load_model_and_tokenizer(args.model)
     runner = InferenceRunner(model, cfg, dtype=torch.bfloat16,
-                             batch_size=args.batch_size, device=device)
+                             batch_size=args.batch_size, device=device, mesh=mesh)
     ids = tok.encode_batch([r["sequences"] for r in table.rows])
     emb = runner.center_embeddings(ids, args.token_idx, progress=not args.no_progress)
+    if meshlib.world()[0] != 0:
+        return
 
     clf = GbmClassifier.load(args.classifier)
     preds = clf.predict_proba(emb)[:, 1]

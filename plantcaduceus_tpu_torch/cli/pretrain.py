@@ -16,12 +16,15 @@ on CUDA unless ``--device cpu`` is given, and fails when CUDA is asked for
 and absent.
 
 Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
-plantcaduceus_tpu_torch.cli.pretrain ...``) train over a data × seq mesh:
-``--seq S`` shards each window's length over S ranks (context
-parallelism), the other ranks split the global batch (``--batch-size`` ×
-``--grad-accum`` rows a step) over ``data``. Every rank builds the same
-weights and batches from the seed; rank 0 alone writes checkpoints, logs
-and ``final/``. ``--fsdp/--tensor/--pipe/--pipe-microbatches`` are
+plantcaduceus_tpu_torch.cli.pretrain ...``) train over a data × fsdp × seq
+mesh (JAX's ``MeshConfig(fsdp=..., seq=...)``): ``--seq S`` shards each
+window's length over S ranks (context parallelism); ``--fsdp F`` shards
+the weights and both Adam moments over F ranks, each keeping its block
+(ZeRO; ``train.step.FsdpParams``); the global batch (``--batch-size`` ×
+``--grad-accum`` rows a step) splits over ``data × fsdp``. Every rank
+builds the same weights and batches from the seed; rank 0 alone writes
+checkpoints (one-process files, full tensors: a run resumes under any
+layout), logs and ``final/``. ``--tensor/--pipe/--pipe-microbatches`` are
 refused (``parallel.mesh.NOT_PORTED``).
 
 ``--dataset shards:<dir-or-file>`` streams a shard directory (or one large
@@ -94,7 +97,9 @@ def parse_args(argv=None):
     p.add_argument("--log-steps", type=int, default=50)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--no-remat", action="store_true")
-    p.add_argument("--fsdp", type=int, default=1, help="fsdp axis size (not ported yet)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="fsdp mesh axis size: weights and optimizer state sharded over "
+                        "that many ranks of torch.distributed.run")
     p.add_argument("--seq", type=int, default=1,
                    help="sequence(context)-parallel mesh axis size (ranks of "
                         "torch.distributed.run)")
@@ -109,8 +114,7 @@ def parse_args(argv=None):
     p.add_argument("--push-to-hub", default=None, metavar="REPO_ID")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    unported = {k: getattr(args, k) for k in ("fsdp", "tensor", "pipe")
-                if getattr(args, k) > 1}
+    unported = {k: getattr(args, k) for k in ("tensor", "pipe") if getattr(args, k) > 1}
     if unported or args.pipe_microbatches:
         p.error(f"{unported or '--pipe-microbatches'}: {meshlib.NOT_PORTED}")
     return args
@@ -123,7 +127,7 @@ def main(argv=None):
     args = parse_args(argv)
     resolve_device(args.device)  # before any work: no silent CPU run
     device = meshlib.initialize_distributed(args.device)  # this rank's device
-    mesh = meshlib.cli_mesh(args.seq)
+    mesh = meshlib.cli_mesh(args.seq, fsdp=args.fsdp)
     rank = meshlib.world()[0]
 
     if args.config:
@@ -225,10 +229,9 @@ def main(argv=None):
         final_metrics = loop_lib.evaluate(state, eval_step, eval_data.eval_batches(),
                                           max_batches=20)
         logging.info("final eval: %s", final_metrics)
-    if rank != 0:
-        return 0
     final_dir = Path(args.output_dir) / "final"
-    ckpt_lib.export_params(final_dir, state.model, cfg)
+    if not ckpt_lib.export_final(final_dir, state, cfg):
+        return 0
     card_lib.write_model_card(
         final_dir, cfg, tasks="fill-mask", dataset=args.dataset,
         metrics=card_lib._final_metrics_from_log(final_metrics),

@@ -28,7 +28,13 @@ Usage:
       -model <ckpt> -output outdir [-save_memory -chunk_size 100000]
 
 Runs on CUDA unless ``-device cpu`` is given, and fails when CUDA is asked
-for and absent.
+for and absent. Several ranks (``python -m torch.distributed.run
+--nproc-per-node N -m plantcaduceus_tpu_torch.cli.train_xgboost ...``)
+split each embedding batch's rows over a data axis, as JAX's runner spans
+every device; the embeddings equal one process's, and rank 0 alone writes
+the caches and outputs and fits. Every rank embeds the train, valid and
+test sets before rank 0 fits, so no rank waits in a collective while the
+fit runs.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import re
 
 import numpy as np
 
-from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+from plantcaduceus_tpu_torch.parallel import mesh as meshlib
 
 log = logging.getLogger(__name__)
 
@@ -55,7 +61,8 @@ def parse_args(argv=None):
     p.add_argument("-test", dest="test")
     p.add_argument("-model", dest="model", required=True)
     p.add_argument("-output", dest="output", required=True)
-    p.add_argument("-batchSize", dest="batch_size", type=int, default=128)
+    p.add_argument("-batchSize", dest="batch_size", type=int, default=128,
+                   help="rows of each forward, split over the ranks of the data axis")
     p.add_argument("-tokenIdx", dest="token_idx", type=int, default=255)
     p.add_argument("-test_only", action="store_true", dest="test_only")
     p.add_argument("-save_memory", action="store_true", dest="save_memory")
@@ -88,10 +95,12 @@ def make_embedder(args):
     from plantcaduceus_tpu_torch.utils.device import resolve_device
     from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
 
-    device = resolve_device(args.device)  # before the model: no silent CPU run
+    resolve_device(args.device)  # before the model: no silent CPU run
+    device = meshlib.initialize_distributed(args.device)  # this rank's device
     model, cfg, tok = load_model_and_tokenizer(args.model)
     runner = InferenceRunner(model, cfg, dtype=torch.bfloat16,
-                             batch_size=args.batch_size, device=device)
+                             batch_size=args.batch_size, device=device,
+                             mesh=meshlib.cli_mesh())
 
     def embed(sequences):
         ids = tok.encode_batch(sequences)
@@ -148,32 +157,45 @@ def plot_and_save_metrics(scores, labels, output_dir, prefix, seed):
     log.info("%s: ROC AUC %.4f PRAUC %.4f", prefix, m["roc_auc"], m["prauc"])
 
 
-def score_test(args, embed, xgb_model, prefix, test_sequences):
-    if args.save_memory:
-        log.info("Chunked scoring with chunk size %d", args.chunk_size)
-        preds = []
-        for i in range(0, len(test_sequences), args.chunk_size):
-            cache = os.path.join(args.output,
-                                 f"{prefix}_chunk_{i}_embeddings.npz")
-            if os.path.exists(cache):
-                emb = np.load(cache)["test"]
-            else:
-                emb = embed(test_sequences[i : i + args.chunk_size])
-                np.savez_compressed(cache, test=emb)
-            preds.append(xgb_model.predict_proba(emb)[:, 1])
-        return np.concatenate(preds)
-    cache = os.path.join(args.output, f"{prefix}_embeddings.npz")
+def _cached(cache, embed, **sequences):
+    """The cached embeddings of each keyword's sequences, or their
+    embeddings, cached by rank 0. Every rank decides from the disk before
+    any rank embeds, and rank 0 writes only after the embedding's
+    collectives: the ranks agree."""
     if os.path.exists(cache):
         log.info("Found pre-computed embeddings %s", cache)
-        emb = np.load(cache)["test"]
-    else:
-        emb = embed(test_sequences)
-        np.savez_compressed(cache, test=emb)
+        z = np.load(cache)
+        return tuple(z[k] for k in sequences)
+    emb = {k: embed(v) for k, v in sequences.items()}
+    if meshlib.world()[0] == 0:
+        np.savez_compressed(cache, **emb)
+    return tuple(emb.values())
+
+
+def embed_test(args, embed, prefix, test_sequences):
+    """Embed the test set into its caches (in chunks with -save_memory),
+    on every rank."""
+    if args.save_memory:
+        log.info("Chunked scoring with chunk size %d", args.chunk_size)
+        for i in range(0, len(test_sequences), args.chunk_size):
+            cache = os.path.join(args.output, f"{prefix}_chunk_{i}_embeddings.npz")
+            _cached(cache, embed, test=test_sequences[i : i + args.chunk_size])
+        return
+    _cached(os.path.join(args.output, f"{prefix}_embeddings.npz"), embed, test=test_sequences)
+
+
+def score_test(args, xgb_model, prefix, n_test):
+    """The test predictions from the caches ``embed_test`` wrote (rank 0)."""
+    if args.save_memory:
+        return np.concatenate([
+            xgb_model.predict_proba(np.load(os.path.join(
+                args.output, f"{prefix}_chunk_{i}_embeddings.npz"))["test"])[:, 1]
+            for i in range(0, n_test, args.chunk_size)])
+    emb = np.load(os.path.join(args.output, f"{prefix}_embeddings.npz"))["test"]
     return xgb_model.predict_proba(emb)[:, 1]
 
 
 def main(argv=None):
-    refuse_multi_rank("cli.train_xgboost")
     from plantcaduceus_tpu_torch.downstream.gbm import GbmClassifier
 
     logging.basicConfig(force=True, level=logging.INFO,
@@ -183,20 +205,22 @@ def main(argv=None):
     os.makedirs(args.output, exist_ok=True)
     model_path = os.path.join(args.output, f"seed_{args.seed}_XGBoost.json")
     embed = make_embedder(args)
+    rank0 = meshlib.world()[0] == 0
 
     if not args.test_only:
         train_seqs, train_labels = load_data(args.train)
         valid_seqs, valid_labels = load_data(args.valid)
-        cache = os.path.join(args.output, "train_valid_embeddings.npz")
-        if os.path.exists(cache):
-            log.info("Found pre-computed embeddings %s", cache)
-            z = np.load(cache)
-            train_emb, valid_emb = z["train"], z["valid"]
-        else:
-            train_emb = embed(train_seqs)
-            valid_emb = embed(valid_seqs)
-            np.savez_compressed(cache, train=train_emb, valid=valid_emb)
+        train_emb, valid_emb = _cached(
+            os.path.join(args.output, "train_valid_embeddings.npz"), embed,
+            train=train_seqs, valid=valid_seqs)
+    if args.test:
+        test_seqs, test_labels = load_data(args.test)
+        test_prefix = os.path.basename(args.test).split(".")[0]
+        embed_test(args, embed, test_prefix, test_seqs)
+    if not rank0:   # every embedding is done: only rank 0 fits and writes
+        return
 
+    if not args.test_only:
         if os.path.exists(model_path):
             log.info("Found pre-trained XGBoost model %s", model_path)
             model = GbmClassifier.load(model_path)
@@ -214,15 +238,13 @@ def main(argv=None):
                                   prefix, args.seed)
 
     if args.test:
-        test_seqs, test_labels = load_data(args.test)
         model = GbmClassifier.load(model_path)
-        prefix = os.path.basename(args.test).split(".")[0]
-        preds = score_test(args, embed, model, prefix, test_seqs)
+        preds = score_test(args, model, test_prefix, len(test_seqs))
         np.savez_compressed(
             os.path.join(args.output,
-                         f"seed_{args.seed}_{prefix}_predictions.npz"),
+                         f"seed_{args.seed}_{test_prefix}_predictions.npz"),
             predictions=preds)
-        plot_and_save_metrics(preds, test_labels, args.output, prefix,
+        plot_and_save_metrics(preds, test_labels, args.output, test_prefix,
                               args.seed)
     elif args.test_only:
         log.error("Please provide the test data")

@@ -15,8 +15,8 @@ cpu`` is given, and fails when CUDA is asked for and absent.
 Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
 plantcaduceus_tpu_torch.cli.zero_shot_score ...``) score over a data × seq
 mesh: ``-seq S`` shards each window's length over S ranks (context
-parallelism), and the records are striped over the data coordinates. Rank
-0 alone writes the output.
+parallelism), and the other ranks split each batch's rows over ``data``
+(``engine.runner``). Rank 0 alone writes the output.
 """
 
 from __future__ import annotations

@@ -6,11 +6,18 @@ Counterpart of ``plantcaduceus_tpu.engine.runner``: fixed batch shapes
 a two-batch-deep queue so the card computes the next batches while the host
 copies the oldest result back.
 
-Over a mesh (``parallel.mesh``; every rank passes the same ids) each batch's
-rows are split over the ``data`` axis and, with ``seq`` above 1, its length
-over ``seq`` (context-parallel scoring of long windows); the raw outputs are
-gathered over ``seq`` before extraction and the extracted rows over
-``data``, so every rank ends with the full result.
+Over a mesh (``parallel.mesh``; every rank passes the same ids) each
+batch's ``batch_size`` rows are split over the batch axes (``data ×
+fsdp``, which must divide it: ``batch_size`` is global, as JAX's), so
+rank k runs the k-th block of ``batch_size / n`` rows of each batch. With
+``seq`` above 1 each window's length is split over ``seq`` too
+(context-parallel scoring of long windows). The raw outputs are gathered
+over ``seq`` before extraction and the extracted rows over the batch axes,
+so every rank ends with the full result. This row split is the one way the
+port spreads inference over ranks: every entry point that runs over a
+mesh goes through it. A rank's forwards take the rows, in the same blocks
+and padded alike, that one process takes at a ``batch_size`` of
+``batch_size / n``, so their results equal that process's bit for bit.
 """
 
 from __future__ import annotations
@@ -65,13 +72,12 @@ class InferenceRunner:
         for i in range(0, ids.shape[0], self.batch_size):
             yield self._pad(ids[i:i + self.batch_size])
 
-    def _forward(self, chunk: np.ndarray, extract, want_hidden: bool,
-                 split_rows: bool) -> torch.Tensor:
-        """One padded batch: this rank's part of it through the model, the
-        raw outputs gathered over ``seq``, extracted, and the extracted rows
-        gathered over ``data`` (when ``split_rows``)."""
+    def _forward(self, chunk: np.ndarray, extract, want_hidden: bool) -> torch.Tensor:
+        """One padded batch: this rank's block of its rows through the
+        model, the raw outputs gathered over ``seq``, extracted, and the
+        extracted rows gathered over the batch axes."""
         mesh = self.mesh
-        if mesh is not None and split_rows:
+        if mesh is not None:
             chunk = chunk[shard_rows(chunk.shape[0], mesh)]
         if self.sp is not None:
             chunk = chunk[:, shard_length(chunk.shape[1], mesh)]
@@ -84,20 +90,16 @@ class InferenceRunner:
             res = {k: torch.cat(list(collectives.all_gather(v, self.sp)), dim=1)
                    for k, v in res.items()}
         got = extract(res)
-        if mesh is not None and split_rows and mesh.shape["data"] > 1:
-            got = collectives.all_gather(got, mesh.axis("data")).flatten(0, 1)
+        if mesh is not None:
+            got = collectives.all_gather_tiled(got, mesh.axis("data", "fsdp"))
         return got
 
     def run(self, ids: np.ndarray,
             extract: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
-            want_hidden: bool = False, progress: bool = True,
-            split_rows: bool = True) -> np.ndarray:
+            want_hidden: bool = False, progress: bool = True) -> np.ndarray:
         """Run the forward over all rows of ``ids`` ([N, L] ints). ``extract``
         reduces each batch's fp32 outputs on the device. Over a mesh every
-        rank passes the same ``ids`` and gets the whole result;
-        ``split_rows=False`` keeps each batch whole on this rank's ``seq``
-        line (the ranks of one ``data`` coordinate score the same rows, as
-        the striping of ``engine.zero_shot`` gives them)."""
+        rank passes the same ``ids`` and gets the whole result."""
         batches = list(self._iter_batches(ids))
         it = batches
         if progress and (self.mesh is None or self.mesh.rank == 0):
@@ -110,7 +112,7 @@ class InferenceRunner:
         results, pending = [], []
         with torch.inference_mode():
             for chunk, n in it:
-                pending.append((self._forward(chunk, extract, want_hidden, split_rows), n))
+                pending.append((self._forward(chunk, extract, want_hidden), n))
                 if len(pending) > 2:
                     got, m = pending.pop(0)
                     results.append(got[:m].cpu().numpy())
@@ -121,7 +123,7 @@ class InferenceRunner:
     # -- workload-specific extractors --------------------------------------
 
     def masked_probs(self, ids: np.ndarray, nucleotide_ids, position: int,
-                     progress: bool = True, split_rows: bool = True) -> np.ndarray:
+                     progress: bool = True) -> np.ndarray:
         """Softmax over the 4 nucleotide logits at ``position`` for
         pre-masked inputs: the zero-shot scoring contract. [N, 4] float32."""
         nuc = torch.tensor(list(nucleotide_ids), device=self.device)
@@ -129,7 +131,7 @@ class InferenceRunner:
         def extract(out):
             return torch.softmax(out["logits"][:, position, :][:, nuc], dim=-1)
 
-        return self.run(ids, extract, progress=progress, split_rows=split_rows)
+        return self.run(ids, extract, progress=progress)
 
     def multi_masked_probs(self, ids: np.ndarray, nucleotide_ids, positions,
                            progress: bool = True) -> np.ndarray:

@@ -23,7 +23,25 @@ and then serves requests, with nothing beyond the stdlib:
       POST /embed                 {"sequences": [...], "pos": 255?}
                                                         -> {"embeddings": ...}
 
-  400 for bad input, 500 for a runtime failure; the worker survives both.
+  400 for bad input, 500 for a runtime failure; a one-rank server's worker
+  survives both (several ranks: below).
+
+Over several ranks (``cli.serve`` under ``torch.distributed.run``; JAX
+serves ``-seq`` over a seq mesh) rank 0 is the leader: it alone binds the
+port and runs the batcher. Its service (``axis``: every rank of the mesh)
+broadcasts each coalesced forward's kind, shape, mask position and ids to
+the other ranks before running its part; each follower loops in
+:func:`follow`, running the same sharded forward, until the leader's
+batcher thread, on shutdown, broadcasts the stop. Only that thread issues
+collectives, always in one order. Whatever a forward would refuse (a mask
+position outside the window, a window that the seq axis does not divide)
+is refused before it is broadcast. An input error that a forward still
+raises, it raises on every rank at the same point: the follower logs it
+and goes on, and the leader answers it. Any other failure of a forward
+(out of memory, a lost peer) may leave the ranks' collectives out of step:
+a follower then exits, and a leader stops serving and its ``cli.serve``
+exits non-zero, so ``torch.distributed.run`` ends every rank at once
+rather than leaving them waiting on a collective.
 
 Client side: ``client.ScoringClient`` (urllib, no deps).
 """
@@ -38,24 +56,101 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
 from plantcaduceus_tpu_torch.engine.zero_shot import (NUCLEOTIDES, log_ratio_scores,
                                                       mask_and_encode)
 from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer, nucleotide_ids
+from plantcaduceus_tpu_torch.parallel.collectives import broadcast
 
 log = logging.getLogger(__name__)
 
+# The forwards a leader broadcasts (the header's first entry), and the stop.
+STOP, MASKED_PROBS, EMBED = 0, 1, 2
+# What a forward raises for its input: on every rank alike, at one point.
+INPUT_ERRORS = (KeyError, IndexError, TypeError, ValueError)
+
+
+def _forward(runner: InferenceRunner, nuc_ids, kind: int, ids: np.ndarray,
+             pos: int) -> np.ndarray:
+    if kind == MASKED_PROBS:
+        return runner.masked_probs(ids, nuc_ids, pos, progress=False)
+    return runner.center_embeddings(ids, pos, progress=False)
+
+
+def _announce(axis, device, kind: int, ids: Optional[np.ndarray] = None, pos: int = 0) -> None:
+    """The leader's broadcast: the header [kind, rows, length, pos], then
+    the ids (none after the stop)."""
+    rows, length = ids.shape if ids is not None else (0, 0)
+    broadcast(torch.tensor([kind, rows, length, pos], device=device), axis)
+    if ids is not None:
+        broadcast(torch.from_numpy(ids.astype(np.int64)).to(device), axis)
+
+
+def follow(runner: InferenceRunner, tokenizer: DnaTokenizer, axis) -> int:
+    """A follower rank's loop: receive each forward the leader announces,
+    run this rank's part of it, until the stop. Returns the forwards run."""
+    nuc_ids, device, n = nucleotide_ids(tokenizer), runner.device, 0
+    while True:
+        kind, rows, length, pos = broadcast(
+            torch.zeros(4, dtype=torch.long, device=device), axis).tolist()
+        if kind == STOP:
+            return n
+        ids = broadcast(torch.zeros((rows, length), dtype=torch.long, device=device), axis)
+        try:
+            _forward(runner, nuc_ids, kind, ids.cpu().numpy(), pos)
+        except INPUT_ERRORS:   # the leader raised it too, and answers it
+            log.exception("a forward refused its input; waiting for the next")
+            continue
+        n += 1
+
 
 class ScoringService:
-    """Model-owning facade: numpy in, numpy out, no HTTP concerns."""
+    """Model-owning facade: numpy in, numpy out, no HTTP concerns. With
+    ``axis`` (every rank of the runner's mesh) it is the leader of several
+    ranks: each forward is announced to the followers first."""
 
     def __init__(self, runner: InferenceRunner, tokenizer: DnaTokenizer,
-                 default_pos: Optional[int] = None):
+                 default_pos: Optional[int] = None, axis=None):
         self.runner = runner
         self.tokenizer = tokenizer
         self.nuc_ids = nucleotide_ids(tokenizer)
         self.default_pos = default_pos
+        self.axis = axis
+        self.failed: Optional[BaseException] = None  # a leader's forward out of step
+
+    def _run(self, kind: int, ids: np.ndarray, pos: int) -> np.ndarray:
+        if self.axis is None:
+            return _forward(self.runner, self.nuc_ids, kind, ids, pos)
+        if self.failed is not None:
+            raise RuntimeError(f"the ranks stopped serving after {self.failed!r}")
+        _announce(self.axis, self.runner.device, kind, ids, pos)
+        try:
+            return _forward(self.runner, self.nuc_ids, kind, ids, pos)
+        except INPUT_ERRORS:
+            raise
+        except Exception as e:   # the followers may wait in a collective
+            self.failed = e
+            raise
+
+    def close(self) -> None:
+        """Release the followers (a leader's last collective), unless a
+        failed forward left them out of step."""
+        if self.axis is not None and self.failed is None:
+            _announce(self.axis, self.runner.device, STOP)
+        self.axis = None
+
+    def _check(self, length: int, pos) -> None:
+        """Refuse what the forward would refuse, before it is announced."""
+        if isinstance(pos, bool) or not isinstance(pos, (int, np.integer)):
+            raise TypeError(f"pos must be an integer, got {pos!r}")
+        if not -length <= pos < length:
+            raise ValueError(f"pos {pos} lies outside the {length}-bp window")
+        mesh = self.runner.mesh
+        if mesh is not None and length % mesh.shape["seq"]:
+            raise ValueError(f"a {length}-bp window does not divide over the "
+                             f"{mesh.shape['seq']}-way seq axis")
 
     def _pos(self, pos: Optional[int], seq_len: int) -> int:
         if pos is not None:
@@ -67,8 +162,9 @@ class ScoringService:
     def masked_probs(self, sequences: Sequence[str],
                      pos: Optional[int] = None) -> np.ndarray:
         p = self._pos(pos, len(sequences[0]))
+        self._check(len(sequences[0]), p)
         ids = mask_and_encode(sequences, self.tokenizer, p)
-        return self.runner.masked_probs(ids, self.nuc_ids, p, progress=False)
+        return self._run(MASKED_PROBS, ids, p)
 
     def score(self, sequences: Sequence[str], refs: Sequence[str],
               alts: Sequence[str], pos: Optional[int] = None) -> np.ndarray:
@@ -81,8 +177,9 @@ class ScoringService:
     def embed(self, sequences: Sequence[str],
               pos: Optional[int] = None) -> np.ndarray:
         p = self._pos(pos, len(sequences[0]))
+        self._check(len(sequences[0]), p)
         ids = self.tokenizer.encode_batch(sequences)
-        return self.runner.center_embeddings(ids, p, progress=False)
+        return self._run(EMBED, ids, p)
 
 
 class MicroBatcher:
@@ -98,8 +195,9 @@ class MicroBatcher:
     _KINDS = ("score", "masked_probs", "embed")
 
     def __init__(self, service: ScoringService, max_batch: int = 1024,
-                 max_wait_ms: float = 5.0):
+                 max_wait_ms: float = 5.0, on_failed=None):
         self.service = service
+        self.on_failed = on_failed  # called when a leader stops serving
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.groups = 0
@@ -124,6 +222,8 @@ class MicroBatcher:
                              "window length")
         item = {"kind": kind, "payload": payload,
                 "event": threading.Event(), "result": None, "error": None}
+        if not self._worker.is_alive():
+            raise RuntimeError("the server has stopped")
         self._q.put(item)
         item["event"].wait()
         if item["error"] is not None:
@@ -133,7 +233,8 @@ class MicroBatcher:
     def shutdown(self):
         self._stop.set()
         self._q.put(None)  # wake the worker
-        self._worker.join(timeout=5)
+        # a leader's worker releases the followers before it ends: wait for it
+        self._worker.join(timeout=None if self.service.axis is not None else 5)
 
     # -- worker ----------------------------------------------------------
 
@@ -156,7 +257,27 @@ class MicroBatcher:
         return items
 
     def _run(self):
+        try:
+            self._serve()
+        finally:   # on this thread: the only one that issues collectives
+            self.service.close()
+            while True:   # nothing is served after this thread
+                try:
+                    it = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if it is not None:
+                    it["error"] = RuntimeError("the server has stopped")
+                    it["event"].set()
+
+    def _serve(self):
         while not self._stop.is_set():
+            if self.service.failed is not None:
+                log.error("a forward failed on the leader (%r) and may have left the ranks "
+                          "out of step: the server stops", self.service.failed)
+                if self.on_failed is not None:
+                    self.on_failed()
+                return
             items = self._drain()
             if not items:
                 continue
@@ -269,7 +390,7 @@ def _make_handler(batcher: MicroBatcher, model_name: str):
                     self._reply(200, {"embeddings": np.asarray(out).tolist()})
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
-            except (KeyError, ValueError, TypeError) as e:
+            except INPUT_ERRORS as e:
                 self._reply(400, {"error": str(e)})
             except Exception as e:  # model/runtime failure
                 log.exception("request failed")
@@ -285,10 +406,15 @@ class ScoringServer:
                  port: int = 8142, model_name: str = "?",
                  max_batch: int = 1024, max_wait_ms: float = 5.0):
         self.batcher = MicroBatcher(service, max_batch=max_batch,
-                                    max_wait_ms=max_wait_ms)
+                                    max_wait_ms=max_wait_ms,
+                                    on_failed=self._stop_serving)
         self.httpd = ThreadingHTTPServer(
             (host, port), _make_handler(self.batcher, model_name))
         self.httpd.daemon_threads = True
+
+    def _stop_serving(self):
+        # from the batcher's thread: shutdown() waits for serve_forever
+        threading.Thread(target=self.httpd.shutdown, daemon=True).start()
 
     @property
     def port(self) -> int:

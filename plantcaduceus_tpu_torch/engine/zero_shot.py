@@ -8,10 +8,11 @@ ref/alt/sequences columns; VCF+FASTA), three outputs (TSV with
 read and written with the ``csv`` module, compressed as their suffix says
 (``io.tables``); every input column is kept as its text.
 
-Over a mesh with a ``data`` axis above 1 the records are striped over its
-coordinates (``sequences[k::n]``, the ranks of one ``seq`` line scoring
-the same stripe), and the stripes are gathered and put back in order, so
-every rank holds every record's probabilities; the caller writes on rank 0.
+Over a mesh every rank holds every record, and the runner splits each
+batch's rows over the ranks and gathers them back
+(``engine.runner.InferenceRunner.run``), so every rank holds every
+record's probabilities, equal to one process's; the caller writes on rank
+0.
 """
 
 from __future__ import annotations
@@ -75,48 +76,10 @@ def _dedup(sequences: Sequence[str]):
     return unique, inverse
 
 
-def _unstripe(gathered: np.ndarray, counts) -> np.ndarray:
-    """Rows back in global order from per-stripe blocks: ``gathered [n,
-    per_stripe_padded, ...]``, ``counts[h]`` the real rows of stripe h
-    (which held records h::n)."""
-    total = int(sum(counts))
-    out = np.zeros((total,) + gathered.shape[2:], gathered.dtype)
-    n = gathered.shape[0]
-    for h in range(n):
-        out[h::n] = gathered[h, : counts[h]]
-    return out
-
-
-def _striped_probs(runner: InferenceRunner, tokenizer: DnaTokenizer,
-                   sequences: Sequence[str], token_idx: int, progress: bool) -> np.ndarray:
-    """Each ``data`` coordinate scores its stripe on its ``seq`` line; the
-    stripes, padded to one length, are gathered over ``data`` and
-    unstriped."""
-    import torch
-
-    from plantcaduceus_tpu_torch.parallel.collectives import all_gather
-
-    mesh = runner.mesh
-    n, k = mesh.shape["data"], mesh.coords["data"]
-    mine = list(sequences[k::n])
-    local = np.zeros((0, 4), np.float32)
-    if mine:
-        ids = mask_and_encode(mine, tokenizer, token_idx)
-        local = runner.masked_probs(ids, nucleotide_ids(tokenizer), token_idx,
-                                    progress=progress, split_rows=False)
-    per = -(-len(sequences) // n)
-    local = np.concatenate([local, np.zeros((per - len(mine), 4), np.float32)])
-    # gathered on the rank's device: NCCL takes no host tensor
-    gathered = all_gather(torch.from_numpy(local).to(runner.device), mesh.axis("data"))
-    gathered = gathered.cpu().numpy()
-    return _unstripe(gathered, [len(sequences[h::n]) for h in range(n)])
-
-
 def nucleotide_probs(runner: InferenceRunner, tokenizer: DnaTokenizer,
                      sequences: Sequence[str], token_idx: int,
                      progress: bool = True) -> np.ndarray:
-    """[N, 4] softmax probs over a,c,g,t at the masked centre (striped over
-    the runner's ``data`` axis when it is above 1)."""
+    """[N, 4] softmax probs over a,c,g,t at the masked centre."""
     nuc_ids = nucleotide_ids(tokenizer)
     sequences, inverse = _dedup(sequences)
     if inverse is not None:
@@ -125,11 +88,8 @@ def nucleotide_probs(runner: InferenceRunner, tokenizer: DnaTokenizer,
     if len(sequences) == 0:
         return np.zeros((0, 4), np.float32)
     start = time.perf_counter()
-    if runner.mesh is not None and runner.mesh.shape["data"] > 1:
-        probs = _striped_probs(runner, tokenizer, sequences, token_idx, progress)
-    else:
-        ids = mask_and_encode(sequences, tokenizer, token_idx)
-        probs = runner.masked_probs(ids, nuc_ids, token_idx, progress=progress)
+    ids = mask_and_encode(sequences, tokenizer, token_idx)
+    probs = runner.masked_probs(ids, nuc_ids, token_idx, progress=progress)
     secs = time.perf_counter() - start
     log.info("Scored %d windows in %.3f s (%.1f windows/s)",
              len(sequences), secs, len(sequences) / secs)

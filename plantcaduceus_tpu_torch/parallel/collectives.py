@@ -1,12 +1,18 @@
 """Differentiable collectives over one mesh axis: the ``jax.lax``
-primitives the context-parallel code uses (``all_gather``, ``ppermute``,
-``psum``; ``axis_index`` is ``Axis.index``), as ``torch.autograd``
-Functions over ``torch.distributed``.
+primitives the sharded code uses (``all_gather``, untiled and tiled,
+``psum_scatter``, ``ppermute``, ``psum``; ``axis_index`` is
+``Axis.index``), as ``torch.autograd`` Functions over
+``torch.distributed``, and ``broadcast`` (not differentiable) for the
+server's leader.
 
 Adjoints, as JAX transposes them:
 * ``all_gather`` stacks every rank's tensor; its adjoint is the sum over
   the ranks of their cotangents, each rank taking its own slice (a
   reduce-scatter: each rank receives only the sum of its slice);
+  ``all_gather_tiled`` concatenates along a dimension instead, and its
+  adjoint is ``psum_scatter`` along it;
+* ``psum_scatter`` (``tiled=True``) sums over the ranks and leaves rank i
+  the i-th block of ``dim``; its adjoint is the tiled all_gather;
 * ``ppermute`` moves tensors along (source, destination) pairs of axis
   coordinates, a rank that receives nothing getting zeros; its adjoint is
   the reverse ``ppermute``;
@@ -80,6 +86,19 @@ def _ppermute(t: torch.Tensor, axis: Axis, perm: Tuple[Tuple[int, int], ...]) ->
     return recv.to(t.device)
 
 
+def _psum_scatter(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    if t.shape[dim] % axis.size:
+        raise ValueError(f"psum_scatter over {axis.name!r}: dimension {dim} of size "
+                         f"{t.shape[dim]} does not divide over {axis.size} ranks")
+    return _reduce_scatter(torch.stack(t.chunk(axis.size, dim)), axis)
+
+
+def _broadcast(t: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
+    buf = _buffer(t, axis)
+    dist.broadcast(buf, src=axis.ranks[src], group=axis.group)
+    return buf.to(t.device)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, axis):
@@ -89,6 +108,17 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _reduce_scatter(g, ctx.axis), None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _psum_scatter(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(list(_all_gather(g, ctx.axis)), dim=ctx.dim), None, None
 
 
 class _Ppermute(torch.autograd.Function):
@@ -119,6 +149,34 @@ def all_gather(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size == 1:
         return t[None]
     return _AllGather.apply(t, axis)
+
+
+def all_gather_tiled(t: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in axis order
+    (``jax.lax.all_gather(..., axis=dim, tiled=True)``); its adjoint is
+    :func:`psum_scatter` along ``dim``."""
+    if axis.size == 1:
+        return t
+    return torch.cat(list(_AllGather.apply(t, axis)), dim=dim)
+
+
+def psum_scatter(t: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
+    """The sum of ``t`` over the axis, of which rank i keeps the i-th of
+    ``axis.size`` equal blocks along ``dim``
+    (``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``);
+    raises when ``dim`` does not divide over the ranks."""
+    if axis.size == 1:
+        return t
+    return _PsumScatter.apply(t, axis, dim)
+
+
+def broadcast(t: torch.Tensor, axis: Axis, src: int = 0) -> torch.Tensor:
+    """The ``t`` of the rank at coordinate ``src`` on every rank of the axis
+    (every rank passes a tensor of the same shape and dtype; the others'
+    values are ignored). Not differentiable."""
+    if axis.size == 1:
+        return t
+    return _broadcast(t, axis, src)
 
 
 def ppermute(t: torch.Tensor, axis: Axis, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:

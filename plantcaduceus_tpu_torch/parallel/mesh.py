@@ -7,9 +7,13 @@ device order (``pipe`` innermost), so rank = ``(((d·F + f)·S + s)·T + t)·P
 + p``, and each axis gets the process groups of its lines:
 
     data   — batch parallel: rows split over it, gradients summed over it
+    fsdp   — parameter and optimizer-state sharding (ZeRO): each rank keeps
+             its shard of every leaf (``param_specs(replicated=False)``),
+             all-gathered before use; rows split over it too, inside
+             ``data`` (JAX ``batch_spec()``: ``P(("data", "fsdp"))``)
     seq    — context parallel over the L axis (halo exchanges and the
              two-pass sharded scan; models/caduceus.py)
-    fsdp, tensor, pipe — not ported yet (``NOT_PORTED``)
+    tensor, pipe — not ported yet (``NOT_PORTED``)
 
 The backend is chosen once, from the configuration (:func:`choose_backend`):
 NCCL where every rank has a card of its own, gloo where the ranks run on
@@ -31,8 +35,14 @@ import torch.distributed as dist
 log = logging.getLogger(__name__)
 
 AXES = ("data", "fsdp", "seq", "tensor", "pipe")
-NOT_PORTED = ("not ported to the PyTorch port yet (ROADMAP.md, Queue 1 item 9b: FSDP, "
-              "tensor and pipeline parallelism, multi-rank LoRA, distillation and serving)")
+NOT_PORTED = ("not ported to the PyTorch port yet (ROADMAP.md, Queue 1 items 9d/9e: "
+              "tensor and pipeline parallelism)")
+# The axis sets that get process groups: each axis, the batch axes (the
+# gradient sums of LoRA and distillation), the data and seq axes (the
+# sharded leaves' gradient sum before the fsdp reduce-scatter) and all three
+# (the loss normaliser and the replicated leaves' gradient sum).
+GROUP_AXES = tuple((a,) for a in AXES) + (("data", "fsdp"), ("data", "seq"),
+                                          ("data", "fsdp", "seq"))
 DEFAULT_TIMEOUT_S = 600.0
 
 
@@ -77,8 +87,7 @@ class Axis:
 @dataclasses.dataclass
 class Mesh:
     """This rank's view of the grid: ``shape`` by axis name, its
-    coordinates, and a process group for each axis and for the axis pair
-    the train step reduces over."""
+    coordinates, and a process group for each axis set of ``GROUP_AXES``."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
@@ -174,7 +183,7 @@ def make_mesh(config: Optional[MeshConfig] = None,
     if shape["seq"] > 1 and shape["tensor"] > 1:
         raise ValueError("sequence and tensor parallelism cannot be combined "
                          "(the context-parallel mixer needs unsharded d_inner)")
-    unported = {k: v for k, v in shape.items() if k in ("fsdp", "tensor", "pipe") and v > 1}
+    unported = {k: v for k, v in shape.items() if k in ("tensor", "pipe") and v > 1}
     if unported:
         raise NotImplementedError(f"mesh axes {unported}: {NOT_PORTED}")
     grid = rank_grid(shape)
@@ -182,18 +191,22 @@ def make_mesh(config: Optional[MeshConfig] = None,
     coords = dict(zip(AXES, (int(i) for i in (grid == rank).nonzero()[0])))
     backend = dist.get_backend() if n > 1 else None
     timeout = datetime.timedelta(seconds=timeout_s)
-    groups = {}
-    for names in [(a,) for a in AXES] + [("data", "seq")]:
+    groups, made = {}, {}
+    for names in GROUP_AXES:
         axes = [AXES.index(a) for a in names]
         rest = [i for i in range(len(AXES)) if i not in axes]
         lines = grid.permute(rest + axes).reshape(-1, int(torch.tensor(
             [dims[i] for i in axes]).prod()))
         mine = None
-        for line in lines.tolist():
-            # every rank creates every group, in the same order
-            group = dist.new_group(line, timeout=timeout) if len(line) > 1 else None
+        for line in map(tuple, lines.tolist()):
+            # every rank creates every group, in the same order; a line that
+            # another axis set already spans (an axis of size 1 added) reuses
+            # its group
+            if line not in made:
+                made[line] = dist.new_group(list(line), timeout=timeout) if len(line) > 1 \
+                    else None
             if rank in line:
-                mine = (tuple(line), group)
+                mine = (line, made[line])
         groups[names] = mine
     return Mesh(shape, coords, rank, n, backend, groups)
 
@@ -202,13 +215,16 @@ SEQ_SHARDED_KEYS = frozenset({"input_ids", "labels", "loss_weights"})
 
 
 def shard_rows(n_rows: int, mesh: Mesh) -> slice:
-    """This rank's rows of a global batch of ``n_rows``: contiguous blocks in
-    ``data`` coordinate order, as JAX shards the leading axis."""
-    d = mesh.shape["data"]
+    """This rank's rows of a global batch of ``n_rows``: contiguous blocks
+    over ``data × fsdp``, ``data`` outer and ``fsdp`` inner, as JAX shards
+    the leading axis over ``P(("data", "fsdp"))``."""
+    d = mesh.shape["data"] * mesh.shape["fsdp"]
     if n_rows % d:
-        raise ValueError(f"batch rows {n_rows} must divide over the {d}-way data axis")
+        raise ValueError(f"batch rows {n_rows} must divide over the {d}-way batch axes "
+                         "(data x fsdp)")
     per = n_rows // d
-    return slice(mesh.coords["data"] * per, (mesh.coords["data"] + 1) * per)
+    k = mesh.coords["data"] * mesh.shape["fsdp"] + mesh.coords["fsdp"]
+    return slice(k * per, (k + 1) * per)
 
 
 def shard_length(L: int, mesh: Mesh) -> slice:
@@ -221,7 +237,7 @@ def shard_length(L: int, mesh: Mesh) -> slice:
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
-    """This rank's part of a global host batch: rows over ``data``; with a
+    """This rank's part of a global host batch: rows over ``data × fsdp``; with a
     seq axis above 1, the L axis of the [B, L] token arrays (``input_ids``,
     ``labels``, ``loss_weights``) over ``seq`` too (JAX ``shard_batch``, as
     per-rank slicing: every rank holds the same global batch)."""
@@ -236,37 +252,83 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
 
 
 def param_specs(replicated: bool = True, pipeline: bool = False):
-    """Partition rule for the parameters: every leaf replicated (an empty
-    spec). Sharded layouts (``replicated=False``: FSDP and tensor
-    parallelism; ``pipeline=True``) are refused."""
-    if not replicated or pipeline:
+    """Partition rule ``rule(name, shape) -> spec`` for the parameters (JAX
+    ``param_specs`` at ``tensor`` 1). ``replicated=True``: every leaf
+    replicated (an empty spec). ``replicated=False``: FSDP, the leaf's
+    largest axis of size above 1 (the first of equals) over ``"fsdp"``, a
+    spec of one entry per axis; a leaf with no such axis stays replicated
+    (all ``None``). It applies to the port's own per-layer leaves: the
+    layout is internal, and checkpoints hold full tensors.
+    ``pipeline=True`` is refused (``make_mesh`` refuses the tensor axis)."""
+    if pipeline:
         raise NotImplementedError(
             f"sharded parameter layouts (replicated={replicated}, pipeline={pipeline}) are "
             f"{NOT_PORTED}")
-    return lambda path, shape: ()
+    if replicated:
+        return lambda path, shape: ()
+
+    def rule(path, shape):
+        axes = [None] * len(shape)
+        free = [i for i, n in enumerate(shape) if n > 1]
+        if free:
+            axes[max(free, key=lambda i: shape[i])] = "fsdp"
+        return tuple(axes)
+
+    return rule
 
 
-def cli_mesh(seq: int, flag: str = "--seq") -> Optional[Mesh]:
-    """The mesh of an entry point that takes ``seq`` (``flag``): data × seq
-    over the process group's ranks, or None in a single process with
-    ``seq`` 1. Exits when the ranks do not divide over ``seq``."""
+def fsdp_dims(shapes: Dict[str, Tuple[int, ...]], n_shards: int) -> Dict[str, Optional[int]]:
+    """The axis of each leaf that ``param_specs(replicated=False)`` shards
+    over ``fsdp`` (None: replicated). Raises a ``ValueError`` that names the
+    leaf and the axis when its size does not divide over ``n_shards`` (no
+    padding: JAX's ``shard_map`` refuses it too)."""
+    rule = param_specs(replicated=False)
+    dims = {}
+    for name, shape in shapes.items():
+        spec = rule(name, tuple(shape))
+        d = spec.index("fsdp") if "fsdp" in spec else None
+        if d is not None and shape[d] % n_shards:
+            raise ValueError(f"fsdp: leaf {name!r} axis {d} of size {shape[d]} does not "
+                             f"divide over the {n_shards}-way fsdp axis")
+        dims[name] = d
+    return dims
+
+
+def cli_mesh(seq: int = 1, flag: str = "--seq", fsdp: int = 1) -> Optional[Mesh]:
+    """The mesh of an entry point: data × fsdp × seq over the process
+    group's ranks (``data`` the ranks left over, as JAX's ``make_mesh``),
+    or None in a single process with ``seq`` and ``fsdp`` 1. Exits when the
+    ranks do not divide over ``fsdp × seq`` (``flag`` names the seq
+    option)."""
     n = world()[1]
-    if seq < 1 or n % seq:
-        raise SystemExit(
-            f"{flag} {seq}: {n} rank(s) do not divide over it; start a multiple of {seq} "
-            "ranks, e.g. python -m torch.distributed.run --nproc-per-node "
-            f"{max(seq, 1)} -m <entry point> ... {flag} {seq}")
+    for size, name in ((seq, flag), (fsdp, "--fsdp")):
+        if size < 1 or n % size:
+            raise SystemExit(
+                f"{name} {size}: {n} rank(s) do not divide over it; start a multiple of {size} "
+                "ranks, e.g. python -m torch.distributed.run --nproc-per-node "
+                f"{max(size, 1)} -m <entry point> ... {name} {size}")
+    if n % (seq * fsdp):
+        raise SystemExit(f"--fsdp {fsdp} {flag} {seq}: {n} rank(s) do not divide over "
+                         f"{fsdp * seq}")
     if n == 1:
         return None
-    mesh = make_mesh(MeshConfig(seq=seq))
+    mesh = make_mesh(MeshConfig(fsdp=fsdp, seq=seq))
     log.info("mesh: %s", mesh.shape)
     return mesh
 
 
+def barrier() -> None:
+    """Wait for every rank (nothing in a single process): after rank 0
+    writes what the others read next."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def refuse_multi_rank(what: str) -> None:
     """Exit when this process is one of several ranks: ``what`` runs on one
-    device, and several copies of it would each write the same files."""
+    device, as the JAX package's counterpart does (it builds no mesh), and
+    several copies of it would each write the same files."""
     n = max(int(os.environ.get("WORLD_SIZE", "1")), world()[1])
     if n > 1:
-        raise SystemExit(f"{what}: started as one of {n} ranks; multi-rank runs of it are "
-                         f"{NOT_PORTED}")
+        raise SystemExit(f"{what}: started as one of {n} ranks; it runs on one device, as "
+                         "the JAX package's CLI does (it builds no mesh)")

@@ -7,6 +7,13 @@ Counterpart of ``plantcaduceus_tpu.train.checkpoint`` with the same API
 state and the step, read back with ``torch.load(weights_only=True)``. The
 final export is an HF checkpoint directory (``compat.hf_export``) that the
 port's and the JAX package's loaders read.
+
+Over several ranks every rank calls :meth:`CheckpointManager.save` and
+rank 0 alone writes. Under fsdp the file is still the one-process format:
+the full weights and moments are gathered from the ranks' blocks (a
+collective, hence every rank), and on resume each rank takes its blocks. A
+run saved under ``--fsdp N`` therefore resumes under ``--fsdp N`` exactly,
+and in one process or under another layout too.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from plantcaduceus_tpu_torch.compat.hf_export import export_hf_dir
 from plantcaduceus_tpu_torch.compat.params import to_jax_params
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+from plantcaduceus_tpu_torch.parallel.mesh import world
 from plantcaduceus_tpu_torch.train.step import TrainState
 
 log = logging.getLogger(__name__)
@@ -43,15 +51,21 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, force: bool = False) -> bool:
         """Save at multiples of ``save_interval_steps`` (any step with
-        ``force``); keeps the newest ``max_to_keep``. Written to a temporary
-        file and renamed, so a crash never leaves half a checkpoint."""
+        ``force``); keeps the newest ``max_to_keep``. Written by rank 0 to a
+        temporary file and renamed, so a crash never leaves half a
+        checkpoint. Returns whether the step was due, on every rank."""
         if not force and (not self._interval or step % self._interval != 0):
             return False
+        model, opt_state = state.model.state_dict(), state.opt_state
+        if state.fsdp is not None:   # every rank: the blocks are gathered
+            weights, opt_state = state.fsdp.full_state(opt_state)
+            model = {k: weights.get(k, v) for k, v in model.items()}
+        if world()[0] != 0:
+            return True
         d = self.directory / str(step)
         d.mkdir(parents=True, exist_ok=True)
         tmp = d / (STATE_FILE + ".tmp")
-        torch.save({"step": int(state.step), "model": state.model.state_dict(),
-                    "opt_state": state.opt_state}, tmp)
+        torch.save({"step": int(state.step), "model": model, "opt_state": opt_state}, tmp)
         os.replace(tmp, d / STATE_FILE)
         for old in (self._steps()[:-self._max_to_keep] if self._max_to_keep else ()):
             shutil.rmtree(self.directory / str(old), ignore_errors=True)
@@ -63,16 +77,20 @@ class CheckpointManager:
 
     def restore(self, state_template: TrainState, step: Optional[int] = None) -> TrainState:
         """Load a checkpoint into the template's model (in place, on its
-        device) and return the state."""
+        device; under fsdp into its blocks) and return the state."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         device = next(state_template.model.parameters()).device
         saved = torch.load(self.directory / str(step) / STATE_FILE, map_location=device,
                            weights_only=True)
-        state_template.model.load_state_dict(saved["model"])
+        fsdp, opt_state = state_template.fsdp, saved["opt_state"]
+        if fsdp is not None:
+            opt_state = fsdp.load_state(saved["model"], opt_state)
+        else:
+            state_template.model.load_state_dict(saved["model"])
         log.info("Restored checkpoint at step %d from %s", step, self.directory)
-        return TrainState(state_template.model, saved["opt_state"], int(saved["step"]))
+        return TrainState(state_template.model, opt_state, int(saved["step"]), fsdp)
 
     def wait(self):
         """Saves are synchronous; nothing to wait for."""
@@ -87,3 +105,15 @@ def export_params(directory, model: Caduceus, cfg: CaduceusConfig) -> None:
     """Standalone weight export for the inference CLIs: an HF checkpoint
     directory (config.json + pytorch_model.bin)."""
     export_hf_dir(Path(directory).absolute(), to_jax_params(model), cfg)
+
+
+def export_final(directory, state: TrainState, cfg: CaduceusConfig) -> bool:
+    """:func:`export_params` of the state's weights, written by rank 0;
+    under fsdp every rank calls it (the weights are gathered first).
+    Returns whether this rank wrote."""
+    if state.fsdp is not None:
+        state.fsdp.gather()
+    if world()[0] != 0:
+        return False
+    export_params(directory, state.model, cfg)
+    return True

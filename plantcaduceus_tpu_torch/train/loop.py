@@ -6,8 +6,9 @@ SpeedMonitor-style throughput/step-time tracker with optional wandb
 logging. Each logged line carries ``elapsed_s``, the seconds since the loop
 started, read after the step's metrics reached the host. ``profile_dir``
 traces the loop's steps ``start + 10`` to ``start + 12`` there
-(``utils/profiling``). Under ``torch.distributed`` every rank steps and
-evaluates; rank 0 alone logs, profiles and writes checkpoints.
+(``utils/profiling``). Under ``torch.distributed`` every rank steps,
+evaluates and calls the checkpoint manager (under fsdp a save gathers the
+weights from every rank); rank 0 alone logs, profiles and writes.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ def run_training(
     rank0 = world()[0] == 0
     profiler = StepWindowProfiler(profile_dir if rank0 else None, start_step + 10, 3)
     t0 = time.perf_counter()
+    last_saved = None
 
     for step in range(start_step, max_steps):
         profiler.step(step)
@@ -107,14 +109,15 @@ def run_training(
                 if wandb_run is not None:
                     wandb_run.log({"eval/" + k: v for k, v in ev.items()}, step=step + 1)
 
-        if ckpt is not None and rank0:
-            ckpt.save(step + 1, state)
+        if ckpt is not None and ckpt.save(step + 1, state):
+            last_saved = step + 1
 
     profiler.close()
-    if ckpt is not None and rank0:
-        if ckpt.latest_step() != max_steps:
-            ckpt.save(max_steps, state, force=True)
-        ckpt.wait()
+    # every rank takes the same decision: from this run's saves, or, when
+    # it saved nothing (no rank has written since the run began), the disk
+    if ckpt is not None and last_saved != max_steps and (
+            last_saved is not None or ckpt.latest_step() != max_steps):
+        ckpt.save(max_steps, state, force=True)
     return state
 
 

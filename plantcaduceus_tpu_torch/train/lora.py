@@ -1,4 +1,4 @@
-"""LoRA and full fine-tuning on one device.
+"""LoRA and full fine-tuning, on one device or over the batch axes.
 
 Counterpart of ``plantcaduceus_tpu.train.lora``: the reference recipe's
 low-rank adapters (rank 8, alpha 32, dropout 0.1) over the Mamba-block
@@ -13,6 +13,16 @@ K5-res and K6 for Mamba-2).
 The optimizer is ``train.optimizer.AdamW``. Adapters, head and optimizer
 state are ``torch.save`` files (``adapter.pt``, ``train_state.pt``) beside
 the JAX package's ``adapter_config.json``.
+
+Over a mesh (JAX's ``make_mesh()``: every rank on ``data``) each rank takes
+its rows of the global batch (``data × fsdp``); each microbatch's mean loss
+is weighted by its rows' share of the GLOBAL rows (JAX's ``n_global``), and
+gradients and loss are summed over the batch axes once a step. The base
+weights and the trainable tensors are replicated. Dropout masks come from
+the same seed on every rank, drawn over the rank's own rows, as JAX draws
+with its one replicated key under ``shard_map``: a data-parallel step with
+dropout is not one process's step over all rows. Inference splits each
+batch's rows and gathers the logits back, so every rank gets them all.
 """
 
 from __future__ import annotations
@@ -28,7 +38,10 @@ import torch
 from plantcaduceus_tpu_torch.models import heads
 from plantcaduceus_tpu_torch.models.caduceus import Caduceus, fold_in
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+from plantcaduceus_tpu_torch.parallel import collectives
+from plantcaduceus_tpu_torch.parallel.mesh import Mesh, shard_batch
 from plantcaduceus_tpu_torch.train.optimizer import AdamW
+from plantcaduceus_tpu_torch.train.step import sync_grads
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 
 # The reference's target_modules = [x_proj, in_proj, out_proj] in the split
@@ -167,10 +180,37 @@ def _to_device(batch: Dict[str, np.ndarray], device, task_type: str):
     return out
 
 
+class _BatchAxes:
+    """A step's view of the mesh: this rank's rows of a global host batch,
+    and the sum over the batch axes (``data × fsdp``); the identity in one
+    process."""
+
+    def __init__(self, mesh: Optional[Mesh]):
+        multi = mesh is not None and mesh.world_size > 1
+        self.mesh = mesh if multi else None
+        self.axis = mesh.axis("data", "fsdp") if multi else None
+        self.size = self.axis.size if multi else 1
+
+    def rows(self, batch: dict) -> dict:
+        return shard_batch(batch, self.mesh) if self.mesh is not None else batch
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return collectives.psum(t, self.axis) if self.axis is not None else t
+
+    def sync(self, grads: Dict[str, torch.Tensor]) -> None:
+        if self.axis is not None:
+            sync_grads(list(grads.values()), self.axis)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return collectives.all_gather_tiled(t, self.axis) if self.axis is not None else t
+
+
 def _accumulated_step(loss_fn: Callable, tensors: Dict[str, torch.Tensor], batch: dict,
-                      grad_accum: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                      grad_accum: int, n_global: int) -> Tuple[torch.Tensor,
+                                                               Dict[str, torch.Tensor]]:
     """``grad_accum`` sequential microbatches, each mean weighted by its
-    share of the rows; one gradient sum. Returns (loss, grads)."""
+    share of the ``n_global`` rows of the step (over every rank); one
+    gradient sum. Returns (this rank's share of the loss, grads)."""
     rows = batch["labels"].shape[0]
     if rows % grad_accum:
         raise ValueError(f"per-shard batch rows {rows} must divide by grad_accum={grad_accum}")
@@ -180,7 +220,7 @@ def _accumulated_step(loss_fn: Callable, tensors: Dict[str, torch.Tensor], batch
     loss = torch.zeros((), device=batch["labels"].device)
     for i in range(grad_accum):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        obj = loss_fn(part, i) * mb / rows
+        obj = loss_fn(part, i) * mb / n_global
         obj.backward()
         loss += obj.detach()
     # a weight off the head's path (an untied lm_head) gets zeros, as jax.grad gives
@@ -199,7 +239,7 @@ def _check_accum(grad_accum: int) -> None:
 def make_lora_train_step(cfg: CaduceusConfig, cfg_l: LoraConfig, optimizer: AdamW,
                          model: Caduceus, task_type: str = "classification",
                          dtype=torch.bfloat16, remat: bool = True, grad_accum: int = 1,
-                         device="cuda"):
+                         device="cuda", mesh: Optional[Mesh] = None):
     """Build ``(train_step, infer_fn)``. The base model moves to ``device``
     (the card unless the CPU is asked for) and stays frozen; only adapters
     and head train.
@@ -209,13 +249,16 @@ def make_lora_train_step(cfg: CaduceusConfig, cfg_l: LoraConfig, optimizer: Adam
     with one optimizer update (raises when the rows do not divide); each
     microbatch's dropout seed is ``fold_in(seed, i)``. ``infer_fn(state,
     base, batch)`` runs the merged weights under ``no_grad``: float32 logits
-    [rows, num_labels]."""
+    [rows, num_labels]. Over a ``mesh`` every rank passes the global batch
+    and the same seed (module docstring)."""
     _check_accum(grad_accum)
     device = resolve_device(device)
     model.to(device).requires_grad_(False)
+    ax = _BatchAxes(mesh)
 
     def train_step(state: LoraTrainState, base, batch, seed: Optional[int] = None):
-        batch = _to_device(batch, device, task_type)
+        n_global = len(batch["labels"])
+        batch = _to_device(ax.rows(batch), device, task_type)
         tensors = trainable(state)
 
         def loss_fn(mb, i):
@@ -225,16 +268,17 @@ def make_lora_train_step(cfg: CaduceusConfig, cfg_l: LoraConfig, optimizer: Adam
                                            remat=remat, lora=ctx)
             return heads.task_loss(logits, mb["labels"], task_type)
 
-        loss, grads = _accumulated_step(loss_fn, tensors, batch, grad_accum)
+        loss, grads = _accumulated_step(loss_fn, tensors, batch, grad_accum, n_global)
+        ax.sync(grads)
         optimizer.update(grads, state.opt_state, tensors)
         state.step += 1
-        return state, {"loss": loss}
+        return state, {"loss": ax.psum(loss)}
 
     @torch.no_grad()
     def infer_fn(state: LoraTrainState, base, batch) -> torch.Tensor:
         eff = apply_lora(base, state.adapters, cfg_l)
-        ids = _to_device(batch, device, task_type)["input_ids"]
-        return heads.sequence_logits(eff, state.head, ids, cfg, dtype=dtype)
+        ids = _to_device(ax.rows(batch), device, task_type)["input_ids"]
+        return ax.gather_rows(heads.sequence_logits(eff, state.head, ids, cfg, dtype=dtype))
 
     return train_step, infer_fn
 
@@ -264,7 +308,8 @@ def init_lora_state(seed: int, model, cfg: CaduceusConfig, cfg_l: LoraConfig,
 
 def make_full_finetune_step(cfg: CaduceusConfig, optimizer: AdamW, model: Caduceus,
                             task_type: str = "classification", dtype=torch.bfloat16,
-                            remat: bool = True, grad_accum: int = 1, device="cuda"):
+                            remat: bool = True, grad_accum: int = 1, device="cuda",
+                            mesh: Optional[Mesh] = None):
     """Full fine-tuning (the reference's FineTuningStrategy.FULL): every
     backbone weight trains with the head. The model moves to ``device`` and
     trains in place: the state's ``adapters`` are its named parameters
@@ -273,9 +318,11 @@ def make_full_finetune_step(cfg: CaduceusConfig, optimizer: AdamW, model: Caduce
     _check_accum(grad_accum)
     device = resolve_device(device)
     model.to(device).requires_grad_(True)
+    ax = _BatchAxes(mesh)
 
     def train_step(state: LoraTrainState, base_unused=None, batch=None, seed_unused=None):
-        batch = _to_device(batch, device, task_type)
+        n_global = len(batch["labels"])
+        batch = _to_device(ax.rows(batch), device, task_type)
         tensors = trainable(state, full=True)
 
         def loss_fn(mb, i):
@@ -283,15 +330,16 @@ def make_full_finetune_step(cfg: CaduceusConfig, optimizer: AdamW, model: Caduce
                                            remat=remat)
             return heads.task_loss(logits, mb["labels"], task_type)
 
-        loss, grads = _accumulated_step(loss_fn, tensors, batch, grad_accum)
+        loss, grads = _accumulated_step(loss_fn, tensors, batch, grad_accum, n_global)
+        ax.sync(grads)
         optimizer.update(grads, state.opt_state, tensors)
         state.step += 1
-        return state, {"loss": loss}
+        return state, {"loss": ax.psum(loss)}
 
     @torch.no_grad()
     def infer_fn(state: LoraTrainState, base_unused, batch) -> torch.Tensor:
-        ids = _to_device(batch, device, task_type)["input_ids"]
-        return heads.sequence_logits(model, state.head, ids, cfg, dtype=dtype)
+        ids = _to_device(ax.rows(batch), device, task_type)["input_ids"]
+        return ax.gather_rows(heads.sequence_logits(model, state.head, ids, cfg, dtype=dtype))
 
     return train_step, infer_fn
 

@@ -124,12 +124,16 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
-               params: Dict[str, torch.Tensor]) -> torch.Tensor:
+               params: Dict[str, torch.Tensor],
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one update to ``params`` in place and advance ``state``.
-        Returns the global gradient norm before clipping."""
+        Returns the global gradient norm before clipping: that of ``grads``,
+        or ``g_norm`` where the caller holds only part of the gradient (an
+        fsdp rank's blocks; ``train.step.FsdpParams.global_norm``)."""
         names = list(params)
         g = [grads[n].float() for n in names]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        if g_norm is None:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         if self.grad_clip:
             # optax's select(g_norm < clip, t, t / g_norm * clip) on the device,
             # with no host sync: dividing and multiplying by 1 leaves t exact.

@@ -1,10 +1,10 @@
-"""Masked-LM training step, on one device or over a data × seq mesh.
+"""Masked-LM training step, on one device or over a data × fsdp × seq mesh.
 
 Counterpart of ``plantcaduceus_tpu.train.step``: the gradient of the
 globally normalised weighted MLM loss through the model's forward (Mamba-1:
 K2's residual variant and K3 under autograd; Mamba-2: K5's residual variant
 and K6; remat per block), gradient accumulation over microbatches, and the
-optimizer update. The fsdp, tensor and pipeline layouts are not ported yet
+optimizer update. The tensor and pipeline layouts are not ported yet
 (``parallel.mesh.NOT_PORTED``).
 
 The loss normaliser (the weight sum) is computed over ALL microbatches
@@ -13,13 +13,17 @@ Metrics: ``loss``, ``accuracy`` (masked tokens), ``grad_norm`` (global,
 before clipping).
 
 Over a mesh (``parallel.mesh``) every rank holds the same global batch and
-takes its part (``shard_batch``: rows over ``data``, L over ``seq``, the
-sequence-sharded forward of ``models.caduceus`` with ``sp``). Each rank's
-objective is its weighted NLL sum over the GLOBAL weight sum W, which is
-summed over ``data × seq`` outside the differentiated graph; the replicated
-weights' gradients are summed over ``data × seq`` once per optimizer step,
-after the last microbatch; loss and accuracy sum over the same ranks. Every
-rank applies the same update to the same weights (one seed, one init).
+takes its part (``shard_batch``: rows over ``data × fsdp``, L over
+``seq``, the sequence-sharded forward of ``models.caduceus`` with ``sp``).
+Each rank's objective is its weighted NLL sum over the GLOBAL weight sum W,
+which is summed over ``data × fsdp × seq`` outside the differentiated
+graph; loss and accuracy sum over the same ranks. Gradients are synced once
+per optimizer step, after the last microbatch (JAX ``_sync_grads``):
+replicated leaves summed over ``data × fsdp × seq``; with ``fsdp`` above 1
+(:class:`FsdpParams`) the sharded leaves summed over ``data × seq`` and then
+reduce-scattered over ``fsdp`` onto each rank's block, where the optimizer
+updates them (its moments are blocks too). Every rank applies the same
+update to the same weights (one seed, one init).
 """
 
 from __future__ import annotations
@@ -34,16 +38,144 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from plantcaduceus_tpu_torch.models import caduceus
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.parallel import collectives
-from plantcaduceus_tpu_torch.parallel.mesh import Mesh, shard_batch
+from plantcaduceus_tpu_torch.parallel.mesh import Mesh, fsdp_dims, shard_batch
 from plantcaduceus_tpu_torch.train.optimizer import AdamW
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 
 
+class FsdpParams:
+    """A model's master weights sharded over the mesh's ``fsdp`` axis (ZeRO;
+    JAX ``make_train_step(fsdp=True)``). Each rank keeps, in float32, its
+    block of every leaf that ``param_specs(replicated=False)`` shards
+    (``shards``, what the optimizer updates); a leaf that the rule leaves
+    replicated stays the module's own parameter. The module's sharded
+    parameters hold the full weights only from :meth:`gather` (once per
+    optimizer step, before its microbatches, as ``_gather_fsdp``) to
+    :meth:`release` (after the backward): between steps a rank holds its
+    blocks alone."""
+
+    def __init__(self, model: torch.nn.Module, mesh: Mesh):
+        self.axis = mesh.axis("fsdp")
+        self.params = dict(model.named_parameters())
+        self.shapes = {n: tuple(p.shape) for n, p in self.params.items()}
+        self.dims = fsdp_dims(self.shapes, self.axis.size)
+        self.sharded = [n for n, d in self.dims.items() if d is not None]
+        self.shards = {n: self.block(self.params[n].detach(), n).clone() for n in self.sharded}
+        self.release()
+
+    def block(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's block of the full tensor ``t`` of leaf ``name``."""
+        d = self.dims[name]
+        per = t.shape[d] // self.axis.size
+        return t.narrow(d, self.axis.index * per, per)
+
+    def masters(self) -> Dict[str, torch.Tensor]:
+        """The tensors the optimizer updates, in the model's order: each
+        sharded leaf's block, each replicated leaf's parameter."""
+        return {n: self.shards.get(n, p) for n, p in self.params.items()}
+
+    def full(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A dict shaped as :meth:`masters` (blocks of the sharded leaves)
+        with every block replaced by its full tensor: one tiled all_gather
+        of all the blocks, flattened."""
+        if not self.sharded:
+            return dict(tree)
+        F = self.axis.size
+        flat = torch.cat([tree[n].reshape(-1) for n in self.sharded])
+        gathered = collectives.all_gather_tiled(flat, self.axis).view(F, -1)
+        out, off = dict(tree), 0
+        for n in self.sharded:
+            blk = tree[n]
+            pieces = gathered[:, off:off + blk.numel()].reshape(F, *blk.shape)
+            out[n] = pieces.movedim(0, self.dims[n]).reshape(self.shapes[n]).contiguous()
+            off += blk.numel()
+        return out
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """The full weights into the module's parameters."""
+        for n, t in self.full(self.masters()).items():
+            self.params[n].data = t
+
+    def release(self) -> None:
+        """Free the module's copies of the sharded leaves."""
+        for n in self.sharded:
+            self.params[n].data = self.params[n].data.new_empty(0)
+
+    def scatter(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's block of the sum over ``fsdp`` of each sharded leaf's
+        full gradient: one tiled ``psum_scatter`` of all of them, each cut
+        into its blocks and flattened block by block."""
+        F = self.axis.size
+        parts = []
+        for n in self.sharded:
+            g, d = grads[n], self.dims[n]
+            shape = self.shapes[n]
+            parts.append(g.reshape(shape[:d] + (F, shape[d] // F) + shape[d + 1:])
+                         .movedim(d, 0).reshape(F, -1))
+        mine = collectives.psum_scatter(torch.cat(parts, dim=1).reshape(-1), self.axis)
+        out, off = {}, 0
+        for n in self.sharded:
+            blk = self.shards[n]
+            out[n] = mine[off:off + blk.numel()].view(blk.shape)
+            off += blk.numel()
+        return out
+
+    def sync(self, grads: Dict[str, torch.Tensor], batch_axis, rows_axis) -> Dict[str, torch.Tensor]:
+        """The synced gradients, shaped as :meth:`masters` (JAX
+        ``_sync_grads``): the sharded leaves summed over ``rows_axis``
+        (``data × seq``) and then reduce-scattered over ``fsdp``; the
+        replicated leaves summed over ``batch_axis`` (``data × fsdp ×
+        seq``)."""
+        rep = [g for n, g in grads.items() if n not in self.shards]
+        if rep:
+            sync_grads(rep, batch_axis)
+        sharded = [grads[n] for n in self.sharded]
+        if sharded:
+            sync_grads(sharded, rows_axis)
+        blocks = self.scatter(grads) if sharded else {}
+        return {n: blocks.get(n, g) for n, g in grads.items()}
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole gradient from the synced blocks: each
+        rank's squares of its blocks summed over ``fsdp``, each replicated
+        leaf counted once."""
+        sq = lambda ts: torch.stack(torch._foreach_norm(ts)).square().sum()
+        parts = [collectives.psum(sq([grads[n] for n in self.sharded]), self.axis)]
+        rep = [g for n, g in grads.items() if n not in self.shards]
+        if rep:
+            parts.append(sq(rep))
+        return sum(parts).sqrt()
+
+    def full_state(self, opt_state: dict) -> Tuple[Dict[str, torch.Tensor], dict]:
+        """(the full master weights by parameter name, the optimizer state
+        with full moments): what a one-process checkpoint holds. A
+        collective: every rank calls it."""
+        return self.full(self.masters()), {"count": opt_state["count"],
+                                           "mu": self.full(opt_state["mu"]),
+                                           "nu": self.full(opt_state["nu"])}
+
+    @torch.no_grad()
+    def load_state(self, weights: Dict[str, torch.Tensor], opt_state: dict) -> dict:
+        """Take this rank's blocks of full weights and moments (a
+        one-process checkpoint); returns the optimizer state of blocks."""
+        for n, p in self.params.items():
+            if n in self.shards:
+                self.shards[n] = self.block(weights[n], n).clone()
+            else:
+                p.copy_(weights[n])
+        blocks = lambda tree: {n: self.block(t, n).clone() if n in self.shards else t
+                               for n, t in tree.items()}
+        return {"count": opt_state["count"], "mu": blocks(opt_state["mu"]),
+                "nu": blocks(opt_state["nu"])}
+
+
 @dataclasses.dataclass
 class TrainState:
-    model: caduceus.Caduceus   # trained in place
+    model: caduceus.Caduceus   # trained in place (under fsdp: the gathered working copy)
     opt_state: dict
     step: int
+    fsdp: Optional[FsdpParams] = None   # the master weights' blocks, under fsdp
 
 
 def _loss_sums(logits, labels, loss_weights, ignore_index=-100):
@@ -85,15 +217,18 @@ def make_grad_fn(
     grad_accum: int = 1,
     device="cuda",
     mesh: Optional[Mesh] = None,
+    fsdp: Optional[FsdpParams] = None,
 ) -> Callable:
     """``grad_fn(batch) -> (loss, accuracy, grads)``: the gradient of the
     globally normalised loss with respect to ``model``'s parameters (a dict
-    by name; summed over ``data × seq`` over a mesh), the loss and the
-    masked-token accuracy (JAX ``make_grad_fn``). ``model`` moves to
-    ``device``; ``grad_accum=N`` runs the (per-rank) rows as N sequential
-    microbatches against the normaliser of them all. Batches are numpy dicts
+    by name, synced over the mesh), the loss and the masked-token accuracy
+    (JAX ``make_grad_fn``). ``model`` moves to ``device``;
+    ``grad_accum=N`` runs the (per-rank) rows as N sequential microbatches
+    against the normaliser of them all. Batches are numpy dicts
     (``PretrainDataset``) or tensors on the device; over a ``mesh`` they are
-    the global batch, which each rank slices."""
+    the global batch, which each rank slices. Under ``fsdp`` the weights are
+    gathered into ``model`` before the first microbatch and released after
+    the last, and the sharded leaves' gradients are this rank's blocks."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     device = resolve_device(device)
@@ -114,6 +249,8 @@ def make_grad_fn(
             w = w * batch["loss_weights"].float()
         with torch.no_grad():   # the global normaliser, outside the graph
             W = torch.clamp(psum(w.sum()), min=1e-8)
+        if fsdp is not None:
+            fsdp.gather()
         for p in params.values():
             p.grad = None
         loss = torch.zeros((), device=device)
@@ -131,7 +268,10 @@ def make_grad_fn(
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None
-        if multi:
+        if fsdp is not None:
+            fsdp.release()
+            grads = fsdp.sync(grads, loss_axis, mesh.axis("data", "seq"))
+        elif multi:
             sync_grads(list(grads.values()), loss_axis)
         acc = psum(correct).float() / torch.clamp(psum(valid.sum()), min=1)
         return psum(loss), acc, grads
@@ -140,12 +280,12 @@ def make_grad_fn(
 
 
 def _mesh_axes(mesh: Optional[Mesh]):
-    """(the seq axis, the ``data × seq`` axis the loss reduces over, the sum
-    over it); the axes None in a single process."""
+    """(the seq axis, the ``data × fsdp × seq`` axis the loss reduces over,
+    the sum over it); the axes None in a single process."""
     if mesh is None or mesh.world_size == 1:
         return None, None, lambda v: v
     sp = mesh.axis("seq") if mesh.shape["seq"] > 1 else None
-    loss_axis = mesh.axis("data", "seq")
+    loss_axis = mesh.axis("data", "fsdp", "seq")
     return sp, loss_axis, lambda v: collectives.psum(v, loss_axis)
 
 
@@ -154,6 +294,23 @@ def _place(batch, mesh, device):
     if mesh is not None and mesh.world_size > 1:
         batch = shard_batch(batch, mesh)
     return to_device(batch, device) if isinstance(batch["labels"], np.ndarray) else batch
+
+
+def make_fsdp(model: caduceus.Caduceus, mesh: Optional[Mesh], device) -> Optional[FsdpParams]:
+    """The model's weights sharded over ``mesh``'s fsdp axis (moved to
+    ``device`` first), or None when the mesh has none above 1."""
+    if mesh is None or mesh.shape["fsdp"] == 1:
+        return None
+    return FsdpParams(model.to(resolve_device(device)), mesh)
+
+
+def update(optimizer: AdamW, state: TrainState, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One optimizer update of the state's weights (under fsdp its blocks,
+    clipped by the whole gradient's norm); returns that norm."""
+    if state.fsdp is None:
+        return optimizer.update(grads, state.opt_state, dict(state.model.named_parameters()))
+    return optimizer.update(grads, state.opt_state, state.fsdp.masters(),
+                            g_norm=state.fsdp.global_norm(grads))
 
 
 def make_train_step(
@@ -168,28 +325,36 @@ def make_train_step(
 ) -> Tuple[Callable, Callable, Callable]:
     """Build ``(init_state, train_step, eval_step)``: :func:`make_grad_fn`'s
     gradient, then one optimizer update. ``model`` moves to ``device`` (the
-    card unless the CPU is asked for; raises when CUDA is absent)."""
-    grad_fn = make_grad_fn(cfg, model, dtype, remat, grad_accum, device, mesh)
+    card unless the CPU is asked for; raises when CUDA is absent). A mesh
+    with an fsdp axis above 1 shards the weights and the optimizer state
+    over it (:class:`FsdpParams`, from ``model``'s weights now)."""
+    fsdp = make_fsdp(model, mesh, device)
+    grad_fn = make_grad_fn(cfg, model, dtype, remat, grad_accum, device, mesh, fsdp)
     device = resolve_device(device)
-    params = dict(model.named_parameters())
     sp, _, psum = _mesh_axes(mesh)
 
     def init_state() -> TrainState:
         model.requires_grad_(True)
-        return TrainState(model, optimizer.init(params), 0)
+        masters = fsdp.masters() if fsdp is not None else dict(model.named_parameters())
+        return TrainState(model, optimizer.init(masters), 0, fsdp)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         loss, acc, grads = grad_fn(batch)
-        grad_norm = optimizer.update(grads, state.opt_state, params)
+        grad_norm = update(optimizer, state, grads)
         state.step += 1
         return state, {"loss": loss, "accuracy": acc, "grad_norm": grad_norm}
 
     @torch.inference_mode()
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        """Forward only, on the inference kernels."""
+        """Forward only, on the inference kernels (under fsdp on the
+        gathered weights, released after)."""
         batch = _place(batch, mesh, device)
+        if fsdp is not None:
+            fsdp.gather()
         logits = caduceus.forward(state.model, batch["input_ids"], dtype=dtype,
                                   sp=sp)["logits"]
+        if fsdp is not None:
+            fsdp.release()
         nll, w = _loss_sums(logits, batch["labels"], batch.get("loss_weights"))
         valid = batch["labels"] != -100
         correct = ((logits.argmax(-1) == batch["labels"]) & valid).sum()

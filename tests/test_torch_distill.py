@@ -7,7 +7,8 @@ against the JAX package, on the CPU.
   decay mask), against JAX ``make_distill_step`` on a one-device mesh:
   every metric, and every updated parameter within 1e-5 of its leaf's max
   |value|. ``alpha = 0`` gives the pre-training step's loss, as in JAX.
-* ``cli/distill``: the preset-teacher, student and ``--fsdp`` refusals; a
+* ``cli/distill``: the preset-teacher and student refusals, ``--fsdp 2`` in
+  one process refused (it needs 2 ranks); a
   tiny run resumed from its checkpoint to the same bits, whose ``final/``
   both packages' importers read.
 * ``train/convergence``: ``planted_corpus`` equals JAX's string for string;
@@ -173,8 +174,11 @@ def test_distill_cli_refuses_and_resumes(tmp_path):
     with pytest.raises(SystemExit, match="student"):
         cli.main(["--teacher", "l20", "--allow-random-teacher", "--dataset", "synthetic",
                   "--output-dir", str(tmp_path / "never")])
-    with pytest.raises(SystemExit):
-        cli.parse_args(["--teacher", "l20", "--fsdp", "2"] + base)
+    # --fsdp 2 is taken; one process does not divide over it
+    assert cli.parse_args(["--teacher", "l20", "--fsdp", "2"] + base).fsdp == 2
+    with pytest.raises(SystemExit, match="--fsdp 2: 1 rank"):
+        cli.main(["--teacher", "l20", "--allow-random-teacher", "--fsdp", "2",
+                  "--device", "cpu"] + base)
     assert not (tmp_path / "never").exists()
 
     tcfg, scfg, _, _, teacher, _ = _weights()

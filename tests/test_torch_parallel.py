@@ -21,13 +21,14 @@ their own (``tests/torch_parallel_refs.py``). The checks:
   against JAX's single-device forward and ``jax.grad``;
 * 2 train steps at data 2 × seq 1 (grad-accum 2) and at data 1 × seq 2
   against JAX ``make_train_step`` on one device;
-* scoring with the records striped over data 2 against one process.
+* scoring with each batch's rows split over data 2 (the runner's row split)
+  against one process, bit for bit.
 
 Without ranks: the plain K3's ``g0``/``emit_dh0`` against JAX's
-``_pallas_bwd_group`` in interpret mode, ``_unstripe`` and
-``MeshConfig.resolve`` against JAX's, the refusals (LoRA with ``sp``, the
-unported axes, several ranks of the single-device entry points, a host
-tensor under NCCL), and
+``_pallas_bwd_group`` in interpret mode, ``MeshConfig.resolve`` and the
+FSDP rule of ``param_specs`` against JAX's, the refusals (LoRA with ``sp``,
+the unported axes, several ranks of the entry points that JAX runs on one
+device, a host tensor under NCCL), and
 ``zero_shot_score -seq 2`` under ``torch.distributed.run`` against one
 process, byte for byte.
 
@@ -184,22 +185,6 @@ def _result(ranks, name):
 # -- without ranks ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("total,n", [(12, 3), (13, 3), (14, 3), (7, 4), (2, 4), (1, 8)])
-def test_unstripe_matches_jax(total, n):
-    """``tests/test_multihost.py``'s cases, the pad rows NaN."""
-    from plantcaduceus_tpu.engine.zero_shot import _unstripe as jax_unstripe
-    from plantcaduceus_tpu_torch.engine.zero_shot import _unstripe
-
-    glob = np.arange(total * 4, dtype=np.float32).reshape(total, 4)
-    counts = [len(range(h, total, n)) for h in range(n)]
-    gathered = np.full((n, -(-total // n), 4), np.nan, np.float32)
-    for h in range(n):
-        gathered[h, :counts[h]] = glob[h::n]
-    got = _unstripe(gathered, counts)
-    np.testing.assert_array_equal(got, jax_unstripe(gathered, counts))
-    np.testing.assert_array_equal(got, glob)
-
-
 @pytest.mark.parametrize("kw,n", [(dict(), 8), (dict(seq=2), 8), (dict(data=2, seq=4), 8),
                                   (dict(seq=3), 8), (dict(data=3, seq=2), 8),
                                   (dict(fsdp=2, tensor=2, pipe=2), 4)])
@@ -258,7 +243,8 @@ def test_nccl_collectives_refuse_host_tensors():
     with pytest.raises(ValueError, match="NCCL takes tensors on the rank's card, got one on cpu"):
         collectives._buffer(t, nccl)
     for op in (collectives.all_gather, collectives.psum,
-               lambda v, a: collectives.ppermute(v, a, [(0, 1)])):
+               lambda v, a: collectives.ppermute(v, a, [(0, 1)]),
+               collectives.psum_scatter, collectives.all_gather_tiled, collectives.broadcast):
         with pytest.raises(ValueError, match="NCCL takes tensors on the rank's card"):
             op(t, nccl)
     buf = collectives._buffer(t, Axis("data", 2, 0, (0, 1), None, staged=True))
@@ -268,33 +254,45 @@ def test_nccl_collectives_refuse_host_tensors():
 
 @pytest.mark.parametrize("kw", [dict(replicated=False), dict(pipeline=True)])
 def test_sharded_param_specs_refused(kw):
+    """The FSDP rule (``replicated=False``) against JAX's on leaves that
+    carry no tensor axis (JAX marks a leaf's d_inner axis "tensor" even at
+    tensor 1; the port applies the rule to its per-layer leaves, tensor
+    parallelism unported); the pipeline layout stays refused."""
+    from plantcaduceus_tpu.parallel.mesh import param_specs as jax_param_specs
     from plantcaduceus_tpu_torch.parallel.mesh import param_specs
 
     assert param_specs()("blocks/in_proj_x", (2, 1, 16, 32)) == ()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        param_specs(**kw)
+    if kw.get("pipeline"):
+        with pytest.raises(NotImplementedError, match="Queue 1 items 9d/9e"):
+            param_specs(**kw)
+        return
+    rule, jax_rule = param_specs(**kw), jax_param_specs(**kw)
+    for path, shape in (("embedding", (16, 384)), ("norm_f_weight", (384,)),
+                        ("lm_head", (16, 384)), ("blocks/norm_weight", (20, 384)),
+                        ("tie", (8, 8)), ("scalar", (1,)), ("blocks/x", (1, 6, 6))):
+        assert rule(path, shape) == tuple(jax_rule(path, shape)), path
 
 
-@pytest.mark.parametrize("flag", ["--fsdp", "--tensor", "--pipe", "--pipe-microbatches"])
+@pytest.mark.parametrize("flag", ["--tensor", "--pipe", "--pipe-microbatches"])
 def test_pretrain_refuses_unported_axes(flag, capsys):
     from plantcaduceus_tpu_torch.cli import pretrain
 
     with pytest.raises(SystemExit):
         pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x", flag, "2"])
-    assert "Queue 1 item 9b" in capsys.readouterr().err
+    assert "Queue 1 items 9d/9e" in capsys.readouterr().err
 
 
-SINGLE_DEVICE_CLIS = ("serve", "lora_fine_tune", "finetune_suite", "distill", "ar_lm",
-                      "train_xgboost", "predict_xgboost", "mutagenesis", "format_vcf")
+SINGLE_DEVICE_CLIS = ("ar_lm", "mutagenesis", "format_vcf")
 
 
 @pytest.mark.parametrize("cli", SINGLE_DEVICE_CLIS)
 def test_single_device_entry_points_refuse_several_ranks(cli, monkeypatch):
+    """The entry points whose JAX CLIs build no mesh."""
     import importlib
 
     monkeypatch.setenv("WORLD_SIZE", "2")
     mod = importlib.import_module(f"plantcaduceus_tpu_torch.cli.{cli}")
-    with pytest.raises(SystemExit, match="Queue 1 item 9b"):
+    with pytest.raises(SystemExit, match="runs on one device, as the JAX package's CLI does"):
         mod.main(["--help"])
 
 
@@ -521,8 +519,9 @@ def test_seq_with_tensor_refused_with_jax_message(ranks4):
 
 
 def test_striped_scores_match_one_process(ranks2):
-    """5 records striped over data 2 (3 and 2 a rank), gathered and
-    unstriped, against the same runner in one process."""
+    """5 records over data 2 through the runner's row split (each padded
+    batch of 2 rows split 1 and 1, the rows gathered back), against one
+    process at the rows of a rank's forward (batch 1), bit for bit."""
     from plantcaduceus_tpu_torch.engine import zero_shot
     from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
     from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
@@ -531,11 +530,11 @@ def test_striped_scores_match_one_process(ranks2):
 
     cfg = CaduceusConfig(**TINY)
     runner = InferenceRunner(Caduceus(cfg, init_params(cfg, seed=5)), cfg,
-                             dtype=torch.float32, batch_size=2, device="cpu")
+                             dtype=torch.float32, batch_size=1, device="cpu")
     want = zero_shot.nucleotide_probs(runner, DnaTokenizer(),
                                       [str(s) for s in ranks2[1]["windows"]], 32,
                                       progress=False)
-    np.testing.assert_allclose(_result(ranks2, "striped")["probs"], want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(_result(ranks2, "row_split")["probs"], want)
 
 
 # -- JAX's Pallas references, last: their process runs meanwhile -------------------

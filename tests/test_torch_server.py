@@ -8,7 +8,7 @@ forwards, and malformed input fails its own request with 400 while the
 worker thread lives on. Then the same requests go to a JAX server and a
 port server over one checkpoint (written by the port's ``export_hf_dir``):
 replies agree within 1e-5 (float32 forwards that agree to ~1e-6). And
-``cli.serve`` refuses ``-seq 2`` (context parallelism needs several GPUs).
+``cli.serve`` refuses ``-seq 2`` in one process (it needs 2 ranks).
 """
 
 import json
@@ -237,9 +237,10 @@ def test_replies_match_jax_server(tmp_path, rng):
                                            rtol=1e-5, atol=1e-5, err_msg=k)
 
 
-def test_serve_cli_refuses_seq(capsys):
+def test_serve_cli_refuses_seq():
+    """``-seq 2`` needs 2 ranks (``tests/test_torch_parallel_entry.py``
+    serves over them); one process is refused before the model loads."""
     from plantcaduceus_tpu_torch.cli.serve import main
 
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="-seq 2: 1 rank"):
         main(["-model", "l20", "-seq", "2", "-device", "cpu"])
-    assert "-seq > 1" in capsys.readouterr().err

@@ -343,12 +343,15 @@ def test_cuda_absent_raises_in_trainer_and_cli(monkeypatch, tmp_path):
         pretrain.main(["--dataset", "synthetic", "--preset", "l20",
                        "--output-dir", str(tmp_path / "never")])
     assert not (tmp_path / "never").exists()
-    for extra in (["--fsdp", "2"], ["--tensor", "2"], ["--pipe", "2"]):
+    for extra in (["--tensor", "2"], ["--pipe", "2"]):
         with pytest.raises(SystemExit):
             pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x"] + extra)
-    # --seq is taken (context parallelism over torch.distributed ranks)
+    # --seq and --fsdp are taken (context parallelism and FSDP over
+    # torch.distributed ranks)
     assert pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x",
                                 "--seq", "2"]).seq == 2
+    assert pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x",
+                                "--fsdp", "2"]).fsdp == 2
     # --profile-dir and --eval-shards are taken, as in JAX
     args = pretrain.parse_args(["--dataset", "shards:d", "--output-dir", "x", "--eval-shards",
                                 "1", "--profile-dir", str(tmp_path)])

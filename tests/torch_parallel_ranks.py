@@ -271,9 +271,9 @@ def train_steps(rank, world, workdir, config, grad_accum):
     return out
 
 
-def striped_scores(rank, world, workdir):
-    """``nucleotide_probs`` with the records striped over a ``world``-way
-    data axis."""
+def row_split_scores(rank, world, workdir):
+    """``nucleotide_probs`` with each batch's rows split over a
+    ``world``-way data axis."""
     import torch
 
     from plantcaduceus_tpu_torch.engine import zero_shot
@@ -289,7 +289,7 @@ def striped_scores(rank, world, workdir):
                              mesh=make_mesh(MeshConfig(data=world)))
     seqs = [str(s) for s in _inputs(workdir)["windows"]]
     probs = zero_shot.nucleotide_probs(runner, DnaTokenizer(), seqs, 32, progress=False)
-    _save(rank, workdir, "striped", {"probs": probs})
+    _save(rank, workdir, "row_split", {"probs": probs})
 
 
 def halo_conv(rank, world, workdir):
@@ -338,7 +338,7 @@ def world2(rank, world, workdir):
     halo_conv(rank, world, workdir)
     scans(rank, world, workdir)
     models_seq(rank, world, workdir)
-    striped_scores(rank, world, workdir)
+    row_split_scores(rank, world, workdir)
     for name, config in (("train_data2", MeshConfig(data=2)), ("train_seq2", MeshConfig(seq=2))):
         _save(rank, workdir, name, train_steps(rank, world, workdir, config, grad_accum=2))
 
