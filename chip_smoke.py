@@ -30,9 +30,9 @@ and training of the ALiBi attention baseline:
    tied+add config (K2-res, K3), an untied one (K1-hb, K3 fused dt) and a
    unidirectional one (K1-hb, K3 full-width dt);
 9. the pre-training CLI: l20 at full width and depth, batch 32 x 512 bp,
-   bf16, remat, 30 steps (in-process, counted and timed); a second run
-   through ``python -m`` resumes from the step-15 checkpoint and must reach
-   the same step-30 weights bit for bit; the exported ``final/`` scores
+   bf16, remat, 16 steps (in-process, counted and timed); a second run
+   through ``python -m`` resumes from the step-8 checkpoint and must reach
+   the same step-16 weights bit for bit; the exported ``final/`` scores
    phase 6's TSV through ``python -m ...zero_shot_score``;
 10. device time by kernel over one l20 training step (torch.profiler);
 
@@ -60,8 +60,8 @@ and the Mamba-2 pre-training path with l20-ssd:
 8b. one fp32 training step's gradients at l20-ssd width, 2 layers, kernels
     (K5-res, K6 pre_silu) against the plain path; ``SsdDirFn``'s gradients
     (K4-fentry, K6 plain mode) against autograd through K4's plain version;
-9b. phase 9 with ``--preset l20-ssd``: 30 steps, launch counts, the exact
-    resume from step 15, the export scored;
+9b. phase 9 with ``--preset l20-ssd``: 16 steps, launch counts, the exact
+    resume from step 8, the export scored;
 10b. device time by kernel over one l20-ssd training step;
 
 and the attention baseline, BERT at MosaicBERT-Base width and depth
@@ -105,7 +105,7 @@ PlantCAD2 zero-shot evaluation (``cli/zero_shot_eval.py``):
     chunk = 128, 6 heads): K4 in the forward, K4-fentry and K6 in plain
     mode under grad;
 12. the four ``zero_shot_eval`` subcommands with pc2-small (24 layers,
-    d_model 768, random seeded weights) on seeded 8192-bp TSVs of 32 rows,
+    d_model 768, random seeded weights) on seeded 8192-bp TSVs of 16 rows,
     batch 16 (in-process, counted and timed), the ``--save-logits`` /
     ``--logits-path`` round trip and a second core_noncore run through
     ``python -m`` (the same metrics exactly), the steady rate, a profiled
@@ -145,8 +145,8 @@ and LoRA and full fine-tuning (``train/lora.py``, ``cli/lora_fine_tune.py``):
     pre_silu), 2 layers, batch 4 x 512 bp; then ``lora_fine_tune`` with l20
     at full width and depth (a seeded random base written as an HF dir):
     ``tokenize`` to ``.npz``, ``train`` (batch 8 x grad-accum 4, bf16,
-    dropout 0.1, remat, 10 steps, checkpoints at 5 and 10; in-process,
-    counted and timed), ``python -m ... train --resume-from checkpoint-5``
+    dropout 0.1, remat, 6 steps, checkpoints at 3 and 6; in-process,
+    counted and timed), ``python -m ... train --resume-from checkpoint-3``
     equal bit for bit, ``evaluate``, ``predict``, ``display`` (merged
     weights: K2), and the PEFT export (the full set refused as JAX refuses
     it; out_proj + head exported, re-imported, predicted byte-equal);
@@ -188,7 +188,8 @@ and last context and data parallelism (17; ``phase_parallel``): K3 with
 over two halves against one call, K1-hb's first entry state equal to its
 h0; then ranks of ``torch.distributed.run`` (``chip_smoke.py
 --phase17-rank``) sharing ``cuda:0`` over gloo: pc2-small and
-pc2-small-ssd at 8192 bp scored at seq 4 (fp32 and bf16 logits) and
+pc2-small-ssd at 6 of their 24 layers (full widths) and 8192 bp scored at
+seq 4 (fp32 and bf16 logits) and
 trained 3 steps at data 2 x seq 2 (fp32 and bf16; the first step's
 gradients, the weights after), l20 scored with each batch's rows split
 over data 2 (against one process at the rows of a rank's forward) and
@@ -220,11 +221,31 @@ every rank:
     a free port: /score and /embed within 1e-5 of the in-process one-rank
     service; SIGTERM to the leader, and every rank exits 0.
 
-Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13, 14, 15, 16, 17
-and 18 go to ``build/chip_smoke/`` in the checkout.
+Then tensor and pipeline parallelism for pre-training (19;
+``phase_tensor_pipe``), l20 and l20-ssd at full width and depth, batch 8 x
+512 bp, on 2 ranks of ``torch.distributed.run`` (``chip_smoke.py
+--phase19-rank``) sharing ``cuda:0`` over gloo, each against one process
+on the card with the same weights and batches: K1-hb, K3, K4-fentry and K6
+(plain mode) against their plain versions at a tensor rank's shapes (d_inner
+384; 3 heads of 128); 19a ``tensor`` 2 for l20 (K1-hb, K3 on the decomposed
+mixer) and l20-ssd (K4-fentry, K6 plain), 19b ``pipe`` 2 with 4
+microbatches for l20 (K2-res, K3 on a stage's 10 layers): 3 fp32 steps,
+each step's gradients within 1e-5 of each leaf's max, grad_norm within
+1e-5 relative, the weights after within 1e-3, the step-2 checkpoint
+resumed in one process within 1e-4 after step 3; 2 bf16 steps, the second
+timed; exact launches on every rank.
 
-Every failure exits non-zero; no phase's failure is caught. Without CUDA it
-exits 1 and prints no result. The last two lines of standard output are the
+Inputs and outputs of phases 6, 9, 9b, 11, 11b, 12, 13, 14, 15, 16, 17,
+18 and 19 go to ``build/chip_smoke/`` in the checkout.
+
+Every phase logs its seconds (``phase N ok in X s``). The script keeps its
+own clock: a deadline ``DEADLINE_S`` (1100 s) after it starts, checked
+before every phase; each multi-rank job waits at most the smaller of its
+cap and the time left, and its ranks' process groups time out after
+``RANK_TIMEOUT_S`` (90 s), so a rank stuck in a collective raises inside
+its job and the script fails with the phase named. Every failure exits
+non-zero; no phase's failure is caught. Without CUDA it exits 1 and prints
+no result. The last two lines of standard output are the
 ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
 """
 
@@ -269,6 +290,36 @@ TRAIN_ROWS = 64  # l20 training batch: 32 windows plus their RC stream
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# The script's own clock: a deadline DEADLINE_S after main() starts, checked
+# before every phase; the multi-rank jobs' waits are clipped to it, and their
+# process groups time out after RANK_TIMEOUT_S, so a stuck collective fails
+# the script with its phase named before an outer time limit stops it.
+DEADLINE_S = 1100.0
+RANK_TIMEOUT_S = 90.0
+_clock = {"deadline": None}
+
+
+def time_left() -> float:
+    """Seconds before the script's deadline (inf before main() sets it)."""
+    at = _clock["deadline"]
+    return math.inf if at is None else at - time.perf_counter()
+
+
+def check_clock(phase: str) -> None:
+    if time_left() <= 0:
+        fail(f"the script's deadline of {DEADLINE_S:.0f} s passed before phase {phase}")
+
+
+def run_phase(phase: str, fn, *args, **kw):
+    """``fn(*args, **kw)`` as phase ``phase``: the clock checked before it,
+    its seconds logged after it."""
+    check_clock(phase)
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase {phase} ok in {time.perf_counter() - t:.1f} s")
+    return out
 
 
 def log(msg: str) -> None:
@@ -1048,13 +1099,40 @@ def write_inputs(tmp: Path):
     return tsv, fa, vcf, n_snv
 
 
+def start_module(module, args):
+    """``python -m plantcaduceus_tpu_torch.<module> args`` from the checkout,
+    started now (its output in a file beside the phases' inputs), to be
+    finished by :func:`finish_module`: checks that share nothing run side by
+    side, so their processes' starts overlap."""
+    out = REPO / "build" / "chip_smoke" / f"python_m_{module}_{time.monotonic_ns()}.log"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fh = open(out, "w+")
+    proc = subprocess.Popen([sys.executable, "-m", f"plantcaduceus_tpu_torch.{module}", *args],
+                            cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                            stdout=fh, stderr=subprocess.STDOUT, text=True)
+    return proc, fh, module, args
+
+
+def finish_module(job, timeout=600):
+    """Wait for a :func:`start_module` run; fail if it did not exit 0 within
+    ``timeout`` (it is stopped)."""
+    proc, fh, module, args = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = f"a timeout after {timeout} s"
+    fh.seek(0)
+    out = fh.read()
+    fh.close()
+    if rc != 0:
+        fail(f"python -m {module} {args} exited {rc}:\n{out[-4000:]}")
+
+
 def run_module(module, args, timeout=600):
     """``python -m plantcaduceus_tpu_torch.<module> args`` from the checkout."""
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-m", f"plantcaduceus_tpu_torch.{module}", *args],
-                         cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
-    if res.returncode != 0:
-        fail(f"python -m {module} {args} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    finish_module(start_module(module, args), timeout)
 
 
 def phase_cli(cfg, dev):
@@ -1109,17 +1187,18 @@ def phase_cli(cfg, dev):
         f"{len(ids)} windows, model resident)")
     del runner, model
 
-    bed = tmp / "scores.bed"
-    run_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model", "l20", "-output",
-                                       str(bed), "-outBED", "-no-progress"])
+    bed, out_vcf = tmp / "scores.bed", tmp / "out.vcf"
+    bed_job = start_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model", "l20",
+                                                   "-output", str(bed), "-outBED", "-no-progress"])
+    vcf_job = start_module("cli.zero_shot_score", ["-input-vcf", str(vcf), "-input-fasta",
+                                                   str(fa), "-model", "l20", "-output",
+                                                   str(out_vcf), "-no-progress"])
+    finish_module(bed_job)
+    finish_module(vcf_job)
     bed_rows = [ln.split("\t") for ln in bed.read_text().splitlines()]
     if len(bed_rows) != n_valid or any(int(r[2]) - int(r[1]) != 1 for r in bed_rows):
         fail("BED output: wrong rows or intervals")
     log(f"  python -m ... -outBED: {len(bed_rows)} BED rows")
-
-    out_vcf = tmp / "out.vcf"
-    run_module("cli.zero_shot_score", ["-input-vcf", str(vcf), "-input-fasta", str(fa),
-                                       "-model", "l20", "-output", str(out_vcf), "-no-progress"])
     recs = [ln.split("\t") for ln in out_vcf.read_text().splitlines()
             if not ln.startswith("#")]
     vals = [v for r in recs for v in r[7].split("plantCAD_zero_shot=")[1].split(",")]
@@ -1442,9 +1521,10 @@ def resume_equal(module, args, run_a, run_b, step, what):
     return len(a)
 
 
+TRAIN_STEPS, TRAIN_SAVE = 16, 8   # the run's steps and its checkpoint (the resume) at the midpoint
 TRAIN_ARGS = ["--dataset", "synthetic", "--batch-size", "32", "--window", "512",
-              "--dtype", "bfloat16", "--max-steps", "30", "--warmup-steps", "5", "--lr", "1e-3",
-              "--save-steps", "15", "--log-steps", "1"]
+              "--dtype", "bfloat16", "--max-steps", str(TRAIN_STEPS), "--warmup-steps", "5",
+              "--lr", "1e-3", "--save-steps", str(TRAIN_SAVE), "--log-steps", "1"]
 # Per preset: the phase, and the kernels a training run launches: the
 # inference variant (the final eval), the residual variant (forward and
 # remat recompute) and the adjoint.
@@ -1455,7 +1535,7 @@ TRAIN_KERNELS = {"l20": ("9", "mixer_fwd", "mixer_fwd_res", "scan_bwd"),
 def phase_pretrain(preset, dev, tsv, n_valid):
     """The pre-training CLI on the card (``preset`` at full width and depth,
     batch 32 x 512 bp, bf16, remat): loss, launches, throughput, memory; an
-    exact resume from step 15 through ``python -m``; scoring with the
+    exact resume from the midpoint through ``python -m``; scoring with the
     export."""
     import numpy as np
     import torch
@@ -1468,7 +1548,7 @@ def phase_pretrain(preset, dev, tsv, n_valid):
     phase, k_inf, k_res, k_bwd = TRAIN_KERNELS[preset]
     args = TRAIN_ARGS + ["--preset", preset]
     log(f"phase {phase}: pre-training CLI, {preset} ({cfg.n_layer} layers, d_model "
-        f"{cfg.d_model}), batch 32 x 512 bp, bf16, remat, 30 steps")
+        f"{cfg.d_model}), batch 32 x 512 bp, bf16, remat, {TRAIN_STEPS} steps")
     tmp = REPO / "build" / "chip_smoke"
     run_a, run_b = tmp / f"pretrain_{preset}", tmp / f"pretrain_{preset}_resumed"
     shutil.rmtree(run_a, ignore_errors=True)
@@ -1485,7 +1565,8 @@ def phase_pretrain(preset, dev, tsv, n_valid):
     losses = [s[1] for s in steps]
     log(f"  {len(steps)} steps in {wall:.1f} s (kernel build, model init, final eval and "
         f"export included); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    if [s[0] for s in steps] != list(range(1, 31)) or not all(map(math.isfinite, losses)):
+    if [s[0] for s in steps] != list(range(1, TRAIN_STEPS + 1)) or not all(
+            map(math.isfinite, losses)):
         fail(f"phase {phase}: bad step log {steps}")
     if not losses[-1] < losses[0]:
         fail(f"phase {phase}: loss did not fall ({losses[0]} -> {losses[-1]})")
@@ -1493,7 +1574,8 @@ def phase_pretrain(preset, dev, tsv, n_valid):
     # forward, and the recompute of every block in the backward under
     # remat), the adjoint once per direction and layer. The final eval runs
     # the inference variant.
-    want = only(**{k_inf: c[k_inf], k_res: 30 * 2 * 2 * nl, k_bwd: 30 * 2 * nl})
+    want = only(**{k_inf: c[k_inf], k_res: TRAIN_STEPS * 2 * 2 * nl,
+                    k_bwd: TRAIN_STEPS * 2 * nl})
     if c != want or not (c[k_inf] > 0 and c[k_inf] % (2 * nl) == 0):
         fail(f"phase {phase} launched {c}; expected {want} with {k_inf} a positive "
              f"multiple of {2 * nl}")
@@ -1501,23 +1583,27 @@ def phase_pretrain(preset, dev, tsv, n_valid):
         f"directions x {nl} layers x forward + remat recompute), {k_bwd} {2 * nl}; {k_inf} = "
         f"final eval, inference kernel")
     times = {s[0]: s[2] for s in steps}
-    # Steps 11..30, without step 16: its interval holds the step-15 checkpoint write.
-    deltas = [times[k] - times[k - 1] for k in range(11, 31) if k != 16]
+    # From step 4 on, without TRAIN_SAVE + 1: its interval holds the checkpoint write.
+    deltas = [times[k] - times[k - 1] for k in range(4, TRAIN_STEPS + 1) if k != TRAIN_SAVE + 1]
     step_s = sum(deltas) / len(deltas)
-    with_save = (times[30] - times[10]) / 20
+    with_save = (times[TRAIN_STEPS] - times[3]) / (TRAIN_STEPS - 3)
     tps = bs * L / step_s
-    log(f"  steady (steps 10-30 without the checkpoint step): {step_s * 1e3:.2f} ms per step, "
-        f"{tps:.1f} tokens/s ({bs / step_s:.2f} windows/s); with the checkpoint write: "
+    log(f"  steady (steps 3-{TRAIN_STEPS} without the checkpoint step): {step_s * 1e3:.2f} ms "
+        f"per step, {tps:.1f} tokens/s ({bs / step_s:.2f} windows/s); with the checkpoint write: "
         f"{with_save * 1e3:.2f} ms per step; peak memory allocated {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
 
-    n_t = resume_equal("cli.pretrain", args, run_a, run_b, 15, f"phase {phase}")
-    log(f"  python -m ... resumed at step 15: step-30 weights equal bit for bit "
-        f"({n_t} tensors)")
-
+    # the export scored through python -m beside the resumed run
     out = tmp / f"scores_trained_{preset}.tsv"
-    run_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model", str(run_a / "final"),
-                                       "-output", str(out), "-no-progress"])
+    score_job = start_module("cli.zero_shot_score", ["-input-table", str(tsv), "-model",
+                                                     str(run_a / "final"), "-output", str(out),
+                                                     "-no-progress"])
+    try:
+        n_t = resume_equal("cli.pretrain", args, run_a, run_b, TRAIN_SAVE, f"phase {phase}")
+    finally:   # on a failure too
+        finish_module(score_job)
+    log(f"  python -m ... resumed at step {TRAIN_SAVE}: step-{TRAIN_STEPS} weights equal bit for "
+        f"bit ({n_t} tensors)")
     scores = np.array([float(r["zeroShotScore"]) for r in zero_shot.read_table(out).rows])
     if len(scores) != n_valid or not np.isfinite(scores).all():
         fail("scoring with the trained export: wrong row count or non-finite scores")
@@ -1995,7 +2081,7 @@ def phase_bert_profile(dev):
 # d_model 384, 20 layers, batch 32 x 512 tokens, byte-level (vocab 256).
 AR_WIDTHS = dict(d_model=384, n_layer=20, vocab_size=256)
 AR_BATCH, AR_L, AR_STEPS = 32, 512, 30
-AR_PROMPT, AR_NEW = 32, 256  # decode: prompt and new tokens at batch 1
+AR_PROMPT, AR_NEW = 32, 96  # decode: prompt and new tokens at batch 1 (the rate's sample)
 # Per variant: the phase, its config, the CLI's flags, and the kernels its
 # forward (no grad) and its training step launch, once per layer each.
 AR_VARIANTS = {
@@ -2235,13 +2321,13 @@ def ar_step_profile(cfg, dev, ids):
 # PlantCAD2 zero-shot evaluation (cli/zero_shot_eval.py) with pc2-small
 # (d_model 768, 24 layers, d_inner 1536, N 16, R 48; random seeded weights)
 # at 8192 bp on seeded synthetic TSVs.
-EVAL_L, EVAL_ROWS, EVAL_BATCH = 8192, 32, 16
+EVAL_L, EVAL_ROWS, EVAL_BATCH = 8192, 16, 16
 EVAL_CENTER = EVAL_L // 2 - 1
 EVAL_MOTIF = f"{EVAL_CENTER - 1},{EVAL_CENTER},{EVAL_CENTER + 1}"
 
 
 def write_eval_inputs(tmp: Path):
-    """The four subcommands' TSVs: 32 rows of 8192 bp each, labels 0/1
+    """The four subcommands' TSVs: 16 rows of 8192 bp each, labels 0/1
     alternating; one motif row with an N inside the motif."""
     import numpy as np
 
@@ -2329,18 +2415,20 @@ def phase_eval(dev):
     peak = torch.cuda.max_memory_allocated(dev)
 
     replay = tmp / "eval_evo_cons_replay.json"
-    run_module("cli.zero_shot_eval", ["evo_cons", "--repo-id", str(paths["evo"]), "--token-idx",
-                                      str(EVAL_CENTER), "--logits-path",
-                                      str(tmp / "eval_logits.tsv"), "--metrics-json", str(replay),
-                                      "--no-progress"], timeout=900)
-    if json.loads(replay.read_text()) != metrics["evo_cons"]:
-        fail("phase 12: --logits-path replay gave other metrics than the run that saved them")
     again = tmp / "eval_core_noncore_again.json"
     table, flags, _ = EVAL_CMDS["core_noncore"]
-    run_module("cli.zero_shot_eval", ["core_noncore", "--repo-id", str(paths[table]), "--model",
-                                      "pc2-small", "--batch-size", str(EVAL_BATCH),
-                                      "--metrics-json", str(again), *flags, "--no-progress"],
-               timeout=900)
+    jobs = [start_module("cli.zero_shot_eval", ["evo_cons", "--repo-id", str(paths["evo"]),
+                                                "--token-idx", str(EVAL_CENTER), "--logits-path",
+                                                str(tmp / "eval_logits.tsv"), "--metrics-json",
+                                                str(replay), "--no-progress"]),
+            start_module("cli.zero_shot_eval", ["core_noncore", "--repo-id", str(paths[table]),
+                                                "--model", "pc2-small", "--batch-size",
+                                                str(EVAL_BATCH), "--metrics-json", str(again),
+                                                *flags, "--no-progress"])]
+    for job in jobs:
+        finish_module(job, timeout=900)
+    if json.loads(replay.read_text()) != metrics["evo_cons"]:
+        fail("phase 12: --logits-path replay gave other metrics than the run that saved them")
     if json.loads(again.read_text()) != metrics["core_noncore"]:
         fail("phase 12: python -m ... core_noncore gave other metrics than in-process")
     log("  python -m ...: the evo_cons --logits-path replay and a second core_noncore run "
@@ -2902,7 +2990,7 @@ def phase_tools(cfg, dev, fa, vcf):
 # Phase 14: LoRA and full fine-tuning (train/lora.py, cli/lora_fine_tune.py)
 
 FT_ROWS = {"train": 256, "valid": 64}
-FT_STEPS, FT_SAVE, FT_BATCH, FT_ACCUM = 10, 5, 8, 4
+FT_STEPS, FT_SAVE, FT_BATCH, FT_ACCUM = 6, 3, 8, 4
 FT_EVAL_BATCH = 16
 FT_ARGS = ["--train-batch-size", str(FT_BATCH), "--grad-accum", str(FT_ACCUM),
            "--lora-dropout", "0.1", "--learning-rate", "1e-3", "--warmup-steps", "2",
@@ -3084,8 +3172,8 @@ def _adapter_tensors(path):
 def phase_finetune_cli(dev, tmp):
     """14a: the fine-tuning CLI with l20 at full width and depth (a seeded
     random base written as an HF dir): tokenize to .npz, train (batch 8 x
-    grad-accum 4, bf16, dropout 0.1, remat, 10 steps, checkpoints at 5 and
-    10), a ``python -m`` run resumed at step 5 equal bit for bit, evaluate,
+    grad-accum 4, bf16, dropout 0.1, remat, 6 steps, checkpoints at 3 and
+    6), a ``python -m`` run resumed at step 3 equal bit for bit, evaluate,
     predict, display; a PEFT export of what PEFT can express, re-imported
     and predicted alike. Returns (launches of the in-process runs, figures)."""
     import contextlib
@@ -3135,7 +3223,7 @@ def phase_finetune_cli(dev, tmp):
     if c_train != want:
         fail(f"phase 14a train launched {c_train}; expected {want}")
     times = {s[0]: s[2] for s in steps}
-    # steps 3..10 without step 6: its interval holds the step-5 eval and checkpoint
+    # steps 3..FT_STEPS without FT_SAVE + 1: its interval holds the eval and checkpoint
     deltas = [times[k] - times[k - 1] for k in range(3, FT_STEPS + 1) if k != FT_SAVE + 1]
     step_s = sum(deltas) / len(deltas)
     wps = FT_BATCH * FT_ACCUM / step_s
@@ -3416,7 +3504,7 @@ def phase_finetune(dev):
 # out of a bounded buffer and opens shards while it trains.
 STREAM_SHARDS, STREAM_SHARD_WINDOWS, STREAM_STEPS, STREAM_SAVE = 40, 256, 14, 7
 STREAM_BATCHES = 24  # batches drawn from the stream alone, to time its host cost
-DISTILL_STEPS, DISTILL_SAVE = 10, 5
+DISTILL_STEPS, DISTILL_SAVE = 6, 3
 CONVERGENCE_CFG = dict(d_model=64, n_layer=2, vocab_size=16, d_state=8)  # d_inner 128, R 4
 CONVERGENCE_RUNS = (("float32", 150, 1.0), ("float32", 150, 0.1), ("bfloat16", 200, 0.1))
 GPN_ROWS, GPN_L = 128, 512
@@ -3560,8 +3648,8 @@ def phase_distill(dev, tsv, n_valid):
     """15b: the fp32 distillation gradient (l20 teacher, l20-ssd student, 2
     layers, 4 rows x 512) with the kernels against the plain path, every
     leaf logged; then ``cli.distill`` l20 -> l20-ssd (exported random
-    teacher, batch 32 x 512, bf16, remat, 10 steps; in-process, counted and
-    timed), resumed at step 5 through ``python -m``, a profiled step, and
+    teacher, batch 32 x 512, bf16, remat, 6 steps; in-process, counted and
+    timed), resumed at step 3 through ``python -m``, a profiled step, and
     the student's final/ scored."""
     import numpy as np
     import torch
@@ -3649,7 +3737,8 @@ def phase_distill(dev, tsv, n_valid):
         fail(f"phase 15b: bad step log {steps}")
     step_ms = steady_ms(steps, 2, DISTILL_STEPS, skip=(DISTILL_SAVE + 1,))
     log(f"  {DISTILL_STEPS} steps in {wall:.1f} s (teacher load, student init, checkpoints, "
-        f"export included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; steps 3-10 without the "
+        f"export included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; steps 3-{DISTILL_STEPS} "
+        f"without the "
         f"checkpoint step: {step_ms:.2f} ms per step, {32e3 / step_ms:.2f} windows/s; peak "
         f"memory allocated {peak} bytes ({peak / 2**30:.2f} GiB); launches per step: K2 "
         f"{2 * nt} (teacher), K5-res {4 * ns}, K6 pre_silu {2 * ns} (student)")
@@ -4250,18 +4339,20 @@ def phase_formats(dev, tsv, n_valid):
 # sharing it, not a scaling result. First K3's g0 / emit_dh0 at the seq
 # path's local shape (pc2-small, 4 windows + their RC stream = 8 rows x 2048
 # x 1536, R 48) against the plain version, and chained over two halves
-# against one call; then pc2-small and pc2-small-ssd at 8192 bp (scoring at
-# seq 4; pre-training at data 2 x seq 2, global batch 4, remat: 3 fp32 steps,
-# every step's gradients and the weights after them gated, and 2 bf16 steps,
-# the first's gradients gated and the second timed) and l20 at 512 bp
-# (scoring with each batch's rows split over data 2, K2; data-parallel
-# training, K2-res and K3),
-# each against one process on the same card with the same weights and inputs.
+# against one call; then pc2-small and pc2-small-ssd at 6 of their 24
+# layers (full widths; the depth cut to fit the script's time) at 8192 bp
+# (scoring at seq 4; pre-training at data 2 x seq 2, global batch 4, remat:
+# 3 fp32 steps, every step's gradients and the weights after them gated, and
+# 2 bf16 steps, the first's gradients gated and the second timed) and l20 at
+# 512 bp (scoring with each batch's rows split over data 2, K2;
+# data-parallel training, K2-res and K3), each against one process on the
+# same card with the same weights and inputs.
 PAR_L, PAR_WINDOWS, PAR_STEPS, PAR_BF16_STEPS = 8192, 4, 3, 2
 PAR_MODELS = ("pc2-small", "pc2-small-ssd")
+PAR_LAYERS = 6   # of pc2-small's 24: full widths and L, the depth cut to fit the time limit
 DP_L, DP_WINDOWS, DP_BATCH, DP_ROWS = 512, 64, 16, 8
 PAR_SEED = 17
-PAR_TIMEOUT_S = 420
+PAR_TIMEOUT_S = 150   # the 2- and 4-rank jobs' cap, clipped to the deadline
 
 
 def par_inputs(workdir: Path) -> dict:
@@ -4298,10 +4389,13 @@ def batch_of(inp, prefix):
 
 
 def par_model(preset, dev):
+    """``preset`` from the phase's seed, on ``dev``: the pc2 models at
+    ``PAR_LAYERS`` layers, the others at full depth."""
     from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
     from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
-    cfg = CaduceusConfig.preset(preset)
+    cfg = CaduceusConfig.preset(preset, **({"n_layer": PAR_LAYERS} if preset in PAR_MODELS
+                                           else {}))
     return cfg, Caduceus(cfg, init_params(cfg, seed=PAR_SEED)).to(dev)
 
 
@@ -4469,8 +4563,14 @@ def phase17_rank(job: str, workdir: Path) -> None:
         fail("phase 17 rank: no GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = meshlib.initialize_distributed("cuda", timeout_s=PAR_TIMEOUT_S)
+    rank_log("imported")
+    dev = meshlib.initialize_distributed("cuda", timeout_s=RANK_TIMEOUT_S)
     rank = meshlib.world()[0]
+    rank_log("joined the process group")
+    configs = ([meshlib.MeshConfig(seq=4), meshlib.MeshConfig(data=2, seq=2)] if job == "pc2"
+               else [meshlib.MeshConfig(data=2)])
+    meshes = [meshlib.make_mesh(c, RANK_TIMEOUT_S) for c in configs]
+    rank_go()
     inp = dict(np.load(workdir / "inputs.npz"))
     torch.cuda.reset_peak_memory_stats(dev)
     comm = time_collectives()
@@ -4480,20 +4580,27 @@ def phase17_rank(job: str, workdir: Path) -> None:
         dist.barrier()
 
     if job == "pc2":
-        seq4 = meshlib.make_mesh(meshlib.MeshConfig(seq=4))
-        d2s2 = meshlib.make_mesh(meshlib.MeshConfig(data=2, seq=2))
-        res = {p: par_run(p, dev, inp, seq4, d2s2, sync) for p in PAR_MODELS}
+        res = {p: par_run(p, dev, inp, *meshes, sync) for p in PAR_MODELS}
     else:
-        res = {"l20": dp_run(dev, inp, meshlib.make_mesh(meshlib.MeshConfig(data=2)), sync)}
+        res = {"l20": dp_run(dev, inp, meshes[0], sync)}
     mine = {"counts": {p: r.pop("counts") for p, r in res.items()},
             "secs": {p: r.pop("secs", None) for p, r in res.items()}, "comm_s": comm,
             "peak": torch.cuda.max_memory_allocated(dev), "device": str(dev),
             "backend": dist.get_backend()}
     (workdir / f"{job}_rank{rank}.json").write_text(json.dumps(mine))
+    rank_log("work done")
     if rank == 0:
         torch.save(res, workdir / f"{job}.pt")
     dist.barrier()
     dist.destroy_process_group()
+    rank_log("results written")
+
+
+def rank_log(what: str) -> None:
+    """On a rank: ``what`` with the seconds since its job was started, in
+    the job's log."""
+    t0 = float(os.environ.get("SMOKE_JOB_T0", time.time()))
+    log(f"rank {os.environ.get('RANK', '?')}: +{time.time() - t0:.1f} s {what}")
 
 
 def stop_ranks(proc, grace_s: float = 60) -> None:
@@ -4509,30 +4616,67 @@ def stop_ranks(proc, grace_s: float = 60) -> None:
             proc.wait()
 
 
-def run_ranks(n: int, rank_args: list, workdir: Path, name: str, timeout_s: float,
-              phase: str) -> float:
+class RankJob:
     """``python -m torch.distributed.run --standalone --nproc-per-node n
-    chip_smoke.py *rank_args`` with its output in ``workdir/name.log``;
-    fails ``phase`` if a rank fails (torch.distributed.run then stops its
-    siblings) or the call outlasts ``timeout_s`` (the ranks are stopped).
-    Returns its seconds."""
-    logf = workdir / f"{name}.log"
-    t = time.perf_counter()
-    with open(logf, "wb") as fh:
-        proc = subprocess.Popen(
+    chip_smoke.py *rank_args``, started now with its output in
+    ``workdir/name.log``. Its ranks import, join their process group and
+    make their meshes, then wait for :meth:`wait` to let them work (a file
+    ``workdir/name.go``), so their start overlaps what the script does
+    meanwhile (the one-process references, earlier phases) without sharing
+    the card with it; a rank given no go before the script's deadline
+    fails. ``timeout_s`` caps the job from its go. Stop it with :meth:`stop`
+    on any way out."""
+
+    def __init__(self, n: int, rank_args: list, workdir: Path, name: str, timeout_s: float):
+        self.n, self.name, self.timeout_s = n, name, timeout_s
+        self.logf, self.go = workdir / f"{name}.log", workdir / f"{name}.go"
+        self.go.unlink(missing_ok=True)
+        self.fh = open(self.logf, "wb")
+        self.proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
              str(n), str(REPO / "chip_smoke.py"), *rank_args],
-            cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1"),
-            stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+                               SMOKE_JOB_T0=repr(time.time()), SMOKE_GO=str(self.go),
+                               SMOKE_GO_WAIT=repr(min(DEADLINE_S, time_left()))),
+            stdout=self.fh, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def wait(self, phase: str) -> float:
+        """Let the ranks work; fail ``phase`` if a rank fails
+        (torch.distributed.run then stops its siblings) or the job outlasts
+        its cap or the script's deadline, whichever comes first (the ranks
+        are stopped). Returns the seconds from the go to its end."""
+        check_clock(phase)
+        timeout_s = min(self.timeout_s, time_left())
+        t = time.perf_counter()
+        self.go.touch()
         try:
-            rc = proc.wait(timeout=timeout_s)
+            rc = self.proc.wait(timeout=timeout_s)
         except subprocess.TimeoutExpired:
-            stop_ranks(proc)
-            rc = "timeout"
-    if rc != 0:
-        tail = logf.read_text(errors="replace")[-6000:]
-        fail(f"{phase}: {n} ranks of {name} ended with {rc}:\n{tail}")
-    return time.perf_counter() - t
+            self.stop()
+            rc = f"a timeout after {timeout_s:.0f} s"
+        self.fh.close()
+        if rc != 0:
+            tail = self.logf.read_text(errors="replace")[-6000:]
+            fail(f"{phase}: {self.n} ranks of {self.name} ended with {rc}:\n{tail}")
+        return time.perf_counter() - t
+
+    def stop(self) -> None:
+        stop_ranks(self.proc)
+
+
+def rank_go() -> None:
+    """On a rank of a :class:`RankJob`: wait for its go (nothing outside
+    one)."""
+    go = os.environ.get("SMOKE_GO")
+    if not go:
+        return
+    end = time.time() + float(os.environ["SMOKE_GO_WAIT"])
+    rank_log("waiting for the go")
+    while not os.path.exists(go):
+        if time.time() > end:
+            fail(f"rank {os.environ.get('RANK')}: no go within {os.environ['SMOKE_GO_WAIT']} s")
+        time.sleep(0.05)
+    rank_log("go")
 
 
 def k3_options_check(dev):
@@ -4633,7 +4777,7 @@ def worst_weight(name, sh, one) -> dict:
         leaf_max_grad=[float(g[name].abs().max()) for g in one["grads_torch.float32"]])
 
 
-# Expected launches of each part, on every rank (pc2: 24 layers x 2
+# Expected launches of each part, on every rank (pc2: PAR_LAYERS layers x 2
 # directions; the sharded scan's two passes, remat's recompute; l20: 20 x 2).
 def par_expected(preset, n_layer, sharded):
     per = 2 * n_layer
@@ -4652,31 +4796,49 @@ def par_expected(preset, n_layer, sharded):
             "steps": {k: v * (PAR_STEPS + PAR_BF16_STEPS) for k, v in step.items()}}
 
 
-def phase_parallel(dev, card):
-    """Phase 17 (see above). Returns (the launches of the ranks' main paths
-    by kernel, summed over ranks; K3-g0/dh0's row; the figures)."""
-    import torch
-
+def phase_parallel(dev, card, start_later=None):
+    """Phase 17 (see above). ``start_later``, if given, is called once
+    phase 17's own rank jobs are started, to start the later phases' too
+    (their ranks' start then overlaps phase 17). Returns (the launches of
+    the ranks' main paths by kernel, summed over ranks; K3-g0/dh0's row;
+    the figures)."""
     t0 = time.perf_counter()
     log("phase 17: context and data parallelism, ranks of torch.distributed.run sharing "
         f"{card} over gloo")
     k3, k3_err = k3_options_check(dev)
     workdir = REPO / "build" / "chip_smoke" / "phase17"
     inp = par_inputs(workdir)
+    # both jobs' ranks start now and wait for their go: their start overlaps
+    # the one-process references, their work runs alone on the card
+    jobs = {job: RankJob(n, ["--phase17-rank", job, str(workdir)], workdir, job, PAR_TIMEOUT_S)
+            for job, n in (("pc2", 4), ("l20", 2))}
+    if start_later is not None:
+        start_later()
+    try:
+        return par_checks(dev, inp, workdir, jobs, k3, k3_err, t0)
+    finally:   # on a failure too
+        for job in jobs.values():
+            job.stop()
+
+
+def par_checks(dev, inp, workdir, jobs, k3, k3_err, t0):
+    """Phase 17's one-process references, its rank jobs (``jobs``, started)
+    and its gates."""
+    import torch
+
     single = {}
     for preset in PAR_MODELS:   # one process, the same card, weights and inputs
         single[preset] = par_run(preset, dev, inp, None, None)
         torch.cuda.empty_cache()
     single["l20"] = dp_run(dev, inp, None)
     torch.cuda.empty_cache()
-    for preset, want in (*((p, par_expected(p, 24, False)) for p in PAR_MODELS),
+    for preset, want in (*((p, par_expected(p, PAR_LAYERS, False)) for p in PAR_MODELS),
                          ("l20", {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // (DP_BATCH // 2)),
                                   "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})):
         if single[preset]["counts"] != want:
             fail(f"phase 17 one-process {preset} launched {single[preset]['counts']}; "
                  f"expected {want}")
-    secs = {job: run_ranks(n, ["--phase17-rank", job, str(workdir)], workdir, job,
-                           PAR_TIMEOUT_S, "phase 17") for job, n in (("pc2", 4), ("l20", 2))}
+    secs = {name: job.wait("phase 17") for name, job in jobs.items()}
     sharded = {**torch.load(workdir / "pc2.pt", weights_only=False),
                **torch.load(workdir / "l20.pt", weights_only=False)}
     ranks = {job: [json.loads((workdir / f"{job}_rank{r}.json").read_text()) for r in range(n)]
@@ -4688,7 +4850,7 @@ def phase_parallel(dev, card):
             if rr["device"] != "cuda:0" or rr["backend"] != "gloo":
                 fail(f"phase 17 {job} rank {r} ran on {rr['device']} over {rr['backend']}")
             for preset, parts in rr["counts"].items():
-                want = (par_expected(preset, 24, True) if job == "pc2" else
+                want = (par_expected(preset, PAR_LAYERS, True) if job == "pc2" else
                         {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // DP_BATCH),
                          "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})
                 if parts != want:
@@ -4780,7 +4942,7 @@ def phase_parallel(dev, card):
 
 P18_RANKS, P18_L, P18_ROWS, P18_STEPS = 2, 512, 8, 3
 P18_FT_ROWS, P18_EMB_ROWS, P18_EMB_BATCH, P18_SERVE = 16, 64, 16, 4
-P18_TIMEOUT_S = 420
+P18_TIMEOUT_S = 150
 P18_SEED = 18
 
 
@@ -5010,8 +5172,13 @@ def phase18_rank(workdir: Path) -> None:
         fail("phase 18 rank: no GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = meshlib.initialize_distributed("cuda", timeout_s=P18_TIMEOUT_S)
+    rank_log("imported")
+    dev = meshlib.initialize_distributed("cuda", timeout_s=RANK_TIMEOUT_S)
     rank = meshlib.world()[0]
+    rank_log("joined the process group")
+    meshes = {"fsdp": meshlib.make_mesh(meshlib.MeshConfig(fsdp=P18_RANKS), RANK_TIMEOUT_S),
+              "data": meshlib.make_mesh(meshlib.MeshConfig(data=P18_RANKS), RANK_TIMEOUT_S)}
+    rank_go()
     inp = dict(np.load(workdir / "inputs.npz"))
     comm = time_collectives()
 
@@ -5019,9 +5186,8 @@ def phase18_rank(workdir: Path) -> None:
         torch.cuda.synchronize(dev)
         dist.barrier()
 
-    meshes = {"fsdp": meshlib.make_mesh(meshlib.MeshConfig(fsdp=P18_RANKS)),
-              "data": meshlib.make_mesh(meshlib.MeshConfig(data=P18_RANKS))}
     res, cnt, secs = p18_work(dev, inp, workdir, meshes, "ranks", sync)
+    rank_log("work done")
     (workdir / f"rank{rank}.json").write_text(json.dumps(
         {"counts": cnt, "secs": secs, "comm_s": comm, "device": str(dev),
          "backend": dist.get_backend(),
@@ -5078,7 +5244,7 @@ def p18_serve_check(dev, inp, proc, port, logf):
             with urllib.request.urlopen(base + "/healthz", timeout=5):
                 break
         except OSError:
-            if time.perf_counter() - t > P18_TIMEOUT_S:
+            if time.perf_counter() - t > min(P18_TIMEOUT_S, time_left()):
                 fail("phase 18e: cli.serve -seq 2 did not answer /healthz")
             time.sleep(0.5)
     replies = {}
@@ -5117,24 +5283,37 @@ def p18_serve_check(dev, inp, proc, port, logf):
     return dict(gaps=gaps, request_s=req_s, stop_s=stop_s)
 
 
-def phase_fsdp_entry(dev, card):
-    """Phase 18 (see the module docstring). Returns (the launches of the
-    ranks' main paths by kernel, summed over ranks; the figures)."""
+P18_DIR = REPO / "build" / "chip_smoke" / "phase18"
+
+
+def p18_job() -> "RankJob":
+    """18a-d's ranks, started in a fresh ``P18_DIR``; they wait for their
+    go (after the one-process runs)."""
+    shutil.rmtree(P18_DIR, ignore_errors=True)
+    P18_DIR.mkdir(parents=True)
+    return RankJob(P18_RANKS, ["--phase18-rank", str(P18_DIR)], P18_DIR, "ranks", P18_TIMEOUT_S)
+
+
+def phase_fsdp_entry(dev, card, ranks_job=None):
+    """Phase 18 (see the module docstring), with 18a-d's ranks
+    ``ranks_job`` (:func:`p18_job`; started here if None). Returns (the
+    launches of the ranks' main paths by kernel, summed over ranks; the
+    figures)."""
     t0 = time.perf_counter()
     log(f"phase 18: FSDP and the data axis on the entry points, {P18_RANKS} ranks of "
         f"torch.distributed.run sharing {card} over gloo, l20 at {P18_L} bp")
-    workdir = REPO / "build" / "chip_smoke" / "phase18"
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
+    ranks_job = ranks_job or p18_job()
+    workdir = P18_DIR
     serve = p18_serve_start(workdir)
     try:
-        return p18_checks(dev, workdir, serve, t0)
+        return p18_checks(dev, workdir, serve, ranks_job, t0)
     finally:   # on a failure too
+        ranks_job.stop()
         stop_ranks(serve[0])
         serve[2].close()
 
 
-def p18_checks(dev, workdir, serve, t0):
+def p18_checks(dev, workdir, serve, ranks_job, t0):
     """Phase 18's runs and gates, with 18e's ranks started (``serve``)."""
     import torch
 
@@ -5149,8 +5328,7 @@ def p18_checks(dev, workdir, serve, t0):
     (workdir / "clf.json").write_text(json.dumps(xgb_classifier(emb.numpy())))
     none = {"fsdp": None, "data": None}
     one, one_cnt, one_secs = p18_work(dev, inp, workdir, none, "one", torch.cuda.synchronize)
-    rank_s = run_ranks(P18_RANKS, ["--phase18-rank", str(workdir)], workdir, "ranks",
-                       P18_TIMEOUT_S, "phase 18")
+    rank_s = ranks_job.wait("phase 18")
     sh = torch.load(workdir / "ranks.pt", weights_only=False)
     ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(P18_RANKS)]
     total = {k: 0 for k in _counters()}
@@ -5265,6 +5443,343 @@ def p18_checks(dev, workdir, serve, t0):
     return total, figs
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: tensor and pipeline parallelism for pre-training
+# (parallel/mesh.py's tensor and pipe axes, parallel/collectives.py's
+# tensor-parallel sums, the mixers' tp paths, parallel/pipeline.py and
+# train/step.ModelShards), l20 and l20-ssd at full width and depth on 2
+# ranks of torch.distributed.run sharing cuda:0 over gloo, each against
+# one process on the card with the same weights and batches: first K1-hb,
+# K3, K4-fentry and K6 (plain mode) against their plain versions at the
+# tensor-parallel shapes (a rank's d_inner 384; l20-ssd's 3 heads a rank),
+# then 19a tensor 2 for l20 (K1-hb, K3) and l20-ssd (K4-fentry, K6 plain)
+# and 19b pipe 2 with 4 microbatches for l20 (K2-res, K3 on a stage's 10
+# layers): 3 fp32 steps (each step's gradients and grad_norm, the weights
+# after; a checkpoint at step 2 resumed in one process for step 3) and 2
+# bf16 steps (the second timed).
+P19_RANKS, P19_L, P19_ROWS, P19_STEPS, P19_BF16_STEPS, P19_MICRO = 2, 512, 8, 3, 2, 4
+P19_JOBS = {"tensor_l20": ("l20", dict(tensor=2)), "tensor_l20-ssd": ("l20-ssd", dict(tensor=2)),
+            "pipe_l20": ("l20", dict(pipe=2))}
+P19_TIMEOUT_S = 150
+P19_SEED = 19
+# Each fp32 step's gradients against one process, of each leaf's max: 1e-5
+# for l20; for l20-ssd 1e-4, since float32's reassociation through 20
+# layers of the Mamba-2 backward alone moves dt_bias's and A_log's
+# gradients (sums over every position, with cancellation) by 1.5-2.1e-5 of
+# their max (sharded against unsharded with the same decomposed mixer, the
+# plain versions in one process on the CPU: 1.7e-5; the two one-process
+# paths against each other: 2.6e-6).
+P19_GRAD_TOL = {"l20": 1e-5, "l20-ssd": 1e-4}
+P19_RESUME_TOL = 1e-4
+
+
+def p19_inputs(workdir: Path) -> dict:
+    """l20 pre-training batches of 8 x 512 from a seed: steps 1-3 fp32,
+    4-5 bf16."""
+    import numpy as np
+
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.train import data as data_lib
+
+    seqs = data_lib.sequence_source("synthetic", window=P19_L, synthetic_n=64, seed=P19_SEED)
+    ds = data_lib.PretrainDataset(seqs, DnaTokenizer(), P19_ROWS, seed=P19_SEED)
+    inp = {}
+    for s in range(1, P19_STEPS + P19_BF16_STEPS + 1):
+        inp.update({f"b{s}_{k}": v for k, v in ds.batch_at(s).items()})
+    workdir.mkdir(parents=True, exist_ok=True)
+    np.savez(workdir / "inputs.npz", **inp)
+    return inp
+
+
+def p19_trainer(preset, dev, mesh, dtype, micro=None):
+    """``preset`` from the phase's seed, its optimizer (keeping each
+    update's gradients) and train step, over ``mesh`` or in one process."""
+    from plantcaduceus_tpu_torch.train import step as step_lib
+    from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
+
+    cfg, model = par_model(preset, dev)
+    opt = KeptGrads(make_optimizer(learning_rate=2e-4, warmup_steps=1, total_steps=P19_STEPS,
+                                   params=dict(model.named_parameters())))
+    init, step, _ = step_lib.make_train_step(cfg, opt, model, dtype=dtype, remat=True,
+                                             device=dev, mesh=mesh, pp_microbatches=micro)
+    return model, opt, step, init()
+
+
+def p19_full(model, state, tree=None):
+    """``tree`` (default: the weights the optimizer updates) as full tensors
+    on the host (under a layout gathered: every rank calls it)."""
+    lay = state.layout
+    if tree is None:
+        tree = lay.masters() if lay is not None else dict(model.named_parameters())
+    tree = lay.full(tree) if lay is not None else tree
+    return {n: t.detach().to("cpu", copy=True) for n, t in tree.items()}
+
+
+def p19_train(preset, dev, inp, mesh, ckpt_dir, sync, micro=None):
+    """3 fp32 steps from the seeded weights (each step's loss, grad_norm
+    and full gradients; a checkpoint at step 2; the full weights after),
+    then 2 bf16 steps from the seeded weights (the second timed), with the
+    launches of each dtype's steps."""
+    import torch
+
+    from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
+
+    out, cnt = {}, {}
+    reset_counts()
+    model, opt, step, state = p19_trainer(preset, dev, mesh, torch.float32, micro)
+    ckpt = ckpt_lib.CheckpointManager(ckpt_dir, save_interval_steps=2)
+    for s in range(1, P19_STEPS + 1):
+        state, m = step(state, batch_of(inp, f"b{s}_"))
+        out[f"loss{s}"], out[f"grad_norm{s}"] = float(m["loss"]), float(m["grad_norm"])
+        ckpt.save(s, state)
+    cnt["float32"] = counts()
+    out["grads"] = [p19_full(model, state, g) for g in opt.grads]
+    out["weights"] = p19_full(model, state)
+    del model, opt, state
+    reset_counts()
+    model, _, step, state = p19_trainer(preset, dev, mesh, torch.bfloat16, micro)
+    for s in range(P19_STEPS + 1, P19_STEPS + P19_BF16_STEPS + 1):
+        sync()
+        t = time.perf_counter()
+        state, m = step(state, batch_of(inp, f"b{s}_"))
+        sync()
+        out["bf16_ms"], out[f"bf16_loss{s}"] = 1e3 * (time.perf_counter() - t), float(m["loss"])
+    cnt["bfloat16"] = counts()
+    out["counts"] = cnt
+    return out
+
+
+def p19_resume(preset, dev, inp, ckpt_dir):
+    """One process restored from ``ckpt_dir``'s step 2 (written under any
+    layout), then step 3: the weights after."""
+    import torch
+
+    from plantcaduceus_tpu_torch.train import checkpoint as ckpt_lib
+
+    model, _, step, state = p19_trainer(preset, dev, None, torch.float32)
+    state = ckpt_lib.CheckpointManager(ckpt_dir).restore(state, step=2)
+    state, _ = step(state, batch_of(inp, f"b{P19_STEPS}_"))
+    return p19_full(model, state)
+
+
+def phase19_rank(workdir: Path) -> None:
+    """One rank of phase 19 (started by ``torch.distributed.run``): the
+    three jobs. Rank 0 writes the results; every rank its counts, seconds
+    and peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from plantcaduceus_tpu_torch.parallel import mesh as meshlib
+
+    if not torch.cuda.is_available():
+        fail("phase 19 rank: no GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank_log("imported")
+    dev = meshlib.initialize_distributed("cuda", timeout_s=RANK_TIMEOUT_S)
+    rank = meshlib.world()[0]
+    rank_log("joined the process group")
+    meshes = {job: meshlib.make_mesh(meshlib.MeshConfig(**axes), RANK_TIMEOUT_S)
+              for job, (_, axes) in P19_JOBS.items()}
+    rank_go()
+    inp = dict(np.load(workdir / "inputs.npz"))
+    comm = time_collectives()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    res, secs, peak = {}, {}, {}
+    for job, (preset, axes) in P19_JOBS.items():
+        mesh = meshes[job]
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        res[job] = p19_train(preset, dev, inp, mesh, workdir / f"ckpt_{job}", sync,
+                             P19_MICRO if "pipe" in axes else None)
+        secs[job], peak[job] = time.perf_counter() - t, torch.cuda.max_memory_allocated(dev)
+        rank_log(f"{job} done")
+    (workdir / f"rank{rank}.json").write_text(json.dumps(
+        {"counts": {j: r.pop("counts") for j, r in res.items()}, "secs": secs, "peak": peak,
+         "comm_s": comm, "device": str(dev), "backend": dist.get_backend()}))
+    if rank == 0:
+        torch.save(res, workdir / "ranks.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p19_expected(job):
+    """The launches of each dtype's steps on every rank: tensor 2 runs the
+    decomposed mixers on a rank's d_inner (K1-hb twice a layer and
+    direction, the forward and remat's recompute, K3 once; Mamba-2 K4-fentry
+    and K6 plain alike); pipe 2 runs K2-res and K3 on a stage's 10 layers at
+    every one of the schedule's n_micro + 1 steps (the bubble on masked
+    zeros)."""
+    steps = {"float32": P19_STEPS, "bfloat16": P19_BF16_STEPS}
+    per = {"tensor_l20": dict(scan_fwd_hb=2 * 2 * 20, scan_bwd=2 * 20),
+           "tensor_l20-ssd": dict(ssd_fwd_fentry=2 * 2 * 20, ssd_bwd=2 * 20),
+           "pipe_l20": dict(mixer_fwd_res=(P19_MICRO + 1) * 2 * 2 * 10,
+                            scan_bwd=(P19_MICRO + 1) * 2 * 10)}[job]
+    return {dn: only(**{k: v * n for k, v in per.items()}) for dn, n in steps.items()}
+
+
+def p19_kernel_check(dev):
+    """K1-hb and K3 (fused dt, both directions) at a tensor rank's l20
+    shape (16 rows x 512 x 384, R 24), and K4-fentry and K6 in plain mode
+    at a tensor rank's l20-ssd heads (16 rows x 512, 3 heads of 128),
+    against their plain versions, fp32 and bf16. Returns the worst error by
+    kernel."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_scan, cuda_ssd
+    from plantcaduceus_tpu_torch.ops.selective_scan import HB_CHUNK
+
+    cfg = CaduceusConfig.preset("l20")
+    rows, L, D, N, R = 2 * P19_ROWS, P19_L, cfg.d_inner // 2, cfg.d_state, cfg.dt_rank
+    w = layer_weights(cfg, P19_SEED, dev)
+    A = -torch.exp(w["A_log"])[:, :D].contiguous()
+    loc = lambda t: t[:, :D].contiguous()
+    Ds, dtb, W = loc(w["D"]), loc(w["dt_proj_b"]), w["dt_proj_w"][:, :, :D].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(P19_SEED)
+    r = lambda *shape, sc=1.0: torch.randn(*shape, generator=gen, device=dev) * sc
+    err = dict.fromkeys(("scan_fwd_hb", "scan_bwd", "ssd_fwd_fentry", "ssd_bwd"), 0.0)
+    scfg = CaduceusConfig.preset("l20-ssd")
+    H, P = scfg.n_heads // 2, scfg.head_dim
+    sw = layer_weights(scfg, P19_SEED, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        x, gy = r(rows, L, D).to(dtype), r(rows, L, D).to(dtype)
+        dt = r(rows, L, R, sc=0.5).to(dtype)
+        Bm, Cm = r(rows, L, N).to(dtype), r(rows, L, N).to(dtype)
+        for g in (0, 1):
+            args = (x, dt, A[g], Bm, Cm, Ds[g], dtb[g], W[g], g == 1)
+            tag = f"{dn} {'rev' if g else 'fwd'}"
+            y, hb = cuda_scan.scan_fwd(*args, hb_chunk=HB_CHUNK)
+            y_p, hb_p = cuda_scan.scan_fwd_plain(*args, hb_chunk=HB_CHUNK)
+            err["scan_fwd_hb"] = max(err["scan_fwd_hb"],
+                                     compare(f"K1-hb y at D {D} {tag}", y, y_p, dn),
+                                     compare(f"K1-hb hb at D {D} {tag}", hb, hb_p, dn, F32_TOL))
+            kargs = (x, gy, dt, A[g], Bm, Cm, Ds[g], dtb[g], hb, W[g], g == 1)
+            for n, got, want in zip(("dx", "ddt", "dB", "dC", "dA", "ddt_bias", "dD", "dW"),
+                                    cuda_scan.scan_bwd(*kargs), cuda_scan.scan_bwd_plain(*kargs)):
+                err["scan_bwd"] = max(err["scan_bwd"],
+                                      compare(f"K3 {n} at D {D} {tag}", got, want, dn, F32_TOL))
+            xs, sdt = r(rows, L, H * P).to(dtype), r(rows, L, H, sc=0.5).to(dtype)
+            SB, SC = (r(rows, L, 1, scfg.d_state, sc=0.5).to(dtype) for _ in range(2))
+            sargs = (xs, sdt, -torch.exp(sw["A_log"][g, :H]).contiguous(), SB, SC,
+                     sw["D"][g, :H].contiguous(), sw["dt_bias"][g, :H].contiguous())
+            T = scfg.chunk_size
+            yk, fe = cuda_ssd.ssd_dir(*sargs, T, g == 1, emit_fentry=True)
+            yp, fep = cuda_ssd.ssd_dir_plain(*sargs, T, g == 1, emit_fentry=True)
+            # phase 3d's tolerance for the SSD kernels: TOL[dn] for every
+            # output, the float32 ones too (bf16-rounded product operands)
+            err["ssd_fwd_fentry"] = max(err["ssd_fwd_fentry"],
+                                        compare(f"K4-fentry y at H {H} {tag}", yk, yp, dn),
+                                        compare(f"K4-fentry fentry at H {H} {tag}", fe, fep, dn))
+            gs = r(rows, L, H * P).to(dtype)
+            for n, got, want in zip(("dx", "dB", "dC", "ddt", "dmass"),
+                                    cuda_ssd.ssd_dir_bwd(*sargs, fe, gs, T, g == 1),
+                                    cuda_ssd.ssd_dir_bwd_plain(*sargs, fe, gs, T, g == 1)):
+                err["ssd_bwd"] = max(err["ssd_bwd"],
+                                     compare(f"K6 {n} at H {H} {tag}", got, want, dn))
+    return err
+
+
+P19_DIR = REPO / "build" / "chip_smoke" / "phase19"
+
+
+def p19_job() -> "RankJob":
+    """Phase 19's ranks, started in a fresh ``P19_DIR``; they wait for their
+    go (after the one-process runs)."""
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    P19_DIR.mkdir(parents=True)
+    return RankJob(P19_RANKS, ["--phase19-rank", str(P19_DIR)], P19_DIR, "ranks", P19_TIMEOUT_S)
+
+
+def phase_tensor_pipe(dev, card, ranks_job=None):
+    """Phase 19 (see above), with its ranks ``ranks_job`` (:func:`p19_job`;
+    started here if None). Returns (the launches of the ranks' main paths
+    by kernel, summed over ranks; the figures)."""
+    t0 = time.perf_counter()
+    log(f"phase 19: tensor and pipeline parallelism, {P19_RANKS} ranks of torch.distributed.run "
+        f"sharing {card} over gloo, l20 and l20-ssd at full width and depth, "
+        f"{P19_ROWS} x {P19_L} bp")
+    ranks_job = ranks_job or p19_job()
+    try:
+        return p19_checks(dev, P19_DIR, ranks_job, t0)
+    finally:   # on a failure too
+        ranks_job.stop()
+
+
+def p19_checks(dev, workdir, ranks_job, t0):
+    """Phase 19's kernel checks, one-process runs, rank job (``ranks_job``,
+    started) and gates."""
+    import torch
+
+    kerr = p19_kernel_check(dev)
+    t_k = time.perf_counter() - t0
+    inp = p19_inputs(workdir)
+    one, one_secs = {}, {}
+    for preset in ("l20", "l20-ssd"):   # one process, the same card, weights and batches
+        t = time.perf_counter()
+        one[preset] = p19_train(preset, dev, inp, None, workdir / f"ckpt_one_{preset}",
+                                torch.cuda.synchronize)
+        one_secs[preset] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    rank_s = ranks_job.wait("phase 19")
+    sh = torch.load(workdir / "ranks.pt", weights_only=False)
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(P19_RANKS)]
+    total = {k: 0 for k in _counters()}
+    for r, rr in enumerate(ranks):
+        if rr["device"] != "cuda:0" or rr["backend"] != "gloo":
+            fail(f"phase 19 rank {r} ran on {rr['device']} over {rr['backend']}")
+        for job, c in rr["counts"].items():
+            if c != p19_expected(job):
+                fail(f"phase 19 {job} rank {r} launched {c}; expected {p19_expected(job)}")
+            for part in c.values():
+                for k, v in part.items():
+                    total[k] += v
+    figs = {"kernels_err": kerr, "kernels_s": t_k}
+    for job, (preset, axes) in P19_JOBS.items():
+        a, b = sh[job], one[preset]
+        wg, wgn = 0.0, ""
+        for s, (got, want) in enumerate(zip(a["grads"], b["grads"]), 1):
+            w, n = grads_agree(f"phase 19 {job} fp32 step {s}", got, want, P19_GRAD_TOL[preset])
+            if w >= wg:
+                wg, wgn = w, f"step {s} {n}"
+        gn = max(abs(a[f"grad_norm{s}"] / b[f"grad_norm{s}"] - 1) for s in range(1, P19_STEPS + 1))
+        if not gn <= 1e-5:
+            fail(f"phase 19 {job}: grad_norm off by {gn:.3e} relative (tol 1e-5)")
+        ww, wwn = grads_agree(f"phase 19 {job} fp32 weights after {P19_STEPS} steps",
+                              a["weights"], b["weights"])
+        wr, wrn = grads_agree(f"phase 19 {job}: its step-2 checkpoint resumed in one process",
+                              p19_resume(preset, dev, inp, workdir / f"ckpt_{job}"),
+                              a["weights"], P19_RESUME_TOL)
+        f = figs[job] = dict(grads=(wg, wgn), grad_norm=gn, weights=(ww, wwn), resumed=(wr, wrn),
+                             bf16_ms=a["bf16_ms"], bf16_ms_one=b["bf16_ms"],
+                             losses=[a[f"loss{s}"] for s in range(1, P19_STEPS + 1)],
+                             losses_one=[b[f"loss{s}"] for s in range(1, P19_STEPS + 1)],
+                             secs=ranks[0]["secs"][job], peak=[rr["peak"][job] for rr in ranks])
+        log(f"  19{'a' if 'tensor' in job else 'b'} {job} ({axes}): fp32 gradients of "
+            f"{P19_STEPS} steps worst {wgn} {wg:.3e} (tol {P19_GRAD_TOL[preset]:.0e}), grad_norm "
+            f"{gn:.3e} relative, weights after {P19_STEPS} steps worst {wwn} {ww:.3e} (tol "
+            f"{GRAD_TOL:.0e}); the step-2 checkpoint resumed in one process worst {wrn} "
+            f"{wr:.3e} (tol {P19_RESUME_TOL:.0e}); bf16 step {f['bf16_ms']:.1f} ms on 2 ranks, "
+            f"{f['bf16_ms_one']:.1f} in one process; fp32 losses {f['losses']} / "
+            f"{f['losses_one']}; {f['secs']:.1f} s on the ranks; peak bytes a rank {f['peak']}")
+    figs["secs"] = dict(kernels=t_k, one=one_secs, ranks=rank_s)
+    figs["comm_s"] = [rr["comm_s"] for rr in ranks]
+    figs["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 ok in {figs['seconds']:.1f} s (kernel checks {t_k:.1f} s, one process "
+        f"{sum(one_secs.values()):.1f} s, the ranks {rank_s:.1f} s); seconds in the "
+        f"collectives a rank {figs['comm_s']}; launches on the ranks "
+        f"{dict((k, v) for k, v in total.items() if v)}")
+    return total, figs
+
+
 def main():
     import torch
 
@@ -5280,47 +5795,52 @@ def main():
     if sys.argv[1:2] == ["--phase18-rank"]:  # one rank of phase 18
         phase18_rank(Path(sys.argv[2]))
         return
+    if sys.argv[1:2] == ["--phase19-rank"]:  # one rank of phase 19
+        phase19_rank(Path(sys.argv[2]))
+        return
     from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    _clock["deadline"] = t0 + DEADLINE_S
     card = phase_card()
-    phase_build()
+    run_phase("2", phase_build)
     dev = torch.device("cuda")
     cfg = CaduceusConfig.preset("l20")
-    kres = phase_kernels(cfg, dev)
-    tres = phase_train_kernels(cfg, dev)
-    sres, k4_launches = phase_ssd_kernels(dev)
-    s2res = phase_ssd_train_kernels(dev)
-    phase_forward(cfg, dev)
-    phase_forward2(dev)
-    k1_launches = phase_general(dev)
-    k2_launches, wps, wps_e2e, tsv, n_valid = phase_cli(cfg, dev)
-    k5_launches, wps2, wps2_e2e = phase_cli2(dev, tsv, n_valid)
-    phase_profile(cfg, dev)
-    phase_profile2(dev)
-    hb_launches = phase_grads(dev)
-    fentry_launches, k6_launches = phase_grads2(dev)
-    tc, tps, step_s, peak = phase_pretrain("l20", dev, tsv, n_valid)
-    tc2, tps2, step_s2, peak2 = phase_pretrain("l20-ssd", dev, tsv, n_valid)
-    phase_train_profile("l20", dev)
-    phase_train_profile("l20-ssd", dev)
+    kres = run_phase("3", phase_kernels, cfg, dev)
+    tres = run_phase("3b", phase_train_kernels, cfg, dev)
+    sres, k4_launches = run_phase("3c", phase_ssd_kernels, dev)
+    s2res = run_phase("3d", phase_ssd_train_kernels, dev)
+    run_phase("4", phase_forward, cfg, dev)
+    run_phase("4b", phase_forward2, dev)
+    k1_launches = run_phase("5", phase_general, dev)
+    k2_launches, wps, wps_e2e, tsv, n_valid = run_phase("6", phase_cli, cfg, dev)
+    k5_launches, wps2, wps2_e2e = run_phase("6b", phase_cli2, dev, tsv, n_valid)
+    run_phase("7", phase_profile, cfg, dev)
+    run_phase("7b", phase_profile2, dev)
+    hb_launches = run_phase("8", phase_grads, dev)
+    fentry_launches, k6_launches = run_phase("8b", phase_grads2, dev)
+    tc, tps, step_s, peak = run_phase("9", phase_pretrain, "l20", dev, tsv, n_valid)
+    tc2, tps2, step_s2, peak2 = run_phase("9b", phase_pretrain, "l20-ssd", dev, tsv, n_valid)
+    run_phase("10", phase_train_profile, "l20", dev)
+    run_phase("10b", phase_train_profile, "l20-ssd", dev)
     # the attention baseline last, so the earlier phases run as before it
     torch.cuda.empty_cache()
-    ares = phase_attn_kernels(dev)
-    bwps, k7_fwd_launches = phase_bert_forward(dev)
-    phase_bert_grads(dev)
-    btc, btps, bstep_s, bpeak = phase_bert_train(dev)
-    phase_bert_profile(dev)
+    ares = run_phase("3e", phase_attn_kernels, dev)
+    bwps, k7_fwd_launches = run_phase("4c", phase_bert_forward, dev)
+    run_phase("8c", phase_bert_grads, dev)
+    btc, btps, bstep_s, bpeak = run_phase("9c", phase_bert_train, dev)
+    run_phase("10c", phase_bert_profile, dev)
     # the AR Mamba LM and the PlantCAD2 evaluation after every earlier phase
     torch.cuda.empty_cache()
-    ar1, ar1_fig = phase_ar_lm("mamba1", dev)
-    ar2, ar2_fig = phase_ar_lm("mamba2", dev)
+    ar1, ar1_fig = run_phase("11", phase_ar_lm, "mamba1", dev)
+    ar2, ar2_fig = run_phase("11b", phase_ar_lm, "mamba2", dev)
     torch.cuda.empty_cache()
-    ek2, ek5, ev = phase_eval(dev)
+    ek2, ek5, ev = run_phase("12", phase_eval, dev)
     # phase 13: the XGBoost workload, the server and the input tools, with l20
     torch.cuda.empty_cache()
+    check_clock("13")
     t13 = time.perf_counter()
     xk2, xg = phase_xgboost(cfg, dev)
     sk2, sv = phase_serve(cfg, dev, tsv, wps)
@@ -5329,21 +5849,38 @@ def main():
         f"windows/s; server {sv['wps']:.1f} windows/s, {sv['rps']:.2f} requests/s (in-process "
         f"{wps:.1f}); {sv['forwards']} forwards for {SERVE_CLIENTS} concurrent requests of "
         f"{SERVE_WINDOWS} windows")
+    # phases 14 to 18 log their own seconds
     # phase 14: LoRA and full fine-tuning, after every earlier phase
     torch.cuda.empty_cache()
+    check_clock("14")
     fc, k600, ff = phase_finetune(dev)
     # phase 15: the rest of training, after every earlier phase
     torch.cuda.empty_cache()
+    check_clock("15")
     rc, rf = phase_rest_of_training(dev, tsv, n_valid, ev)
     # phase 16: the formats users have, after every earlier phase
     torch.cuda.empty_cache()
+    check_clock("16")
     gc16, gf = phase_formats(dev, tsv, n_valid)
-    # phase 17: context and data parallelism, after every earlier phase
-    torch.cuda.empty_cache()
-    pc17, k3g, pf = phase_parallel(dev, card)
-    # phase 18: FSDP and the data axis on the entry points, after every earlier phase
-    torch.cuda.empty_cache()
-    pc18, qf = phase_fsdp_entry(dev, card)
+    # phases 17-19: several ranks, after every earlier phase; phases 18 and
+    # 19's ranks start during phase 17 and wait there for their go
+    later = {}
+    try:
+        torch.cuda.empty_cache()
+        check_clock("17")
+        pc17, k3g, pf = phase_parallel(dev, card, lambda: later.update(p18=p18_job(),
+                                                                       p19=p19_job()))
+        # phase 18: FSDP and the data axis on the entry points
+        torch.cuda.empty_cache()
+        check_clock("18")
+        pc18, qf = phase_fsdp_entry(dev, card, later["p18"])
+        # phase 19: tensor and pipeline parallelism
+        torch.cuda.empty_cache()
+        check_clock("19")
+        pc19, tf = phase_tensor_pipe(dev, card, later["p19"])
+    finally:   # on a failure too
+        for job in later.values():
+            job.stop()
     log(f"all phases ok in {time.perf_counter() - t0:.1f} s on {card}; scoring l20 "
         f"{wps:.1f} windows/s steady state, {wps_e2e:.1f} windows/s end to end; l20-ssd "
         f"{wps2:.1f} / {wps2_e2e:.1f} windows/s; training l20 {tps:.1f} tokens/s, "
@@ -5360,7 +5897,10 @@ def main():
         f"zstd on the host {gf['streaming']['zstd_mbs']:.2f} MB/s; phase 17 (ranks sharing "
         f"the card) pc2-small seq 4 {pf['pc2-small']['wps']:.2f} windows/s, data 2 x seq 2 "
         f"step {pf['pc2-small']['step_ms']:.1f} ms; phase 18 l20 --fsdp 2 bf16 step "
-        f"{qf['train']['bf16_ms']:.1f} ms (one process {qf['train']['bf16_ms_one']:.1f})")
+        f"{qf['train']['bf16_ms']:.1f} ms (one process {qf['train']['bf16_ms_one']:.1f}); "
+        f"phase 19 bf16 step l20 --tensor 2 {tf['tensor_l20']['bf16_ms']:.1f} ms, l20-ssd "
+        f"--tensor 2 {tf['tensor_l20-ssd']['bf16_ms']:.1f} ms, l20 --pipe 2 "
+        f"{tf['pipe_l20']['bf16_ms']:.1f} ms (one process {tf['pipe_l20']['bf16_ms_one']:.1f})")
 
     src = "plantcaduceus_tpu_torch/csrc/"
     meta = {
@@ -5373,7 +5913,8 @@ def main():
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                               launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]
                               + rc["mixer_fwd_res"] + gc16["mixer_fwd_res"]
-                              + pc17["mixer_fwd_res"] + pc18["mixer_fwd_res"]),
+                              + pc17["mixer_fwd_res"] + pc18["mixer_fwd_res"]
+                              + pc19["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                          launches=k1_launches + ar1["scan_fwd"] + pc17["scan_fwd"]),
@@ -5381,12 +5922,12 @@ def main():
                             replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
                             launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]
                             + gc16["scan_fwd_hb"] + pc17["scan_fwd_hb"]
-                            + pc18["scan_fwd_hb"]),
+                            + pc18["scan_fwd_hb"] + pc19["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
                          launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]
                          + rc["scan_bwd"] + gc16["scan_bwd"] + pc17["scan_bwd"]
-                         + pc18["scan_bwd"]),
+                         + pc18["scan_bwd"] + pc19["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
                         launches=k4_launches + ar2["ssd_fwd"] + pc17["ssd_fwd"]),
@@ -5396,14 +5937,15 @@ def main():
         "ssd_fwd_fentry": dict(source=src + "ssd_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_ssd.py:164",
                                launches=fentry_launches + ar2["ssd_fwd_fentry"]
-                               + pc17["ssd_fwd_fentry"]),
+                               + pc17["ssd_fwd_fentry"] + pc19["ssd_fwd_fentry"]),
         "mixer2_fwd_res": dict(source=src + "mixer2_fwd.cu",
                                replaces="plantcaduceus_tpu/ops/pallas_mixer2.py:72",
                                launches=tc2["mixer2_fwd_res"] + fc["mixer2_fwd_res"]
                                + rc["mixer2_fwd_res"] + pc18["mixer2_fwd_res"]),
         "ssd_bwd": dict(source=src + "ssd_bwd.cu",
                         replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
-                        launches=k6_launches + ar2["ssd_bwd"] + pc17["ssd_bwd"]),
+                        launches=k6_launches + ar2["ssd_bwd"] + pc17["ssd_bwd"]
+                        + pc19["ssd_bwd"]),
         "ssd_bwd_pre_silu": dict(source=src + "ssd_bwd.cu",
                                  replaces="plantcaduceus_tpu/ops/pallas_ssd.py:290",
                                  launches=tc2["ssd_bwd_pre_silu"] + fc["ssd_bwd_pre_silu"]
@@ -5479,8 +6021,9 @@ def main():
         rows=2 * PAR_WINDOWS, L=PAR_L // 4, D=1536, R=48,
         float32={k: k3g["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                   "no_options_ms")}))
-    # Phases 14 to 18: their launches beside each total; K1-hb and
-    # K3 at pc2-small x 600 bp.
+    # Phases 14 to 19: their launches beside each total; K1-hb and
+    # K3 at pc2-small x 600 bp; phase 19's kernel checks at the tensor
+    # ranks' shapes.
     for k in kernels:
         if fc.get(k["name"]):
             k["phase14_launches"] = fc[k["name"]]
@@ -5492,6 +6035,10 @@ def main():
             k["phase17_launches"] = pc17[k["name"]]
         if pc18.get(k["name"]):
             k["phase18_launches"] = pc18[k["name"]]
+        if pc19.get(k["name"]):
+            k["phase19_launches"] = pc19[k["name"]]
+        if k["name"] in tf["kernels_err"]:
+            k["max_abs_err"] = max(k["max_abs_err"], tf["kernels_err"][k["name"]])
         if k["name"] in k600:
             r = k600[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], r["err"])

@@ -33,6 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from plantcaduceus_tpu_torch.parallel.mesh import refuse_multi_rank
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 log = logging.getLogger(__name__)
 
@@ -172,6 +173,7 @@ def sample(args):
 
 
 def main(argv=None):
+    maybe_force_platform()
     refuse_multi_rank("cli.ar_lm")
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
@@ -206,7 +208,8 @@ def main(argv=None):
     tr.add_argument("--lr", type=float, default=3e-3)
     tr.add_argument("--seed", type=int, default=0)
     tr.add_argument("--log-every", type=int, default=20)
-    tr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    tr.add_argument("--device", default=default_device(),
+                    help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
 
     sm = sub.add_parser("sample")
     sm.add_argument("checkpoint")
@@ -215,7 +218,8 @@ def main(argv=None):
     sm.add_argument("--temperature", type=float, default=0.0)
     sm.add_argument("--top-k", type=int, default=None)
     sm.add_argument("--seed", type=int, default=0)
-    sm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sm.add_argument("--device", default=default_device(),
+                    help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
 
     args = p.parse_args(argv)
     (train if args.cmd == "train" else sample)(args)

@@ -47,6 +47,7 @@ from plantcaduceus_tpu_torch.train import loop as loop_lib
 from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 
 def parse_args(argv=None):
@@ -86,11 +87,13 @@ def parse_args(argv=None):
     p.add_argument("--fsdp", type=int, default=1,
                    help="fsdp mesh axis size: the student's weights and optimizer state "
                         "sharded over that many ranks of torch.distributed.run")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default=default_device(),
+                   help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    maybe_force_platform()
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S")

@@ -41,6 +41,7 @@ from pathlib import Path
 
 from plantcaduceus_tpu_torch.cli import lora_fine_tune
 from plantcaduceus_tpu_torch.parallel.mesh import world
+from plantcaduceus_tpu_torch.utils.platform import maybe_force_platform
 
 log = logging.getLogger(__name__)
 
@@ -112,6 +113,7 @@ def _print_table(results: dict) -> None:
 
 
 def main(argv=None):
+    maybe_force_platform()
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__)

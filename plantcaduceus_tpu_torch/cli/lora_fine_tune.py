@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from plantcaduceus_tpu_torch.parallel import mesh as meshlib
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 log = logging.getLogger(__name__)
 
@@ -443,6 +444,7 @@ def cmd_display(args):
 
 
 def main(argv=None):
+    maybe_force_platform()
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     p = argparse.ArgumentParser(description=__doc__,
@@ -480,7 +482,8 @@ def main(argv=None):
         sp.add_argument("--weight-decay", type=float, default=0.01)
         sp.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
         sp.add_argument("--seed", type=int, default=42)
-        sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        sp.add_argument("--device", default=default_device(),
+                        help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
 
     tr = sub.add_parser("train")
     common(tr)

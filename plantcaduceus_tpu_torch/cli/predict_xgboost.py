@@ -25,6 +25,7 @@ import csv
 import logging
 
 from plantcaduceus_tpu_torch.parallel import mesh as meshlib
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 log = logging.getLogger(__name__)
 
@@ -42,12 +43,14 @@ def parse_args(argv=None):
     p.add_argument("-batchSize", dest="batch_size", type=int, default=128,
                    help="rows of each forward, split over the ranks of the data axis")
     p.add_argument("-tokenIdx", dest="token_idx", type=int, default=255)
-    p.add_argument("-device", dest="device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("-device", dest="device", default=default_device(),
+                   help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
     p.add_argument("-no-progress", action="store_true", dest="no_progress")
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    maybe_force_platform()
     import torch
 
     from plantcaduceus_tpu_torch.downstream.gbm import GbmClassifier

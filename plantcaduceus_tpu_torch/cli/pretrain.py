@@ -12,20 +12,24 @@ to ``<output-dir>/final`` as an HF checkpoint directory that
 ``cli.zero_shot_score -model`` loads, with a model card (README.md: config,
 dataset, final eval metrics); ``--push-to-hub`` then uploads it, and raises
 one clear error where ``huggingface_hub`` or the network is missing. Runs
-on CUDA unless ``--device cpu`` is given, and fails when CUDA is asked for
-and absent.
+on CUDA unless ``--device cpu`` is given (or ``PCAD_PLATFORM=cpu`` with no
+``--device``), and fails when CUDA is asked for and absent.
 
 Several ranks (``python -m torch.distributed.run --nproc-per-node N -m
 plantcaduceus_tpu_torch.cli.pretrain ...``) train over a data × fsdp × seq
-mesh (JAX's ``MeshConfig(fsdp=..., seq=...)``): ``--seq S`` shards each
+× tensor × pipe mesh (JAX's ``MeshConfig``): ``--seq S`` shards each
 window's length over S ranks (context parallelism); ``--fsdp F`` shards
 the weights and both Adam moments over F ranks, each keeping its block
-(ZeRO; ``train.step.FsdpParams``); the global batch (``--batch-size`` ×
-``--grad-accum`` rows a step) splits over ``data × fsdp``. Every rank
-builds the same weights and batches from the seed; rank 0 alone writes
-checkpoints (one-process files, full tensors: a run resumes under any
-layout), logs and ``final/``. ``--tensor/--pipe/--pipe-microbatches`` are
-refused (``parallel.mesh.NOT_PORTED``).
+(ZeRO; ``train.step.FsdpParams``); ``--tensor T`` shards the mixers'
+d_inner (Mamba-2: heads) over T ranks; ``--pipe P`` splits the layers into
+P stages run as a GPipe schedule over ``--pipe-microbatches`` microbatches
+(default P; ``train.step.ModelShards``, ``parallel.pipeline``). As in
+JAX, seq does not combine with tensor, pipe combines with data and fsdp
+only, and the layers must divide over pipe. The global batch
+(``--batch-size`` × ``--grad-accum`` rows a step) splits over ``data ×
+fsdp``. Every rank builds the same weights and batches from the seed; rank
+0 alone writes checkpoints (one-process files, full tensors: a run resumes
+under any layout), logs and ``final/``.
 
 ``--dataset shards:<dir-or-file>`` streams a shard directory (or one large
 file) at O(buffer) memory (``train/streaming``); ``--eval-shards N`` holds
@@ -55,6 +59,7 @@ from plantcaduceus_tpu_torch.train import step as step_lib
 from plantcaduceus_tpu_torch.train import streaming
 from plantcaduceus_tpu_torch.train.optimizer import make_optimizer
 from plantcaduceus_tpu_torch.utils.device import resolve_device
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 STREAM_FASTA_BYTES = 256 * 2**20  # a larger FASTA streams (the JAX CLI's threshold)
 
@@ -103,31 +108,34 @@ def parse_args(argv=None):
     p.add_argument("--seq", type=int, default=1,
                    help="sequence(context)-parallel mesh axis size (ranks of "
                         "torch.distributed.run)")
-    p.add_argument("--tensor", type=int, default=1, help="tensor axis size (not ported yet)")
-    p.add_argument("--pipe", type=int, default=1, help="pipeline axis size (not ported yet)")
+    p.add_argument("--tensor", type=int, default=1,
+                   help="tensor mesh axis size (the mixers' d_inner over that many ranks)")
+    p.add_argument("--pipe", type=int, default=1,
+                   help="pipeline-parallel mesh axis size (GPipe stages over the layer "
+                        "stack; n_layer must divide by it)")
     p.add_argument("--pipe-microbatches", type=int, default=None,
-                   help="GPipe microbatch count (not ported yet)")
+                   help="GPipe microbatch count (default: --pipe; raise to shrink the "
+                        "pipeline bubble, efficiency M/(M+stages-1); must divide the "
+                        "folded batch rows)")
     p.add_argument("--profile-dir", default=None,
                    help="torch.profiler trace dir (traces steps 10-12 of the run)")
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--wandb-run-name", default=None)
     p.add_argument("--push-to-hub", default=None, metavar="REPO_ID")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-    unported = {k: getattr(args, k) for k in ("tensor", "pipe") if getattr(args, k) > 1}
-    if unported or args.pipe_microbatches:
-        p.error(f"{unported or '--pipe-microbatches'}: {meshlib.NOT_PORTED}")
-    return args
+    p.add_argument("--device", default=default_device(),
+                   help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
+    return p.parse_args(argv)
 
 
 def main(argv=None):
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S")
+    maybe_force_platform()
     args = parse_args(argv)
     resolve_device(args.device)  # before any work: no silent CPU run
     device = meshlib.initialize_distributed(args.device)  # this rank's device
-    mesh = meshlib.cli_mesh(args.seq, fsdp=args.fsdp)
+    mesh = meshlib.cli_mesh(args.seq, fsdp=args.fsdp, tensor=args.tensor, pipe=args.pipe)
     rank = meshlib.world()[0]
 
     if args.config:
@@ -147,7 +155,8 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     init_state, train_step, eval_step = step_lib.make_train_step(
         cfg, optimizer, model, dtype=dtype, remat=not args.no_remat,
-        grad_accum=args.grad_accum, device=device, mesh=mesh)
+        grad_accum=args.grad_accum, device=device, mesh=mesh,
+        pp_microbatches=args.pipe_microbatches)
     state = init_state()
     # One optimizer step consumes batch_size * grad_accum rows (over a mesh:
     # the global batch, split over the data axis).

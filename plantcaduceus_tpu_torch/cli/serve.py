@@ -41,6 +41,7 @@ import signal
 import sys
 
 from plantcaduceus_tpu_torch.parallel import mesh as meshlib
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 
 def parse_args(argv=None):
@@ -64,7 +65,8 @@ def parse_args(argv=None):
                    choices=["bfloat16", "float32"])
     p.add_argument("-warmup", action="store_true",
                    help="run the forward once before accepting requests")
-    p.add_argument("-device", dest="device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("-device", dest="device", default=default_device(),
+                   help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
     return p.parse_args(argv)
 
 
@@ -73,6 +75,7 @@ def _interrupt(signum, frame):
 
 
 def main(argv=None):
+    maybe_force_platform()
     import numpy as np
     import torch
 

@@ -47,6 +47,7 @@ import re
 import numpy as np
 
 from plantcaduceus_tpu_torch.parallel import mesh as meshlib
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 log = logging.getLogger(__name__)
 
@@ -68,7 +69,8 @@ def parse_args(argv=None):
     p.add_argument("-save_memory", action="store_true", dest="save_memory")
     p.add_argument("-chunk_size", dest="chunk_size", type=int, default=100000)
     p.add_argument("-seed", dest="seed", type=int, default=42)
-    p.add_argument("-device", dest="device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("-device", dest="device", default=default_device(),
+                   help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
     p.add_argument("-no-progress", action="store_true", dest="no_progress")
     return p.parse_args(argv)
 
@@ -196,6 +198,7 @@ def score_test(args, xgb_model, prefix, n_test):
 
 
 def main(argv=None):
+    maybe_force_platform()
     from plantcaduceus_tpu_torch.downstream.gbm import GbmClassifier
 
     logging.basicConfig(force=True, level=logging.INFO,

@@ -39,6 +39,7 @@ import numpy as np
 
 from plantcaduceus_tpu_torch.io.parquet import read_parquet
 from plantcaduceus_tpu_torch.io.tables import open_table
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 log = logging.getLogger(__name__)
 
@@ -235,6 +236,7 @@ def cmd_sv_effect(args):
 
 
 def main(argv=None):
+    maybe_force_platform()
     logging.basicConfig(force=True, level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__,
@@ -254,7 +256,8 @@ def main(argv=None):
         sp.add_argument("--seq", type=int, default=1,
                         help="context-parallel mesh shards over the window length "
                              "(ranks of torch.distributed.run)")
-        sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        sp.add_argument("--device", default=default_device(),
+                        help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
         sp.add_argument("--no-progress", action="store_true")
 
     ec = sub.add_parser("evo_cons")

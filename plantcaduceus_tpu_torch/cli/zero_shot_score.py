@@ -32,6 +32,7 @@ from plantcaduceus_tpu_torch.engine.runner import InferenceRunner
 from plantcaduceus_tpu_torch.parallel import mesh as meshlib
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
+from plantcaduceus_tpu_torch.utils.platform import default_device, maybe_force_platform
 
 
 def parse_args(argv=None):
@@ -55,8 +56,8 @@ def parse_args(argv=None):
                         "length (ranks of torch.distributed.run)")
     p.add_argument("-dtype", dest="dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
-    p.add_argument("-device", dest="device", default="cuda",
-                   help="cuda (default) or cpu")
+    p.add_argument("-device", dest="device", default=default_device(),
+                   help="cuda (default; PCAD_PLATFORM=cpu makes it cpu) or cpu")
     p.add_argument("-no-progress", action="store_true", dest="no_progress")
     args = p.parse_args(argv)
     if args.input_vcf and not args.input_fasta:
@@ -65,6 +66,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    maybe_force_platform()
     logging.basicConfig(
         force=True,
         level=logging.INFO,

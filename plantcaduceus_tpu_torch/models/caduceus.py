@@ -39,6 +39,22 @@ Mixer paths:
   K4, K6) and the gated norm; K5 does not run there. The RC stream's flip
   and the LM head's flip reverse the shard order too.
 
+* tensor parallelism (``tp=``, a ``parallel.mesh.Axis`` over which the
+  mixers' d_inner axis is sharded; JAX's ``tp_axis``): the layer's weights
+  are this rank's slices (``parallel.mesh.tensor_dims``). Mamba-1 runs the
+  decomposed route as JAX does there: in_proj, conv and x_proj at the local
+  d_inner, one sum over ``tp`` of x_proj's dt/B/C products (both
+  directions' in one all-reduce), K1 (K1-hb and K3 under training) per
+  direction with dt_proj fused, the gate, out_proj and its sum; K2 does not
+  run there, as in JAX. Mamba-2 shards heads (``n_groups`` must be 1): the
+  five in-projections (B and C whole on every rank), the three convs, K4
+  (K4 with chunk-entry states and K6 in plain mode under training) per
+  direction, the gate, the gated RMS norm with its sum of squares summed
+  over ``tp``, out_proj and its sum; K5 does not run there. The input
+  enters through ``tp_boundary`` (the identity, its adjoint a sum), the
+  sums feeding the sharded scans sum their adjoints too (``psum_psum_bwd``)
+  and out_proj's does not (``psum_id_bwd``), as JAX's custom VJPs.
+
 Under training (grad enabled, and the input or a weight requiring it) the
 same paths go through autograd Functions: ``BimambaMixerFn`` (K2's residual
 variant, K3 in the backward), ``SelectiveScanFn`` (K1 with chunk-entry
@@ -71,7 +87,9 @@ from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd, scan_fwd_plain, sele
 from plantcaduceus_tpu_torch.ops.norms import layer_norm, rms_norm
 from plantcaduceus_tpu_torch.ops.seq_parallel import scan_seq_sharded
 from plantcaduceus_tpu_torch.ops.ssd_seq_parallel import ssd_dir_seq_sharded
-from plantcaduceus_tpu_torch.parallel.collectives import ppermute
+from plantcaduceus_tpu_torch.ops.cuda_ssd import ssd_dir, ssd_dir_plain, ssd_dir_train
+from plantcaduceus_tpu_torch.parallel.collectives import (ppermute, psum_id_bwd, psum_psum_bwd,
+                                                          tp_boundary)
 
 LAYER_KEYS = ("norm_weight", "in_proj_x", "in_proj_z", "out_proj", "conv_w",
               "conv_b", "x_proj_dt", "x_proj_B", "x_proj_C", "dt_proj_w",
@@ -236,11 +254,11 @@ class Caduceus(nn.Module):
     def forward(self, input_ids: torch.Tensor, dtype=torch.bfloat16,
                 output_hidden_states: bool = False, all_hidden_states: bool = False,
                 use_kernels: bool = True, remat: bool = False,
-                sp=None) -> Dict[str, torch.Tensor]:
+                sp=None, tp=None) -> Dict[str, torch.Tensor]:
         return forward(self, input_ids, dtype=dtype,
                        output_hidden_states=output_hidden_states,
                        all_hidden_states=all_hidden_states, use_kernels=use_kernels,
-                       remat=remat, sp=sp)
+                       remat=remat, sp=sp, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +285,9 @@ SP_MAMBA_MSG = ("sequence parallelism needs bidirectional 'add', tied in_proj, "
                 "and no tensor axis")
 SP_LORA_MSG = ("activation-path LoRA does not compose with tensor/sequence "
                "axes; merge adapters (train.lora.merge_lora) instead")
+TP_GROUPS_MSG = ("mamba2 tensor parallelism requires n_groups == 1 (grouped "
+                 "B/C would need group-aligned head sharding)")
+SP_TP_MAMBA2_MSG = "mamba2 mixer: tensor and sequence axes cannot combine"
 
 
 def _norm(x, w, cfg):
@@ -375,7 +396,7 @@ def _add_lora(base: torch.Tensor, lora: Optional[dict], name: str, x: torch.Tens
 
 def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
                 use_kernels: bool = True, lora: Optional[dict] = None,
-                sp=None) -> torch.Tensor:
+                sp=None, tp=None) -> torch.Tensor:
     """One (Bi)Mamba mixer over ``x: [rows, L, d]``. ``p`` holds one layer's
     weights. Under training (grad enabled, and ``x``, a weight or an adapter
     requiring it) the kernels run through their autograd Functions.
@@ -391,20 +412,25 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
     With ``sp`` (context parallelism; ``x`` holds this rank's chunk of L)
     the tied + add config runs the same decomposed route with the halo conv
     and the sharded scan (``ops.seq_parallel``), whatever ``use_kernels``
-    says; other configs and LoRA are refused, as in JAX."""
+    says; other configs and LoRA are refused, as in JAX.
+
+    With ``tp`` (tensor parallelism; ``p`` holds this rank's d_inner slice)
+    any config takes the decomposed route with x_proj's products and
+    out_proj's summed over ``tp``; LoRA is refused, as in JAX."""
     G = cfg.n_directions
     cdtype = x.dtype
     Gio = p["in_proj_x"].shape[0]
     A = -torch.exp(p["A_log"].float())                          # [G, D, N]
     train = use_kernels and _training(p, x, lora)
     tied_add = G == 2 and Gio == 1 and cfg.bidirectional_strategy == "add"
-    if sp is not None:
-        if lora is not None:
-            raise NotImplementedError(SP_LORA_MSG)
-        if not tied_add:
-            raise NotImplementedError(SP_MAMBA_MSG)
+    if lora is not None and (tp is not None or sp is not None):
+        raise NotImplementedError(SP_LORA_MSG)
+    if sp is not None and not tied_add:
+        raise NotImplementedError(SP_MAMBA_MSG)
+    if tp is not None:
+        x = tp_boundary(x, tp)
 
-    if tied_add and lora is None and sp is None:
+    if tied_add and lora is None and sp is None and tp is None:
         # Released-model path: K2 once per direction (K2-res and K3 under training).
         xi = x @ p["in_proj_x"][0].to(cdtype)
         z = x @ p["in_proj_z"][0].to(cdtype)
@@ -421,16 +447,25 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
                   lora, "in_proj_z", x)
     Gx = xi.shape[0]
     conv_w, conv_b = p["conv_w"].to(cdtype), p["conv_b"].to(cdtype)
-    ys = []
+    xgs, projs = [], []
     for g in range(G):
         if sp is not None:
             xg = halo_depthwise_conv_silu(xi[0], conv_w[g], conv_b[g], g == 1, sp)
         else:
             xg = causal_conv1d(xi[min(g, Gx - 1)], conv_w[g], conv_b[g],
                                activation="silu", anticausal=(g == 1))
-        dt_lr, Bm, Cm = (
-            _add_lora(xg @ p[k][g].to(cdtype), lora, k, xg, g=g)
-            for k in ("x_proj_dt", "x_proj_B", "x_proj_C"))
+        xgs.append(xg)
+        projs.append([_add_lora(xg @ p[k][g].to(cdtype), lora, k, xg, g=g)
+                      for k in ("x_proj_dt", "x_proj_B", "x_proj_C")])
+    if tp is not None:
+        # x_proj contracts the sharded d_inner: one sum of every direction's
+        # dt/B/C products (JAX's three _maybe_psum_sharded_consumer sums)
+        sizes = [t.shape[-1] for t in projs[0]]
+        summed = psum_psum_bwd(torch.stack([torch.cat(pr, -1) for pr in projs]), tp)
+        projs = [list(summed[g].split(sizes, -1)) for g in range(G)]
+    ys = []
+    for g in range(G):
+        xg, (dt_lr, Bm, Cm) = xgs[g], projs[g]
         if sp is not None:
             ys.append(scan_seq_sharded(xg, dt_lr, A[g], Bm, Cm, p["D"][g], p["dt_proj_b"][g],
                                        p["dt_proj_w"][g].float(), sp, reverse=(g == 1)))
@@ -444,13 +479,14 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
     if tied_add:
         # Tied + add under LoRA: share the gate, one out_proj (one dropout mask).
         y_sum = (ys[0] + ys[1]) * gate[0]
-        return _add_lora(y_sum @ p["out_proj"][0].to(cdtype), lora, "out_proj", y_sum, g=0)
+        return psum_id_bwd(_add_lora(y_sum @ p["out_proj"][0].to(cdtype), lora, "out_proj",
+                                     y_sum, g=0), tp)
     Go = p["out_proj"].shape[0]
     outs = []
     for g in range(G):
         og = ys[g] * gate[min(g, gate.shape[0] - 1)]
-        outs.append(_add_lora(og @ p["out_proj"][min(g, Go - 1)].to(cdtype), lora, "out_proj",
-                              og, g=g))
+        outs.append(psum_id_bwd(_add_lora(og @ p["out_proj"][min(g, Go - 1)].to(cdtype), lora,
+                                          "out_proj", og, g=g), tp))
     if G == 1:
         return outs[0]
     if cfg.bidirectional_strategy == "add":
@@ -460,7 +496,7 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
 
 def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig,
                  use_kernels: bool = True, lora: Optional[dict] = None,
-                 sp=None) -> torch.Tensor:
+                 sp=None, tp=None) -> torch.Tensor:
     """One (Bi)Mamba-2 (SSD) mixer over ``x: [rows, L, d]`` (JAX
     ``mamba2_mixer`` on one device). Per direction: the x, z, B, C and dt
     in-projections, K5 (conv, SiLU, the SSD chunk scan, gated RMS norm; the
@@ -477,12 +513,30 @@ def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfi
     With ``sp`` (context parallelism; ``x`` holds this rank's chunk of L)
     the interior is decomposed as JAX decomposes it there: the three halo
     convs, the sharded SSD (``ops.ssd_seq_parallel``: K4 and K6 on the
-    card), the gate and the RMS norm; LoRA is refused."""
+    card), the gate and the RMS norm; LoRA is refused.
+
+    With ``tp`` (tensor parallelism; ``p`` holds this rank's heads, B and C
+    whole) the interior is decomposed as JAX decomposes it there: the three
+    convs, K4 (``SsdDirFn`` under training: K4 with chunk-entry states, K6
+    in plain mode), the gate and the gated RMS norm over the whole d_inner
+    (its sum of squares summed over ``tp``); out_proj's products are summed
+    over ``tp``. ``n_groups`` must be 1; LoRA is refused."""
     G = cfg.n_directions
     cdtype = x.dtype
-    if sp is not None and lora is not None:
+    if sp is not None and tp is not None:
+        raise NotImplementedError(SP_TP_MAMBA2_MSG)
+    if lora is not None and (sp is not None or tp is not None):
         raise NotImplementedError(SP_LORA_MSG)
-    if sp is not None:
+    if tp is not None:
+        if p["in_proj_B"].shape[-1] // cfg.d_state > 1:
+            raise NotImplementedError(TP_GROUPS_MSG)
+        if not use_kernels:
+            ssd = ssd_dir_plain
+        else:
+            ssd = ssd_dir_train if _training(p, x) else ssd_dir
+        x = tp_boundary(x, tp)
+        interior = functools.partial(_mamba2_interior_tp, ssd=ssd)
+    elif sp is not None:
         interior = functools.partial(_mamba2_interior_sp, sp=sp)
     elif not use_kernels:
         interior = mamba2_mixer_interior_plain
@@ -505,10 +559,15 @@ def mamba2_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfi
                      A[g], p["D"][g], p["dt_bias"][g], d_state=cfg.d_state,
                      eps=cfg.norm_epsilon, chunk=cfg.chunk_size, reverse=(g == 1))
             for g in range(G)]
+    if tp is not None:
+        outs = _tp_gated_norm(outs, [p["mixer_norm_weight"][min(g, Gn - 1)] for g in range(G)],
+                              cfg, tp)
     if G == 2 and Go == 1 and cfg.bidirectional_strategy == "add":
         o_sum = outs[0] + outs[1]
-        return _add_lora(o_sum @ p["out_proj"][0].to(cdtype), lora, "out_proj", o_sum, g=0)
-    projs = [_add_lora(o @ p["out_proj"][min(g, Go - 1)].to(cdtype), lora, "out_proj", o, g=g)
+        return psum_id_bwd(_add_lora(o_sum @ p["out_proj"][0].to(cdtype), lora, "out_proj",
+                                     o_sum, g=0), tp)
+    projs = [psum_id_bwd(_add_lora(o @ p["out_proj"][min(g, Go - 1)].to(cdtype), lora,
+                                   "out_proj", o, g=g), tp)
              for g, o in enumerate(outs)]
     if G == 1:
         return projs[0]
@@ -535,6 +594,37 @@ def _mamba2_interior_sp(xi, z, Braw, Craw, dt, conv_x_w, conv_x_b, conv_B_w, con
     return rms_norm(y.to(cd) * F.silu(z), norm_w.to(cd), eps)
 
 
+def _mamba2_interior_tp(xi, z, Braw, Craw, dt, conv_x_w, conv_x_b, conv_B_w, conv_B_b,
+                        conv_C_w, conv_C_b, norm_w, A, Dskip, dt_bias, *, d_state, eps, chunk,
+                        reverse, ssd):
+    """One Mamba-2 direction's interior on this rank's heads (JAX
+    ``mamba2_mixer``'s tensor-parallel branch) up to the gate: the three
+    convs, ``ssd`` and ``y * silu(z)``, in the compute dtype. The gated norm
+    follows over every direction at once (:func:`_tp_gated_norm`)."""
+    cd = xi.dtype
+    conv = lambda t, w, b: causal_conv1d(t, w.to(cd), b.to(cd), activation="silu",
+                                         anticausal=reverse)
+    xs, Bs, Cs = conv(xi, conv_x_w, conv_x_b), conv(Braw, conv_B_w, conv_B_b), \
+        conv(Craw, conv_C_w, conv_C_b)
+    rows, L = xi.shape[:2]
+    NG = Bs.shape[-1] // d_state
+    y = ssd(xs, dt, A, Bs.reshape(rows, L, NG, d_state), Cs.reshape(rows, L, NG, d_state),
+            Dskip, dt_bias, chunk, reverse)
+    return y.to(cd) * F.silu(z)
+
+
+def _tp_gated_norm(us, norm_ws, cfg: CaduceusConfig, tp):
+    """The gated RMS norm of each direction's ``u`` over the whole, sharded
+    d_inner: the sums of squares of every direction summed over ``tp`` in
+    one all-reduce whose adjoint sums too (the sharded-consumer rule), over
+    ``cfg.d_inner`` (JAX ``caduceus.py:764-772``)."""
+    ufs = [u.float() for u in us]
+    ss = psum_psum_bwd(torch.stack([(uf * uf).sum(-1, keepdim=True) for uf in ufs]), tp)
+    cd = us[0].dtype
+    return [(uf * torch.rsqrt(ss[g] / cfg.d_inner + cfg.norm_epsilon)).to(cd) * w.to(cd)
+            for g, (uf, w) in enumerate(zip(ufs, norm_ws))]
+
+
 def embed_residual(model: Caduceus, input_ids: torch.Tensor,
                    dtype=torch.bfloat16, sp=None) -> torch.Tensor:
     """Token embedding -> residual stream ``[S*B, L, d]`` (S=2 with rcps:
@@ -555,9 +645,29 @@ def embed_residual(model: Caduceus, input_ids: torch.Tensor,
     return hidden.float() if cfg.residual_in_fp32 else hidden
 
 
+def make_block_fn(cfg: CaduceusConfig, dtype=torch.bfloat16, use_kernels: bool = True,
+                  remat: bool = False, sp=None, tp=None):
+    """One residual block, ``block(res, p) -> res + mixer(norm(res))`` over a
+    layer's weights ``p`` (JAX ``make_block_fn``): the single definition of
+    the backbone and the pipeline stages. ``remat=True`` recomputes the
+    block in the backward pass (``torch.utils.checkpoint``) when gradients
+    are on."""
+    mixer = mamba2_mixer if cfg.ssm_variant == "mamba2" else mamba_mixer
+
+    def block(res, p):
+        normed = _norm(res.to(dtype), p["norm_weight"], cfg)
+        out = mixer(p, normed, cfg, use_kernels=use_kernels, sp=sp, tp=tp)
+        return res + out.to(res.dtype)
+
+    if not remat:
+        return block
+    return lambda res, p: (checkpoint(block, res, p, use_reentrant=False)
+                           if torch.is_grad_enabled() else block(res, p))
+
+
 def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
              collect_layers: bool = False, use_kernels: bool = True,
-             remat: bool = False, lora: Optional[dict] = None, sp=None):
+             remat: bool = False, lora: Optional[dict] = None, sp=None, tp=None):
     """Embedding, n_layer blocks, final norm. Returns the working-frame
     hidden states ``[S*B, L, d]``; with ``collect_layers`` also the list of
     each block's residual-stream input (in ``dtype``). ``remat=True``
@@ -569,28 +679,30 @@ def backbone(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
     ``{"adapters": {name: {"a", "b"}}, "scale", "dropout", "seed"}``; each
     layer takes its slice and the seed folded with its index, so its
     dropout masks are a function of (seed, layer) and a recompute draws
-    them again. ``sp``: context parallelism over that axis (the mixers)."""
+    them again. ``sp``: context parallelism over that axis, ``tp``: tensor
+    parallelism over that one (the mixers)."""
     cfg = model.cfg
     mixer = mamba2_mixer if cfg.ssm_variant == "mamba2" else mamba_mixer
     residual = embed_residual(model, input_ids, dtype, sp)
+    run = make_block_fn(cfg, dtype, use_kernels, remat, sp, tp)
     per_layer = []
     for i, layer in enumerate(model.layers):
         p = layer.params()
         if collect_layers:
             per_layer.append(residual.to(dtype))
-        ctx = None
-        if lora is not None:
-            seed = lora.get("seed")
-            ctx = {"adapters": {n: {k: t[i] for k, t in ab.items()}
-                                for n, ab in lora["adapters"].items()},
-                   "scale": lora["scale"], "dropout": lora.get("dropout", 0.0),
-                   "seed": None if seed is None else fold_in(seed, i)}
+        if lora is None:
+            residual = run(residual, p)
+            continue
+        seed = lora.get("seed")
+        ctx = {"adapters": {n: {k: t[i] for k, t in ab.items()}
+                            for n, ab in lora["adapters"].items()},
+               "scale": lora["scale"], "dropout": lora.get("dropout", 0.0),
+               "seed": None if seed is None else fold_in(seed, i)}
 
         def block(res, p=p, ctx=ctx):
             normed = _norm(res.to(dtype), p["norm_weight"], cfg)
             # a fresh mask cache per call: the recompute draws its masks anew
-            out = mixer(p, normed, cfg, use_kernels=use_kernels,
-                        lora=None if ctx is None else dict(ctx), sp=sp)
+            out = mixer(p, normed, cfg, use_kernels=use_kernels, lora=dict(ctx), sp=sp, tp=tp)
             return res + out.to(res.dtype)
 
         residual = (checkpoint(block, residual, use_reentrant=False)
@@ -628,15 +740,17 @@ def lm_logits(model: Caduceus, h_work: torch.Tensor, sp=None) -> torch.Tensor:
 def forward(model: Caduceus, input_ids: torch.Tensor, dtype=torch.bfloat16,
             output_hidden_states: bool = False, all_hidden_states: bool = False,
             use_kernels: bool = True, remat: bool = False,
-            sp=None) -> Dict[str, torch.Tensor]:
+            sp=None, tp=None) -> Dict[str, torch.Tensor]:
     """Masked-LM forward: ``logits [B, L, V]``, optionally ``hidden_states``
     (final layer) and ``all_hidden_states [n_layer+1, B, L, hidden]`` (entry
     k = block k's input, last = ``hidden_states``). ``remat`` as
     :func:`backbone`. ``sp`` (a ``parallel.mesh.Axis``): context
     parallelism; ``input_ids`` hold this rank's chunk of L, and the outputs
-    come back sharded the same way."""
+    come back sharded the same way. ``tp`` (an Axis): tensor parallelism;
+    the model's mixer weights are this rank's slices, and the outputs are
+    whole on every rank."""
     h_work = backbone(model, input_ids, dtype, collect_layers=all_hidden_states,
-                      use_kernels=use_kernels, remat=remat, sp=sp)
+                      use_kernels=use_kernels, remat=remat, sp=sp, tp=tp)
     per_layer = None
     if all_hidden_states:
         h_work, per_layer = h_work

@@ -18,6 +18,18 @@ Adjoints, as JAX transposes them:
   the reverse ``ppermute``;
 * ``psum`` sums over the axis; its adjoint sums the cotangents.
 
+The tensor-parallel mixers pin their sums' adjoints down as JAX's custom
+VJPs do (``models/caduceus.py`` ``_psum_id_bwd``, ``_psum_psum_bwd``,
+``_tp_boundary``):
+* ``psum_id_bwd``: a sum forward, the identity backward (out_proj's
+  partial products, summed into the replicated residual stream, whose
+  cotangent is already whole on every rank);
+* ``psum_psum_bwd``: a sum both ways (x_proj's dt/B/C and the Mamba-2
+  gated norm's sum of squares, consumed by every rank's shard, each of
+  which returns only its part of the cotangent);
+* ``tp_boundary``: the identity forward, a sum backward (the replicated
+  input entering the sharded projections).
+
 Under gloo (``Axis.staged``) every collective copies its tensors to the
 host, runs there and copies the result back to the tensor's device,
 whatever the device: nothing depends on which device operations gloo
@@ -143,6 +155,27 @@ class _Psum(torch.autograd.Function):
         return _all_reduce(g, ctx.axis), None
 
 
+class _PsumIdBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return _all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TpBoundary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis), None
+
+
 def all_gather(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``[axis.size, *t.shape]``: every rank's ``t`` in axis order
     (``jax.lax.all_gather``, untiled)."""
@@ -194,3 +227,27 @@ def psum(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size == 1:
         return t
     return _Psum.apply(t, axis)
+
+
+def psum_id_bwd(t: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``t`` over the axis, with the identity as its adjoint
+    (JAX ``_psum_id_bwd``); ``t`` itself without an axis."""
+    if axis is None or axis.size == 1:
+        return t
+    return _PsumIdBwd.apply(t, axis)
+
+
+def psum_psum_bwd(t: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``t`` over the axis, its adjoint a sum too (JAX
+    ``_psum_psum_bwd``: :func:`psum`); ``t`` itself without an axis."""
+    if axis is None or axis.size == 1:
+        return t
+    return _Psum.apply(t, axis)
+
+
+def tp_boundary(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t``, with the sum over the axis as its adjoint (JAX
+    ``_tp_boundary``); ``t`` itself without an axis."""
+    if axis is None or axis.size == 1:
+        return t
+    return _TpBoundary.apply(t, axis)

@@ -13,7 +13,16 @@ device order (``pipe`` innermost), so rank = ``(((d·F + f)·S + s)·T + t)·P
              ``data`` (JAX ``batch_spec()``: ``P(("data", "fsdp"))``)
     seq    — context parallel over the L axis (halo exchanges and the
              two-pass sharded scan; models/caduceus.py)
-    tensor, pipe — not ported yet (``NOT_PORTED``)
+    tensor — tensor parallel over the mixers' d_inner axis (Mamba-2: the
+             heads); each rank keeps its slice of those leaves
+             (``param_specs(replicated=False)``, ``tensor_dims``) and the
+             mixers sum the contractions over d_inner (models/caduceus.py)
+    pipe   — pipeline parallel over the layer stack (GPipe schedule;
+             parallel/pipeline.py); each rank keeps its stage's layers
+             (``param_specs(pipeline=True)``)
+
+As in JAX, ``seq`` does not combine with ``tensor``, and ``pipe`` combines
+with ``data`` and ``fsdp`` only; the layers must divide over ``pipe``.
 
 The backend is chosen once, from the configuration (:func:`choose_backend`):
 NCCL where every rank has a card of its own, gloo where the ranks run on
@@ -35,14 +44,18 @@ import torch.distributed as dist
 log = logging.getLogger(__name__)
 
 AXES = ("data", "fsdp", "seq", "tensor", "pipe")
-NOT_PORTED = ("not ported to the PyTorch port yet (ROADMAP.md, Queue 1 items 9d/9e: "
-              "tensor and pipeline parallelism)")
 # The axis sets that get process groups: each axis, the batch axes (the
 # gradient sums of LoRA and distillation), the data and seq axes (the
-# sharded leaves' gradient sum before the fsdp reduce-scatter) and all three
-# (the loss normaliser and the replicated leaves' gradient sum).
+# sharded leaves' gradient sum before the fsdp reduce-scatter), all three
+# (the loss normaliser and the replicated leaves' gradient sum), the batch
+# axes with pipe (the last stage's gated loss and accuracy), and every axis
+# (the gradient norm of leaves split over tensor, pipe and fsdp).
 GROUP_AXES = tuple((a,) for a in AXES) + (("data", "fsdp"), ("data", "seq"),
-                                          ("data", "fsdp", "seq"))
+                                          ("data", "fsdp", "seq"), ("data", "fsdp", "pipe"), AXES)
+SEQ_TENSOR_MSG = ("sequence and tensor parallelism cannot be combined "
+                  "(the context-parallel mixer needs unsharded d_inner)")
+PIPE_MSG = ("pipeline parallelism combines with data/fsdp only "
+            "(parallel/pipeline.py module docstring)")
 DEFAULT_TIMEOUT_S = 600.0
 
 
@@ -176,16 +189,11 @@ def make_mesh(config: Optional[MeshConfig] = None,
     """The grid over every rank of the process group (one rank, and no
     group, in a single process). Every rank must call it with the same
     config: the groups of every line are created on every rank, in one
-    order."""
+    order. Refuses JAX's axis combinations (:func:`check_axes`) first."""
     config = config or MeshConfig()
     rank, n = world()
     shape = dict(zip(AXES, config.resolve(n)))
-    if shape["seq"] > 1 and shape["tensor"] > 1:
-        raise ValueError("sequence and tensor parallelism cannot be combined "
-                         "(the context-parallel mixer needs unsharded d_inner)")
-    unported = {k: v for k, v in shape.items() if k in ("tensor", "pipe") and v > 1}
-    if unported:
-        raise NotImplementedError(f"mesh axes {unported}: {NOT_PORTED}")
+    check_axes(shape)
     grid = rank_grid(shape)
     dims = list(grid.shape)
     coords = dict(zip(AXES, (int(i) for i in (grid == rank).nonzero()[0])))
@@ -209,6 +217,22 @@ def make_mesh(config: Optional[MeshConfig] = None,
                 mine = (line, made[line])
         groups[names] = mine
     return Mesh(shape, coords, rank, n, backend, groups)
+
+
+def check_axes(shape: Dict[str, int]) -> None:
+    """JAX's refusals of axis combinations (``make_grad_fn``,
+    ``make_train_step``): seq with tensor; pipe with tensor or seq."""
+    if shape.get("pipe", 1) > 1 and (shape.get("tensor", 1) > 1 or shape.get("seq", 1) > 1):
+        raise ValueError(PIPE_MSG)
+    if shape.get("seq", 1) > 1 and shape.get("tensor", 1) > 1:
+        raise ValueError(SEQ_TENSOR_MSG)
+
+
+def check_stages(n_layer: int, pipe: int) -> None:
+    """JAX ``make_train_step``'s refusal of a layer count that does not
+    divide over the pipeline stages."""
+    if pipe > 1 and n_layer % pipe:
+        raise ValueError(f"n_layer={n_layer} must divide evenly over pipe={pipe} stages")
 
 
 SEQ_SHARDED_KEYS = frozenset({"input_ids", "labels", "loss_weights"})
@@ -251,30 +275,140 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
     return out
 
 
-def param_specs(replicated: bool = True, pipeline: bool = False):
-    """Partition rule ``rule(name, shape) -> spec`` for the parameters (JAX
-    ``param_specs`` at ``tensor`` 1). ``replicated=True``: every leaf
-    replicated (an empty spec). ``replicated=False``: FSDP, the leaf's
-    largest axis of size above 1 (the first of equals) over ``"fsdp"``, a
-    spec of one entry per axis; a leaf with no such axis stays replicated
-    (all ``None``). It applies to the port's own per-layer leaves: the
-    layout is internal, and checkpoints hold full tensors.
-    ``pipeline=True`` is refused (``make_mesh`` refuses the tensor axis)."""
-    if pipeline:
-        raise NotImplementedError(
-            f"sharded parameter layouts (replicated={replicated}, pipeline={pipeline}) are "
-            f"{NOT_PORTED}")
-    if replicated:
-        return lambda path, shape: ()
+# Mamba-2 (SSD) leaves that stay replicated over 'tensor' although the
+# head-sharded mixer consumes them on every tensor rank: each rank's gradient
+# is a partial that the train step sums over 'tensor' as well (JAX
+# ``TENSOR_PARTIAL_LEAVES``). Kept beside the tensor rule of ``param_specs``;
+# ``validate_tp_grad_coverage`` checks that every block leaf is covered by one
+# of the two.
+TENSOR_PARTIAL_LEAVES = ("in_proj_B", "in_proj_C", "conv_B_w", "conv_B_b",
+                         "conv_C_w", "conv_C_b")
 
-    def rule(path, shape):
+# Block leaves outside the tensor-sharded mixer interior (the residual RMS
+# norm): replicated over 'tensor', and their gradients are already whole on
+# every rank (``_tp_boundary``'s adjoint sums the cotangent entering the
+# mixer), so they need neither a 'tensor' axis nor a sum.
+_TP_FULL_GRAD_BLOCK_LEAVES = ("norm_weight",)
+
+# The tensor rule: the d_inner (Mamba-2: heads) axis of each mixer leaf, in
+# the JAX layout (stacked on n_layer; [L, G or Gio, ...]).
+TP_AXES = {
+    "in_proj_x": 3,   # [L, Gio, d, di]
+    "in_proj_z": 3,
+    "out_proj": 2,    # [L, Gio, di, d] -> di (contracted; summed)
+    "conv_w": 2, "conv_b": 2,
+    "x_proj_dt": 2,   # [L, G, di, R]
+    "x_proj_B": 2, "x_proj_C": 2,
+    "dt_proj_w": 3,   # [L, G, R, di]
+    "dt_proj_b": 2, "A_log": 2, "D": 2,
+    "in_proj_dt": 3,  # [L, G, d, H]
+    "conv_x_w": 2, "conv_x_b": 2,        # [L, G, di, K] / [L, G, di]
+    "mixer_norm_weight": 2,              # [L, Gio, di]
+    "dt_bias": 2,                        # [L, G, H]
+}
+
+
+def param_specs(replicated: bool = True, pipeline: bool = False):
+    """Partition rule ``rule(path, shape) -> spec`` for the parameters in the
+    JAX layout (``path`` like ``"blocks/in_proj_x"``, block leaves stacked on
+    n_layer), JAX ``param_specs``'s rule: a spec is a tuple of one axis name
+    or None per dimension, ``()`` replicated.
+
+    ``replicated=True``: every leaf replicated. ``replicated=False``: the
+    tensor rule (``TP_AXES``: each mixer leaf's d_inner axis over
+    ``"tensor"``), then FSDP: the largest remaining axis of size above 1
+    (the first of equals) over ``"fsdp"``. ``pipeline=True``: every block
+    leaf's n_layer axis over ``"pipe"`` (stages hold disjoint layers, even
+    when replicated), and without ``replicated`` the largest other axis over
+    fsdp; the embedding, final norm and head stay replicated across stages.
+    The port's FSDP applies the largest-axis rule to its own per-layer
+    leaves (``fsdp_dims``), and its tensor layout takes the tensor axis of
+    this rule (``tensor_dims``): the layouts are internal, and checkpoints
+    hold full tensors."""
+
+    def rule(path: str, shape: Tuple[int, ...]) -> tuple:
+        if pipeline and "blocks" in path.split("/"):
+            axes: list = [None] * len(shape)
+            axes[0] = "pipe"
+            if not replicated:
+                free = [i for i, a in enumerate(axes) if a is None and shape[i] > 1]
+                if free:
+                    axes[max(free, key=lambda i: shape[i])] = "fsdp"
+            return tuple(axes)
+        if replicated:
+            return ()
+        leaf = path.split("/")[-1]
         axes = [None] * len(shape)
-        free = [i for i, n in enumerate(shape) if n > 1]
+        if leaf in TP_AXES and len(shape) > TP_AXES[leaf]:
+            axes[TP_AXES[leaf]] = "tensor"
+        free = [i for i, a in enumerate(axes) if a is None and shape[i] > 1]
         if free:
             axes[max(free, key=lambda i: shape[i])] = "fsdp"
         return tuple(axes)
 
     return rule
+
+
+def param_spec_tree(params, replicated: bool = True, pipeline: bool = False):
+    """The spec of every leaf of a nested dict in the JAX layout (arrays,
+    or their shapes as tuples; JAX ``param_pspec_tree``)."""
+    rule = param_specs(replicated, pipeline=pipeline)
+
+    def walk(tree, prefix):
+        return {k: walk(v, prefix + (k,)) if isinstance(v, dict)
+                else rule("/".join(prefix + (k,)), tuple(getattr(v, "shape", v)))
+                for k, v in tree.items()}
+
+    return walk(params, ())
+
+
+def validate_tp_grad_coverage(spec_tree) -> None:
+    """Raise unless every block leaf of ``spec_tree`` (from
+    :func:`param_spec_tree`) is covered by the tensor gradient rules:
+    tensor-sharded (its gradient local), in ``TENSOR_PARTIAL_LEAVES``
+    (replicated, its gradient summed over 'tensor'), or a residual-norm leaf
+    whose gradient is whole (JAX ``validate_tp_grad_coverage``): a new mixer
+    leaf that is none of these would train with wrong gradients under
+    tensor parallelism."""
+    bad = []
+
+    def check(tree, names):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                check(v, names + (k,))
+            elif "blocks" in names + (k,) and not (
+                    k in TENSOR_PARTIAL_LEAVES or k in _TP_FULL_GRAD_BLOCK_LEAVES
+                    or "tensor" in v):
+                bad.append(k)
+
+    check(spec_tree, ())
+    if bad:
+        raise ValueError(
+            "tensor-parallel gradient rules don't cover mixer leaves "
+            f"{sorted(set(bad))}: shard them over 'tensor' in "
+            "parallel.mesh.param_specs, or add them to "
+            "TENSOR_PARTIAL_LEAVES / _TP_FULL_GRAD_BLOCK_LEAVES with the "
+            "matching _sync_grads semantics")
+
+
+def tensor_dims(shapes: Dict[str, Tuple[int, ...]], n_shards: int) -> Dict[str, Optional[int]]:
+    """The axis of each of the port's parameters (per-layer block leaves
+    ``layers.<i>.<key>``) that the tensor rule shards over ``tensor``, or
+    None. Raises a ``ValueError`` naming the leaf when that axis does not
+    divide over ``n_shards``."""
+    rule = param_specs(replicated=False)
+    dims = {}
+    for name, shape in shapes.items():
+        parts = name.split(".")
+        d = None
+        if parts[0] == "layers":
+            spec = rule(f"blocks/{parts[-1]}", (1,) + tuple(shape))
+            d = spec.index("tensor") - 1 if "tensor" in spec else None
+        if d is not None and shape[d] % n_shards:
+            raise ValueError(f"tensor: leaf {name!r} axis {d} of size {shape[d]} does not "
+                             f"divide over the {n_shards}-way tensor axis")
+        dims[name] = d
+    return dims
 
 
 def fsdp_dims(shapes: Dict[str, Tuple[int, ...]], n_shards: int) -> Dict[str, Optional[int]]:
@@ -285,7 +419,7 @@ def fsdp_dims(shapes: Dict[str, Tuple[int, ...]], n_shards: int) -> Dict[str, Op
     rule = param_specs(replicated=False)
     dims = {}
     for name, shape in shapes.items():
-        spec = rule(name, tuple(shape))
+        spec = rule(name, tuple(shape))   # a port name: the largest-axis rule alone
         d = spec.index("fsdp") if "fsdp" in spec else None
         if d is not None and shape[d] % n_shards:
             raise ValueError(f"fsdp: leaf {name!r} axis {d} of size {shape[d]} does not "
@@ -294,25 +428,29 @@ def fsdp_dims(shapes: Dict[str, Tuple[int, ...]], n_shards: int) -> Dict[str, Op
     return dims
 
 
-def cli_mesh(seq: int = 1, flag: str = "--seq", fsdp: int = 1) -> Optional[Mesh]:
-    """The mesh of an entry point: data × fsdp × seq over the process
-    group's ranks (``data`` the ranks left over, as JAX's ``make_mesh``),
-    or None in a single process with ``seq`` and ``fsdp`` 1. Exits when the
-    ranks do not divide over ``fsdp × seq`` (``flag`` names the seq
-    option)."""
+def cli_mesh(seq: int = 1, flag: str = "--seq", fsdp: int = 1, tensor: int = 1,
+             pipe: int = 1) -> Optional[Mesh]:
+    """The mesh of an entry point: data × fsdp × seq × tensor × pipe over
+    the process group's ranks (``data`` the ranks left over, as JAX's
+    ``make_mesh``), or None in a single process with every axis 1. Exits
+    when the ranks do not divide over the axes (``flag`` names the seq
+    option); ``make_mesh`` refuses JAX's axis combinations."""
     n = world()[1]
-    for size, name in ((seq, flag), (fsdp, "--fsdp")):
+    for size, name in ((seq, flag), (fsdp, "--fsdp"), (tensor, "--tensor"), (pipe, "--pipe")):
         if size < 1 or n % size:
             raise SystemExit(
                 f"{name} {size}: {n} rank(s) do not divide over it; start a multiple of {size} "
                 "ranks, e.g. python -m torch.distributed.run --nproc-per-node "
                 f"{max(size, 1)} -m <entry point> ... {name} {size}")
-    if n % (seq * fsdp):
-        raise SystemExit(f"--fsdp {fsdp} {flag} {seq}: {n} rank(s) do not divide over "
-                         f"{fsdp * seq}")
+    fixed = seq * fsdp * tensor * pipe
+    if n % fixed:
+        named = " ".join(f"{k} {v}" for k, v in (("--fsdp", fsdp), (flag, seq),
+                                                 ("--tensor", tensor), ("--pipe", pipe))
+                         if v > 1)
+        raise SystemExit(f"{named}: {n} rank(s) do not divide over {fixed}")
     if n == 1:
         return None
-    mesh = make_mesh(MeshConfig(fsdp=fsdp, seq=seq))
+    mesh = make_mesh(MeshConfig(fsdp=fsdp, seq=seq, tensor=tensor, pipe=pipe))
     log.info("mesh: %s", mesh.shape)
     return mesh
 

@@ -9,10 +9,11 @@ final export is an HF checkpoint directory (``compat.hf_export``) that the
 port's and the JAX package's loaders read.
 
 Over several ranks every rank calls :meth:`CheckpointManager.save` and
-rank 0 alone writes. Under fsdp the file is still the one-process format:
-the full weights and moments are gathered from the ranks' blocks (a
-collective, hence every rank), and on resume each rank takes its blocks. A
-run saved under ``--fsdp N`` therefore resumes under ``--fsdp N`` exactly,
+rank 0 alone writes. Under fsdp, tensor or pipe the file is still the
+one-process format: the full weights and moments are gathered from the
+ranks' blocks, slices and stages (a collective, hence every rank), and on
+resume each rank takes its part. A run saved under ``--fsdp N`` (or
+``--tensor``, ``--pipe``) therefore resumes under the same layout exactly,
 and in one process or under another layout too.
 """
 
@@ -57,8 +58,8 @@ class CheckpointManager:
         if not force and (not self._interval or step % self._interval != 0):
             return False
         model, opt_state = state.model.state_dict(), state.opt_state
-        if state.fsdp is not None:   # every rank: the blocks are gathered
-            weights, opt_state = state.fsdp.full_state(opt_state)
+        if state.layout is not None:   # every rank: the parts are gathered
+            weights, opt_state = state.layout.full_state(opt_state)
             model = {k: weights.get(k, v) for k, v in model.items()}
         if world()[0] != 0:
             return True
@@ -77,20 +78,21 @@ class CheckpointManager:
 
     def restore(self, state_template: TrainState, step: Optional[int] = None) -> TrainState:
         """Load a checkpoint into the template's model (in place, on its
-        device; under fsdp into its blocks) and return the state."""
+        device; under a layout into this rank's part) and return the state."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         device = next(state_template.model.parameters()).device
         saved = torch.load(self.directory / str(step) / STATE_FILE, map_location=device,
                            weights_only=True)
-        fsdp, opt_state = state_template.fsdp, saved["opt_state"]
-        if fsdp is not None:
-            opt_state = fsdp.load_state(saved["model"], opt_state)
+        layout, opt_state = state_template.layout, saved["opt_state"]
+        if layout is not None:
+            opt_state = layout.load_state(saved["model"], opt_state)
         else:
             state_template.model.load_state_dict(saved["model"])
         log.info("Restored checkpoint at step %d from %s", step, self.directory)
-        return TrainState(state_template.model, opt_state, int(saved["step"]), fsdp)
+        return TrainState(state_template.model, opt_state, int(saved["step"]),
+                          state_template.fsdp, state_template.shards)
 
     def wait(self):
         """Saves are synchronous; nothing to wait for."""
@@ -109,9 +111,12 @@ def export_params(directory, model: Caduceus, cfg: CaduceusConfig) -> None:
 
 def export_final(directory, state: TrainState, cfg: CaduceusConfig) -> bool:
     """:func:`export_params` of the state's weights, written by rank 0;
-    under fsdp every rank calls it (the weights are gathered first).
-    Returns whether this rank wrote."""
-    if state.fsdp is not None:
+    under a layout every rank calls it (the weights are gathered first;
+    under tensor or pipe the model keeps its full weights after). Returns
+    whether this rank wrote."""
+    if state.shards is not None:
+        state.shards.full_model()
+    elif state.fsdp is not None:
         state.fsdp.gather()
     if world()[0] != 0:
         return False

@@ -1,11 +1,11 @@
-"""Masked-LM training step, on one device or over a data × fsdp × seq mesh.
+"""Masked-LM training step, on one device or over a data × fsdp × seq ×
+tensor × pipe mesh.
 
 Counterpart of ``plantcaduceus_tpu.train.step``: the gradient of the
 globally normalised weighted MLM loss through the model's forward (Mamba-1:
 K2's residual variant and K3 under autograd; Mamba-2: K5's residual variant
 and K6; remat per block), gradient accumulation over microbatches, and the
-optimizer update. The tensor and pipeline layouts are not ported yet
-(``parallel.mesh.NOT_PORTED``).
+optimizer update.
 
 The loss normaliser (the weight sum) is computed over ALL microbatches
 before any gradient, so an accum-N step computes the one-big-batch gradient.
@@ -24,6 +24,20 @@ replicated leaves summed over ``data × fsdp × seq``; with ``fsdp`` above 1
 reduce-scattered over ``fsdp`` onto each rank's block, where the optimizer
 updates them (its moments are blocks too). Every rank applies the same
 update to the same weights (one seed, one init).
+
+With ``tensor`` or ``pipe`` above 1 (:class:`ModelShards`) each rank keeps
+its slice of the mixers' d_inner leaves (tensor) and its stage's layers
+(pipe), fsdp sharding those further. Under ``tensor`` the forward is the
+mixers' tensor-parallel path (``tp=``); the gradients of
+``TENSOR_PARTIAL_LEAVES`` are summed over ``tensor`` as well (JAX
+``_sync_grads(tp=True)``), and ``validate_tp_grad_coverage`` runs when the
+step is built. Under ``pipe`` the forward is the GPipe schedule
+(``parallel.pipeline``; ``pp_microbatches`` microbatches, default the stage
+count), the loss and accuracy are the last stage's, summed over ``pipe``,
+and the leaves replicated across stages (embedding, final norm, head) have
+their gradients summed over ``pipe``. The gradient norm counts every leaf
+once however it is split. Checkpoints stay one-process files of full
+tensors, so a run resumes under any layout.
 """
 
 from __future__ import annotations
@@ -38,7 +52,11 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from plantcaduceus_tpu_torch.models import caduceus
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.parallel import collectives
-from plantcaduceus_tpu_torch.parallel.mesh import Mesh, fsdp_dims, shard_batch
+from plantcaduceus_tpu_torch.parallel.mesh import (AXES, TENSOR_PARTIAL_LEAVES, Mesh,
+                                                   check_axes, check_stages, fsdp_dims,
+                                                   param_spec_tree, shard_batch, tensor_dims,
+                                                   validate_tp_grad_coverage)
+from plantcaduceus_tpu_torch.parallel.pipeline import pipeline_forward, stage_layers
 from plantcaduceus_tpu_torch.train.optimizer import AdamW
 from plantcaduceus_tpu_torch.utils.device import resolve_device
 
@@ -54,9 +72,9 @@ class FsdpParams:
     :meth:`release` (after the backward): between steps a rank holds its
     blocks alone."""
 
-    def __init__(self, model: torch.nn.Module, mesh: Mesh):
+    def __init__(self, model: torch.nn.Module, mesh: Mesh, names=None):
         self.axis = mesh.axis("fsdp")
-        self.params = dict(model.named_parameters())
+        self.params = {n: p for n, p in model.named_parameters() if names is None or n in names}
         self.shapes = {n: tuple(p.shape) for n, p in self.params.items()}
         self.dims = fsdp_dims(self.shapes, self.axis.size)
         self.sharded = [n for n, d in self.dims.items() if d is not None]
@@ -170,12 +188,178 @@ class FsdpParams:
                 "nu": blocks(opt_state["nu"])}
 
 
+def _gather_split(tensors, axis):
+    """Every rank's tensors of ``axis``, each rank holding tensors of the
+    same shapes: one all_gather of them flattened; a list by coordinate of
+    lists in ``tensors``' order."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    gathered = collectives.all_gather(flat, axis)
+    out = []
+    for row in gathered:
+        parts, off = [], 0
+        for t in tensors:
+            parts.append(row[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        out.append(parts)
+    return out
+
+
+def _layer_of(name: str) -> Optional[int]:
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] == "layers" else None
+
+
+class ModelShards:
+    """A model's master weights over the mesh's ``tensor`` and ``pipe``
+    axes (JAX ``param_specs`` with the tensor rule, and ``pipeline=True``):
+    each rank keeps, as the module's parameters, its slice along ``tensor``
+    of each mixer leaf that the tensor rule shards (``tensor_dims``), and
+    only its stage's layers along ``pipe`` (the others' parameters are
+    emptied); the embedding, norms and head stay whole. With ``fsdp`` above
+    1 an :class:`FsdpParams` shards what the rank keeps further
+    (``self.fsdp``). ``owned`` names the leaves this rank trains."""
+
+    def __init__(self, model: caduceus.Caduceus, mesh: Mesh):
+        self.tensor, self.pipe = mesh.axis("tensor"), mesh.axis("pipe")
+        self.world = mesh.axis(*AXES)
+        self.params = dict(model.named_parameters())
+        self.shapes = {n: tuple(p.shape) for n, p in self.params.items()}
+        self.tdims = (tensor_dims(self.shapes, self.tensor.size) if self.tensor.size > 1
+                      else dict.fromkeys(self.shapes))
+        self.n_layer = model.cfg.n_layer
+        mine = set(stage_layers(self.n_layer, self.pipe)) if self.pipe.size > 1 else None
+        self.staged = {n for n in self.params if mine is not None and _layer_of(n) is not None}
+        self.owned = [n for n in self.params if n not in self.staged or _layer_of(n) in mine]
+        with torch.no_grad():
+            for n, p in self.params.items():
+                if n not in self.owned:
+                    p.data = p.data.new_empty(0)
+                elif self.tdims[n] is not None:
+                    p.data = self.local(p.data, n).clone()
+        self.local_shapes = {n: tuple(self.params[n].shape) for n in self.owned}
+        self.fsdp = FsdpParams(model, mesh, self.owned) if mesh.shape["fsdp"] > 1 else None
+
+    def local(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's slice of the full tensor ``t`` of leaf ``name``."""
+        d = self.tdims[name]
+        if d is None:
+            return t
+        per = t.shape[d] // self.tensor.size
+        return t.narrow(d, self.tensor.index * per, per)
+
+    def masters(self) -> Dict[str, torch.Tensor]:
+        """The tensors the optimizer updates: each owned leaf's slice (its
+        fsdp block under fsdp)."""
+        if self.fsdp is not None:
+            return self.fsdp.masters()
+        return {n: self.params[n] for n in self.owned}
+
+    def gather(self) -> None:
+        """Before a step's microbatches: the fsdp blocks into the module."""
+        if self.fsdp is not None:
+            self.fsdp.gather()
+
+    def release(self) -> None:
+        if self.fsdp is not None:
+            self.fsdp.release()
+
+    def sync(self, grads: Dict[str, torch.Tensor], batch_axis, rows_axis) -> Dict[str, torch.Tensor]:
+        """The synced gradients of the owned leaves, shaped as
+        :meth:`masters` (JAX ``_sync_grads``): ``TENSOR_PARTIAL_LEAVES``
+        summed over ``tensor`` and the leaves replicated across stages over
+        ``pipe``, then everything over the batch axes as without them (the
+        fsdp blocks reduce-scattered)."""
+        dev = next(g for g in grads.values() if g is not None).device
+        grads = {n: grads[n] if grads[n] is not None   # a leaf this stage did not use
+                 else torch.zeros(self.local_shapes[n], device=dev) for n in self.owned}
+        if self.tensor.size > 1:
+            partial = [g for n, g in grads.items() if n.split(".")[-1] in TENSOR_PARTIAL_LEAVES]
+            if partial:
+                sync_grads(partial, self.tensor)
+        if self.pipe.size > 1:
+            sync_grads([g for n, g in grads.items() if n not in self.staged], self.pipe)
+        if self.fsdp is not None:
+            return self.fsdp.sync(grads, batch_axis, rows_axis)
+        sync_grads(list(grads.values()), batch_axis)
+        return grads
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole gradient from the synced, split gradients:
+        each rank's squares of each leaf over the number of ranks holding
+        the same piece of it, summed over every rank (each piece counted
+        once)."""
+        n_ranks = self.world.size
+        shards = self.fsdp.shards if self.fsdp is not None else {}
+        total = 0.0
+        for n, g in grads.items():
+            split = ((self.fsdp.axis.size if n in shards else 1)
+                     * (self.tensor.size if self.tdims[n] is not None else 1)
+                     * (self.pipe.size if n in self.staged else 1))
+            total = total + g.float().square().sum() / (n_ranks // split)
+        return collectives.psum(torch.as_tensor(total, device=next(iter(grads.values())).device),
+                                self.world).sqrt()
+
+    def full(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A dict shaped as :meth:`masters` as full tensors of every leaf of
+        the model: the fsdp blocks gathered, then the tensor slices, then
+        the other stages' layers (one all_gather each). A collective."""
+        tree = dict(self.fsdp.full(tree) if self.fsdp is not None else tree)
+        if self.tensor.size > 1:
+            names = [n for n in self.owned if self.tdims[n] is not None]
+            got = _gather_split([tree[n] for n in names], self.tensor)
+            for j, n in enumerate(names):
+                tree[n] = torch.cat([r[j] for r in got], self.tdims[n]).contiguous()
+        if self.pipe.size > 1:
+            names = [n for n in self.owned if n in self.staged]
+            got = _gather_split([tree[n] for n in names], self.pipe)
+            per = self.n_layer // self.pipe.size
+            for s, r in enumerate(got):
+                for j, n in enumerate(names):
+                    parts = n.split(".")
+                    k = _layer_of(n) + (s - self.pipe.index) * per
+                    tree[".".join([parts[0], str(k)] + parts[2:])] = r[j]
+        return tree
+
+    def full_state(self, opt_state: dict) -> Tuple[Dict[str, torch.Tensor], dict]:
+        """(the full master weights by parameter name, the optimizer state
+        with full moments): a one-process checkpoint. A collective."""
+        return self.full(self.masters()), {"count": opt_state["count"],
+                                           "mu": self.full(opt_state["mu"]),
+                                           "nu": self.full(opt_state["nu"])}
+
+    @torch.no_grad()
+    def load_state(self, weights: Dict[str, torch.Tensor], opt_state: dict) -> dict:
+        """Take this rank's part of full weights and moments (a one-process
+        checkpoint); returns the optimizer state shaped as :meth:`masters`."""
+        local = lambda tree: {n: self.local(tree[n], n).clone() for n in self.owned}
+        w, mu, nu = local(weights), local(opt_state["mu"]), local(opt_state["nu"])
+        opt = {"count": opt_state["count"], "mu": mu, "nu": nu}
+        if self.fsdp is not None:
+            return self.fsdp.load_state(w, opt)
+        for n in self.owned:
+            self.params[n].copy_(w[n])
+        return opt
+
+    @torch.no_grad()
+    def full_model(self) -> None:
+        """Every parameter of the module set to its full tensor (for the
+        final export; the layout is given up). A collective."""
+        for n, t in self.full(self.masters()).items():
+            self.params[n].data = t
+
+
 @dataclasses.dataclass
 class TrainState:
     model: caduceus.Caduceus   # trained in place (under fsdp: the gathered working copy)
     opt_state: dict
     step: int
-    fsdp: Optional[FsdpParams] = None   # the master weights' blocks, under fsdp
+    fsdp: Optional[FsdpParams] = None   # the master weights' blocks, under fsdp alone
+    shards: Optional[ModelShards] = None   # the weights' layout, under tensor or pipe
+
+    @property
+    def layout(self):
+        """How the master weights are split over ranks (None: whole)."""
+        return self.shards if self.shards is not None else self.fsdp
 
 
 def _loss_sums(logits, labels, loss_weights, ignore_index=-100):
@@ -217,7 +401,8 @@ def make_grad_fn(
     grad_accum: int = 1,
     device="cuda",
     mesh: Optional[Mesh] = None,
-    fsdp: Optional[FsdpParams] = None,
+    fsdp=None,
+    pp_microbatches: Optional[int] = None,
 ) -> Callable:
     """``grad_fn(batch) -> (loss, accuracy, grads)``: the gradient of the
     globally normalised loss with respect to ``model``'s parameters (a dict
@@ -226,15 +411,20 @@ def make_grad_fn(
     ``grad_accum=N`` runs the (per-rank) rows as N sequential microbatches
     against the normaliser of them all. Batches are numpy dicts
     (``PretrainDataset``) or tensors on the device; over a ``mesh`` they are
-    the global batch, which each rank slices. Under ``fsdp`` the weights are
-    gathered into ``model`` before the first microbatch and released after
-    the last, and the sharded leaves' gradients are this rank's blocks."""
+    the global batch, which each rank slices. ``fsdp`` is the weights'
+    layout over the mesh (:class:`FsdpParams` or :class:`ModelShards`):
+    its blocks are gathered into ``model`` before the first microbatch and
+    released after the last, and the gradients come back shaped as its
+    ``masters()``. Under ``tensor`` the forward is the tensor-parallel one;
+    under ``pipe`` the GPipe schedule over ``pp_microbatches``
+    microbatches, the loss the last stage's."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     device = resolve_device(device)
     model.to(device)
     params = dict(model.named_parameters())
     sp, loss_axis, psum = _mesh_axes(mesh)
+    tp, pp, gated_psum = _model_axes(mesh, psum)
     multi = loss_axis is not None
 
     def grad_fn(batch):
@@ -258,13 +448,14 @@ def make_grad_fn(
         mb = rows // grad_accum
         for i in range(grad_accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            logits = caduceus.forward(model, part["input_ids"], dtype=dtype,
-                                      remat=remat, sp=sp)["logits"]
+            logits, last = _logits(model, part["input_ids"], dtype, remat, sp, tp, pp,
+                                   pp_microbatches)
             nll, _ = _loss_sums(logits, part["labels"], part.get("loss_weights"))
-            obj = nll / W
+            obj = torch.where(last, nll, 0.0) / W   # under pipe the last stage's
             obj.backward()
             loss += obj.detach()
-            correct += ((logits.argmax(-1) == part["labels"]) & (part["labels"] != -100)).sum()
+            hits = ((logits.argmax(-1) == part["labels"]) & (part["labels"] != -100)).sum()
+            correct += torch.where(last, hits, 0)
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
             p.grad = None
@@ -273,10 +464,23 @@ def make_grad_fn(
             grads = fsdp.sync(grads, loss_axis, mesh.axis("data", "seq"))
         elif multi:
             sync_grads(list(grads.values()), loss_axis)
-        acc = psum(correct).float() / torch.clamp(psum(valid.sum()), min=1)
-        return psum(loss), acc, grads
+        acc = gated_psum(correct).float() / torch.clamp(psum(valid.sum()), min=1)
+        return gated_psum(loss), acc, grads
 
     return grad_fn
+
+
+def _logits(model, ids, dtype, remat, sp, tp, pp, n_micro, use_kernels=True):
+    """(the logits, a tensor: whether they count): the forward over the
+    seq and tensor axes, or the pipeline's (whose logits count on its last
+    stage alone)."""
+    if pp is not None:
+        logits, last = pipeline_forward(model, ids, pp, n_micro, dtype=dtype, remat=remat,
+                                        use_kernels=use_kernels)
+        return logits, torch.tensor(last, device=logits.device)
+    logits = caduceus.forward(model, ids, dtype=dtype, remat=remat, sp=sp, tp=tp,
+                              use_kernels=use_kernels)["logits"]
+    return logits, torch.tensor(True, device=logits.device)
 
 
 def _mesh_axes(mesh: Optional[Mesh]):
@@ -287,6 +491,19 @@ def _mesh_axes(mesh: Optional[Mesh]):
     sp = mesh.axis("seq") if mesh.shape["seq"] > 1 else None
     loss_axis = mesh.axis("data", "fsdp", "seq")
     return sp, loss_axis, lambda v: collectives.psum(v, loss_axis)
+
+
+def _model_axes(mesh: Optional[Mesh], psum):
+    """(the tensor axis, the pipe axis, the sum of the last stage's gated
+    loss and hits over the batch axes and ``pipe``: JAX's ``gated_axes``);
+    the axes None where they have size 1."""
+    if mesh is None or mesh.world_size == 1:
+        return None, None, psum
+    tp = mesh.axis("tensor") if mesh.shape["tensor"] > 1 else None
+    if mesh.shape["pipe"] == 1:
+        return tp, None, psum
+    gated = mesh.axis("data", "fsdp", "pipe")
+    return tp, mesh.axis("pipe"), lambda v: collectives.psum(v, gated)
 
 
 def _place(batch, mesh, device):
@@ -304,13 +521,43 @@ def make_fsdp(model: caduceus.Caduceus, mesh: Optional[Mesh], device) -> Optiona
     return FsdpParams(model.to(resolve_device(device)), mesh)
 
 
+def jax_shape_tree(model: caduceus.Caduceus) -> dict:
+    """The shapes of ``model``'s parameters in the JAX layout (block leaves
+    stacked on n_layer, under ``blocks``), for ``param_spec_tree``."""
+    tree = {"blocks": {}}
+    for n, p in model.named_parameters():
+        parts = n.split(".")
+        if parts[0] == "layers":
+            tree["blocks"][parts[-1]] = (model.cfg.n_layer,) + tuple(p.shape)
+        else:
+            tree[n] = tuple(p.shape)
+    return tree
+
+
+def make_layout(cfg: CaduceusConfig, model: caduceus.Caduceus, mesh: Optional[Mesh], device):
+    """(``FsdpParams`` or None, ``ModelShards`` or None): the weights'
+    layout over ``mesh`` (moved to ``device`` first), after JAX's checks of
+    the axes, the stage count and, under tensor, the tensor gradient rules'
+    coverage of every block leaf."""
+    if mesh is None or mesh.world_size == 1:
+        return None, None
+    check_axes(mesh.shape)
+    check_stages(cfg.n_layer, mesh.shape["pipe"])
+    if mesh.shape["tensor"] == 1 and mesh.shape["pipe"] == 1:
+        return make_fsdp(model, mesh, device), None
+    if mesh.shape["tensor"] > 1:
+        validate_tp_grad_coverage(param_spec_tree(jax_shape_tree(model), replicated=False))
+    return None, ModelShards(model.to(resolve_device(device)), mesh)
+
+
 def update(optimizer: AdamW, state: TrainState, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One optimizer update of the state's weights (under fsdp its blocks,
-    clipped by the whole gradient's norm); returns that norm."""
-    if state.fsdp is None:
+    """One optimizer update of the state's weights (under a layout its
+    part of them, clipped by the whole gradient's norm); returns that norm."""
+    layout = state.layout
+    if layout is None:
         return optimizer.update(grads, state.opt_state, dict(state.model.named_parameters()))
-    return optimizer.update(grads, state.opt_state, state.fsdp.masters(),
-                            g_norm=state.fsdp.global_norm(grads))
+    return optimizer.update(grads, state.opt_state, layout.masters(),
+                            g_norm=layout.global_norm(grads))
 
 
 def make_train_step(
@@ -322,21 +569,28 @@ def make_train_step(
     grad_accum: int = 1,
     device="cuda",
     mesh: Optional[Mesh] = None,
+    pp_microbatches: Optional[int] = None,
 ) -> Tuple[Callable, Callable, Callable]:
     """Build ``(init_state, train_step, eval_step)``: :func:`make_grad_fn`'s
     gradient, then one optimizer update. ``model`` moves to ``device`` (the
     card unless the CPU is asked for; raises when CUDA is absent). A mesh
     with an fsdp axis above 1 shards the weights and the optimizer state
-    over it (:class:`FsdpParams`, from ``model``'s weights now)."""
-    fsdp = make_fsdp(model, mesh, device)
-    grad_fn = make_grad_fn(cfg, model, dtype, remat, grad_accum, device, mesh, fsdp)
+    over it (:class:`FsdpParams`), one with tensor or pipe above 1 lays
+    them out over those too (:class:`ModelShards`), from ``model``'s
+    weights now. ``pp_microbatches``: the GPipe microbatch count under pipe
+    (default: the stage count; JAX's)."""
+    fsdp, shards = make_layout(cfg, model, mesh, device)
+    layout = shards if shards is not None else fsdp
+    grad_fn = make_grad_fn(cfg, model, dtype, remat, grad_accum, device, mesh, layout,
+                           pp_microbatches)
     device = resolve_device(device)
     sp, _, psum = _mesh_axes(mesh)
+    tp, pp, gated_psum = _model_axes(mesh, psum)
 
     def init_state() -> TrainState:
         model.requires_grad_(True)
-        masters = fsdp.masters() if fsdp is not None else dict(model.named_parameters())
-        return TrainState(model, optimizer.init(masters), 0, fsdp)
+        masters = layout.masters() if layout is not None else dict(model.named_parameters())
+        return TrainState(model, optimizer.init(masters), 0, fsdp, shards)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         loss, acc, grads = grad_fn(batch)
@@ -349,16 +603,18 @@ def make_train_step(
         """Forward only, on the inference kernels (under fsdp on the
         gathered weights, released after)."""
         batch = _place(batch, mesh, device)
-        if fsdp is not None:
-            fsdp.gather()
-        logits = caduceus.forward(state.model, batch["input_ids"], dtype=dtype,
-                                  sp=sp)["logits"]
-        if fsdp is not None:
-            fsdp.release()
+        if layout is not None:
+            layout.gather()
+        logits, last = _logits(state.model, batch["input_ids"], dtype, False, sp, tp, pp,
+                               pp_microbatches)
+        if layout is not None:
+            layout.release()
         nll, w = _loss_sums(logits, batch["labels"], batch.get("loss_weights"))
         valid = batch["labels"] != -100
         correct = ((logits.argmax(-1) == batch["labels"]) & valid).sum()
-        return {"loss": psum(nll) / torch.clamp(psum(w), min=1e-8),
-                "accuracy": psum(correct).float() / torch.clamp(psum(valid.sum()), min=1)}
+        gate = lambda v: torch.where(last, v, torch.zeros_like(v))
+        return {"loss": gated_psum(gate(nll)) / torch.clamp(psum(w), min=1e-8),
+                "accuracy": gated_psum(gate(correct)).float()
+                / torch.clamp(psum(valid.sum()), min=1)}
 
     return init_state, train_step, eval_step

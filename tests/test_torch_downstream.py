@@ -362,6 +362,7 @@ def test_new_entry_points_refuse_missing_cuda(monkeypatch, tiny_ckpt, tmp_path, 
 
     main = importlib.import_module(f"plantcaduceus_tpu_torch.cli.{cli}").main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("PCAD_PLATFORM", raising=False)   # the card is the default without it
     args = {"predict_xgboost": ["-input", "x.tsv", "-classifier", "c.json", "-output", "o"],
             "train_xgboost": ["-test", "x.tsv", "-test_only", "-output", str(tmp_path)],
             "serve": ["-port", "0"]}[cli]

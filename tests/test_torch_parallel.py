@@ -254,18 +254,14 @@ def test_nccl_collectives_refuse_host_tensors():
 
 @pytest.mark.parametrize("kw", [dict(replicated=False), dict(pipeline=True)])
 def test_sharded_param_specs_refused(kw):
-    """The FSDP rule (``replicated=False``) against JAX's on leaves that
-    carry no tensor axis (JAX marks a leaf's d_inner axis "tensor" even at
-    tensor 1; the port applies the rule to its per-layer leaves, tensor
-    parallelism unported); the pipeline layout stays refused."""
+    """The FSDP rule (``replicated=False``) and the pipeline layout
+    (``pipeline=True``: the n_layer axis of every block leaf over pipe)
+    against JAX's, on leaves that carry no tensor axis; the tensor rule is
+    held to JAX's in ``tests/test_torch_tensor.py``."""
     from plantcaduceus_tpu.parallel.mesh import param_specs as jax_param_specs
     from plantcaduceus_tpu_torch.parallel.mesh import param_specs
 
     assert param_specs()("blocks/in_proj_x", (2, 1, 16, 32)) == ()
-    if kw.get("pipeline"):
-        with pytest.raises(NotImplementedError, match="Queue 1 items 9d/9e"):
-            param_specs(**kw)
-        return
     rule, jax_rule = param_specs(**kw), jax_param_specs(**kw)
     for path, shape in (("embedding", (16, 384)), ("norm_f_weight", (384,)),
                         ("lm_head", (16, 384)), ("blocks/norm_weight", (20, 384)),
@@ -275,11 +271,14 @@ def test_sharded_param_specs_refused(kw):
 
 @pytest.mark.parametrize("flag", ["--tensor", "--pipe", "--pipe-microbatches"])
 def test_pretrain_refuses_unported_axes(flag, capsys):
+    """The tensor and pipe flags are live now (their refusals are JAX's,
+    ``tests/test_torch_tensor.py``, ``tests/test_torch_pipeline.py``): each
+    parses to its value and says nothing of an unported axis."""
     from plantcaduceus_tpu_torch.cli import pretrain
 
-    with pytest.raises(SystemExit):
-        pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x", flag, "2"])
-    assert "Queue 1 items 9d/9e" in capsys.readouterr().err
+    args = pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x", flag, "2"])
+    assert getattr(args, flag.lstrip("-").replace("-", "_")) == 2
+    assert "not ported" not in capsys.readouterr().err
 
 
 SINGLE_DEVICE_CLIS = ("ar_lm", "mutagenesis", "format_vcf")

@@ -334,6 +334,9 @@ def test_cuda_absent_raises_in_trainer_and_cli(monkeypatch, tmp_path):
     from plantcaduceus_tpu_torch.cli import pretrain
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the card is the default without PCAD_PLATFORM (tests/conftest.py sets it
+    # to cpu for the JAX CLIs; the port's CLIs honour it too)
+    monkeypatch.delenv("PCAD_PLATFORM", raising=False)
     cfg = CaduceusConfig(**TINY)
     model = Caduceus(cfg, init_params(cfg))
     opt = make_optimizer(params=dict(model.named_parameters()))
@@ -343,11 +346,11 @@ def test_cuda_absent_raises_in_trainer_and_cli(monkeypatch, tmp_path):
         pretrain.main(["--dataset", "synthetic", "--preset", "l20",
                        "--output-dir", str(tmp_path / "never")])
     assert not (tmp_path / "never").exists()
-    for extra in (["--tensor", "2"], ["--pipe", "2"]):
-        with pytest.raises(SystemExit):
-            pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x"] + extra)
-    # --seq and --fsdp are taken (context parallelism and FSDP over
-    # torch.distributed ranks)
+    # --seq, --fsdp, --tensor and --pipe are taken (context parallelism,
+    # FSDP, tensor and pipeline parallelism over torch.distributed ranks)
+    for flag in ("--tensor", "--pipe"):
+        args = pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x", flag, "2"])
+        assert getattr(args, flag[2:]) == 2
     assert pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x",
                                 "--seq", "2"]).seq == 2
     assert pretrain.parse_args(["--dataset", "synthetic", "--output-dir", "x",

@@ -213,6 +213,7 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tiny_ckpt, snp_table, tmp
     from plantcaduceus_tpu_torch.utils.model_loading import load_model_and_tokenizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("PCAD_PLATFORM", raising=False)   # the card is the default without it
     out = tmp_path / "never.tsv"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["-input-table", str(snp_table), "-model", tiny_ckpt,
