@@ -12,19 +12,30 @@ and training of the ALiBi attention baseline:
 2. build the kernels (one nvcc per source, in parallel);
 3. each kernel against its plain PyTorch version at the main paths' shapes,
    both directions, fp32 and bf16, with its time on the card, the plain
-   version's time and its bound: K1 (fused dt and dt given) and K2 at the
-   scoring shape (l20: 256 rows x 512 x 768, N=16, R=24), and K1's h0/hfin
-   options (two half-length calls chained give one call's bits); then (3b)
-   K1's hb variant, K2's residual variant and K3 (fused and full-width dt)
-   at the training shape (64 rows);
+   version's time and its bound: K1 (fused dt and dt given), K2 with xi
+   given, K2's fuse_in variant (x [256, 512, 384] and in_proj's x half;
+   one call's allocations beside an xi's size) and K1's combine epilogue
+   at the scoring shape (l20: 256 rows x 512 x 768, N=16, R=24), and K1's
+   h0/hfin options (two half-length calls chained give one call's bits);
+   then (3b) K1's hb variant, K2's residual variant and K3 (fused and
+   full-width dt) at the training shape (64 rows);
 4. the full l20 forward (batch 128 windows of 512 bp, seeded weights) with
-   the kernels against the plain path in fp32; K2 launches = 2 * n_layer;
+   the kernels against the plain path in fp32; K2 fuse_in launches = 2 *
+   n_layer (l20's d_inner 768 takes in_proj into K2, as JAX does at d_inner
+   <= 768; every l20 inference path below counts fuse_in launches, and
+   xi-given K2 launches only where d_inner is wider: pc2-small);
 5. a small untied and a unidirectional config through the general mixer
    path, which launches K1 (dt projected in the kernel, and outside);
+5b. the PCAD_GATED_KERNEL=1 route, switched on in-process: the l20 fp32
+   forward at 16 x 512 against the plain path, the bf16 forward within 2x
+   the plain path's own gap, one fp32 step's gradients at l20 width, 2
+   layers, 4 x 512 (K1, K1 combine; K1-hb, K3), exact launches;
 6. the CLI on a seeded synthetic TSV (in-process, counted and timed, then
    ``-outBED`` through ``python -m``) and on a seeded FASTA + VCF
    (``python -m``); row counts and finite scores; windows/s;
-7. device time by kernel over one l20 scoring batch (torch.profiler);
+7. device time by kernel over one l20 scoring batch (torch.profiler), K2's
+   share, and the batch's peak memory with fuse_in and with xi written
+   first;
 8. one fp32 training step's gradients with the kernels against the plain
    path (autograd through the plain versions), l20 width, 2 layers, for the
    tied+add config (K2-res, K3), an untied one (K1-hb, K3 fused dt) and a
@@ -76,8 +87,12 @@ tied MLM head; vocab 16, 512-bp windows, seeded weights):
     with the ALiBi bias materialised (the library yardstick, never on the
     path), K8's time split between its dq and dk/dv kernels; then hd 16 and
     48 through ``flash_attention`` (zero-padded to 32 and 64) and hd 128
-    through both wrappers, fp32 and bf16, against the plain versions; one
-    bf16 timing row at L 8192 (one window);
+    through both wrappers, fp32 and bf16, against the plain versions; hd
+    256 through both wrappers and 160 through ``flash_attention`` (padded
+    to 256: the wide kernels, in 128-wide slices) at 4 x 512, H 4, timed
+    beside SDPA at hd 256, and a 2-layer BERT with heads of 256 forward and
+    backward (the wide kernels' path, counted); one bf16 timing row at L
+    8192 (one window);
 4c. the BERT-Base forward at batch 128, fp32, K7 against the einsum path;
     K7 launches = 12;
 6c. the steady bf16 forward rate at batch 128, model resident;
@@ -96,7 +111,7 @@ PlantCAD2 zero-shot evaluation (``cli/zero_shot_eval.py``):
 11. Mamba-1 (d_state 16): the fp32 forward with K1 (dt given at full
     width) against the plain path, one fp32 ``nll_loss`` gradient (2
     layers, 4 rows) with K1-hb and K3 against autograd through the plain
-    versions, ``ar_lm train`` on SURVEY.md's bytes for 30 bf16 steps
+    versions, ``ar_lm train`` on SURVEY.md's bytes for 20 bf16 steps
     (in-process, counted and timed: bits/dim falls), a profiled training
     step, ``python -m ... sample`` from its checkpoint (greedy, equal to the
     in-process decode), the decode rate at batch 1 and a profiled decode
@@ -188,7 +203,7 @@ and last context and data parallelism (17; ``phase_parallel``): K3 with
 over two halves against one call, K1-hb's first entry state equal to its
 h0; then ranks of ``torch.distributed.run`` (``chip_smoke.py
 --phase17-rank``) sharing ``cuda:0`` over gloo: pc2-small and
-pc2-small-ssd at 6 of their 24 layers (full widths) and 8192 bp scored at
+pc2-small-ssd at 4 of their 24 layers (full widths) and 8192 bp scored at
 seq 4 (fp32 and bf16 logits) and
 trained 3 steps at data 2 x seq 2 (fp32 and bf16; the first step's
 gradients, the weights after), l20 scored with each batch's rows split
@@ -397,7 +412,8 @@ def phase_build():
     log("phase 2: build kernels")
     t = time.perf_counter()
     paths = cuda_build.build_all()
-    log(f"  built {sorted(p.name for p in paths.values())} in {time.perf_counter() - t:.1f} s")
+    log(f"  built {sorted(p.name for p in paths.values())} in {time.perf_counter() - t:.1f} s "
+        f"(each nvcc: {', '.join(f'{n} {v:.1f}' for n, v in cuda_build.build_seconds.items())} s)")
     for name, rep in cuda_build.ptxas_reports.items():
         regs = sorted({ln.split("Used ")[1].split(" registers")[0]
                        for ln in rep.splitlines() if "registers" in ln})
@@ -440,9 +456,12 @@ def phase_kernels(cfg, dev):
                 res["mixer_fwd"]["bound"] = bound_ms(*mixer_fwd_work(rows, L, D, N, R, K,
                                                                     xi.element_size()))
 
+        kernel_options_fuse_in(cfg, w, A, rows, L, dtype, dev, gen, res)
+
         x = torch.randn((rows, L, D), generator=gen, device=dev).to(dtype)
         Bm = torch.randn((rows, L, N), generator=gen, device=dev).to(dtype)
         Cm = torch.randn((rows, L, N), generator=gen, device=dev).to(dtype)
+        kernel_options_combine(x, Bm, Cm, A, w, rows, L, R, dtype, dev, gen, res)
         for fuse in (True, False):
             dt = (torch.randn((rows, L, R if fuse else D), generator=gen, device=dev)
                   * 0.5).to(dtype)
@@ -469,8 +488,93 @@ def phase_kernels(cfg, dev):
         b, by, parts = r["bound"]
         log(f"  {name} (bf16, one direction): {r['ms']:.3f} ms; plain {r['plain_ms']:.1f} ms; "
             f"bound {b:.3f} ms by {by} (bytes {parts['bytes'] * 1e3:.3f}, fp32 flops "
-            f"{parts['flops'] * 1e3:.3f}, sfu {parts['sfu'] * 1e3:.3f} ms)")
+            f"{parts['flops'] * 1e3:.3f}, sfu {parts['sfu'] * 1e3:.3f}, bf16 tensor cores "
+            f"{parts['tc'] * 1e3:.3f} ms)")
+        if "float32" in r:
+            f = r["float32"]
+            log(f"    {name} fp32: {f['ms']:.3f} ms; plain {f['plain_ms']:.1f} ms; bound "
+                f"{f['bound'][0]:.3f} ms by {f['bound'][1]}")
     return res
+
+
+def kernel_options_fuse_in(cfg, w, A, rows, L, dtype, dev, gen, res):
+    """K2's fuse_in variant at the l20 scoring shape (x [rows, L, d_model],
+    in_proj's x half [d_model, d_inner]), both directions, against its plain
+    version; in bf16 (and fp32 beside it) its time, the plain version's and
+    the bound; the call's allocations beside one [rows, L, d_inner] xi."""
+    import torch
+
+    from plantcaduceus_tpu_torch.ops import cuda_mixer
+
+    dn = str(dtype).split(".")[1]
+    D, N, R, K, Dm = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv, cfg.d_model
+    w_in = w["in_proj_x"][0]
+    r = res.setdefault("mixer_fwd_x", {"err": 0.0})
+    x = torch.randn((rows, L, Dm), generator=gen, device=dev).to(dtype)
+    for g in (0, 1):
+        args = (x, w["conv_w"][g], w["conv_b"][g], w["x_proj_dt"][g], w["x_proj_B"][g],
+                w["x_proj_C"][g], w["dt_proj_w"][g], w["dt_proj_b"][g], A[g], w["D"][g])
+        got = cuda_mixer.mixer_fwd(*args, reverse=g == 1, w_in=w_in)
+        want = cuda_mixer.mixer_fwd_plain(*args, reverse=g == 1, w_in=w_in)
+        torch.cuda.synchronize()
+        r["err"] = max(r["err"], compare(f"K2 fuse_in {dn} {'rev' if g else 'fwd'}", got, want,
+                                         dn))
+        del got, want
+    t = r if dtype == torch.bfloat16 else r.setdefault("float32", {})
+    t["ms"] = time_ms(lambda: cuda_mixer.mixer_fwd(*args, reverse=True, w_in=w_in), 5)
+    t["plain_ms"] = time_ms(lambda: cuda_mixer.mixer_fwd_plain(*args, reverse=True, w_in=w_in),
+                            1, warmup=1)
+    work = mixer_fwd_x_work(rows, L, Dm, D, N, R, K, x.element_size())
+    t["bound"] = (bound_ms(*work) if dtype == torch.bfloat16
+                  else bound_ms(work[0], work[1] + work[3], work[2]))
+    # what one call allocates: y, the x_proj rows, the weights' copies; no xi
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    y = cuda_mixer.mixer_fwd(*args, reverse=True, w_in=w_in)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    xi_bytes = rows * L * D * x.element_size()
+    allowed = (y.numel() * y.element_size() + rows * L * (R + 2 * N) * 4
+               + D * (128 * 4 + Dm * x.element_size()) + 2 ** 20)
+    log(f"  K2 fuse_in {dn}: one call allocates {extra} bytes (y {y.numel() * y.element_size()}, "
+        f"x_proj rows {rows * L * (R + 2 * N) * 4}); an xi would be {xi_bytes}")
+    if extra > allowed:
+        fail(f"K2 fuse_in allocated {extra} bytes, more than y, its scratch and the weights "
+             f"({allowed}): an xi-sized buffer?")
+    del x, y
+
+
+def kernel_options_combine(x, Bm, Cm, A, w, rows, L, R, dtype, dev, gen, res):
+    """K1 with the combine epilogue (y_prev, z) at the l20 scoring shape,
+    fused dt, both directions, against its plain version; its bf16 time
+    (fp32 beside), the plain version's and the bound."""
+    import torch
+
+    from plantcaduceus_tpu_torch.ops import cuda_scan
+
+    dn = str(dtype).split(".")[1]
+    D, N = x.shape[-1], Bm.shape[-1]
+    r = res.setdefault("scan_fwd_combine", {"err": 0.0})
+    dt = (torch.randn((rows, L, R), generator=gen, device=dev) * 0.5).to(dtype)
+    y_prev, z = (torch.randn((rows, L, D), generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+    args = (x, dt, A[1], Bm, Cm, w["D"][1], w["dt_proj_b"][1], w["dt_proj_w"][1])
+    for rev in (False, True):
+        got = cuda_scan.scan_fwd(*args, reverse=rev, y_prev=y_prev, z=z)
+        want = cuda_scan.scan_fwd_plain(*args, reverse=rev, y_prev=y_prev, z=z)
+        torch.cuda.synchronize()
+        r["err"] = max(r["err"], compare(f"K1 combine {dn} {'rev' if rev else 'fwd'}", got,
+                                         want, dn))
+        del got, want
+    t = r if dtype == torch.bfloat16 else r.setdefault("float32", {})
+    t["ms"] = time_ms(lambda: cuda_scan.scan_fwd(*args, reverse=True, y_prev=y_prev, z=z), 5)
+    t["plain_ms"] = time_ms(
+        lambda: cuda_scan.scan_fwd_plain(*args, reverse=True, y_prev=y_prev, z=z), 1, warmup=1)
+    nbytes, flops, sfu = scan_fwd_work(rows, L, D, N, R, x.element_size())
+    # + y_prev and z read; the sum, the gate's product and sigmoid
+    t["bound"] = bound_ms(nbytes + 2 * rows * L * D * x.element_size(),
+                          flops + 5 * rows * L * D, sfu + rows * L * D)
 
 
 def scan_chain_check(args, rev, split):
@@ -630,6 +734,15 @@ def mixer_fwd_work(rows, L, D, N, R, K, s):
     flops = pts * (2 * K + 2 * J + 2 * R + 6 * N + 10)
     sfu = pts * (N + 3)  # exp2 per state; silu exp; softplus exp+log1p
     return nbytes, flops, sfu
+
+
+def mixer_fwd_x_work(rows, L, Dm, D, N, R, K, s):
+    """K2's fuse_in variant: (bytes, fp32 flops, SFU ops, in_proj product
+    flops) for x [rows, L, Dm] in, y out (``s`` bytes each), w_in in ``s``
+    bytes and the float32 weights read once; the in_proj x w_in once."""
+    nbytes, flops, sfu = mixer_fwd_work(rows, L, D, N, R, K, s)
+    nbytes += rows * L * (Dm - D) * s + D * Dm * s
+    return nbytes, flops, sfu, 2 * rows * L * Dm * D
 
 
 def scan_fwd_work(rows, L, D, N, R, s, hbc=None):
@@ -939,8 +1052,10 @@ def _counters():
 
     return {"mixer_fwd": (cuda_mixer.mixer_fwd, "launches"),
             "mixer_fwd_res": (cuda_mixer.mixer_fwd, "res_launches"),
+            "mixer_fwd_x": (cuda_mixer.mixer_fwd, "x_launches"),
             "scan_fwd": (cuda_scan.scan_fwd, "launches"),
             "scan_fwd_hb": (cuda_scan.scan_fwd, "hb_launches"),
+            "scan_fwd_combine": (cuda_scan.scan_fwd, "combine_launches"),
             "scan_bwd": (cuda_scan.scan_bwd, "launches"),
             "scan_bwd_g0": (cuda_scan.scan_bwd, "g0_launches"),
             "ssd_fwd": (cuda_ssd.ssd_dir, "launches"),
@@ -950,7 +1065,9 @@ def _counters():
             "ssd_bwd": (cuda_ssd.ssd_dir_bwd, "launches"),
             "ssd_bwd_pre_silu": (cuda_ssd.ssd_dir_bwd, "pre_silu_launches"),
             "attn_fwd": (cuda_attention.flash_fwd, "launches"),
-            "attn_bwd": (cuda_attention.flash_bwd, "launches")}
+            "attn_bwd": (cuda_attention.flash_bwd, "launches"),
+            "attn_fwd_wide": (cuda_attention.flash_fwd, "wide_launches"),
+            "attn_bwd_wide": (cuda_attention.flash_bwd, "wide_launches")}
 
 
 def reset_counts():
@@ -984,8 +1101,8 @@ def phase_forward(cfg, dev):
         want = model(ids, dtype=torch.float32, use_kernels=False)["logits"]
         lo = model(ids)["logits"]  # default bf16 compute
         torch.cuda.synchronize()
-    if c != only(mixer_fwd=2 * cfg.n_layer):
-        fail(f"l20 forward launched {c}; expected mixer_fwd={2 * cfg.n_layer}, scan_fwd=0")
+    if c != only(mixer_fwd_x=2 * cfg.n_layer):
+        fail(f"l20 forward launched {c}; expected mixer_fwd_x={2 * cfg.n_layer}, scan_fwd=0")
     d = (got - want).abs().max().item()
     scale = want.abs().max().item()
     log(f"  logits {tuple(got.shape)}: max_abs_err={d:.3e} (max |logit| {scale:.3e}, "
@@ -1058,6 +1175,87 @@ def phase_general(dev):
         if not d <= FORWARD_TOL * scale:
             fail(f"general path {kw} disagrees with its plain path")
         total += c["scan_fwd"]
+    return total
+
+
+def phase_gated(cfg, dev):
+    """5b: the ``PCAD_GATED_KERNEL=1`` route (in_proj, conv, x_proj in plain
+    PyTorch, then ``bimamba_scan_gated``: K1 forward and K1 reverse with
+    the combine epilogue; K1-hb and K3 under training), switched on in this
+    process: the l20 fp32 forward at 16 x 512 against the plain path (1e-3
+    of max |logit|), the bf16 forward within 2 x the plain path's own gap
+    from fp32, one fp32 training step's gradients at l20 width, 2 layers,
+    4 x 512 bp (1e-3 of each leaf's max); exact launches. Returns the
+    launches by kernel."""
+    import dataclasses
+
+    import torch
+
+    from plantcaduceus_tpu_torch.io.tokenizer import DnaTokenizer
+    from plantcaduceus_tpu_torch.models import caduceus
+    from plantcaduceus_tpu_torch.train import data as data_lib
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    log("phase 5b: the PCAD_GATED_KERNEL route (K1 + K1 combine; K1-hb, K3 under grad), l20")
+    nl = cfg.n_layer
+    total = dict.fromkeys(_counters(), 0)
+    caduceus._USE_GATED_KERNEL = True
+    try:
+        model = caduceus.Caduceus(cfg, caduceus.init_params(cfg, seed=51)).to(dev).eval()
+        ids = torch.randint(7, 11, (16, 512), generator=torch.Generator(device=dev)
+                            .manual_seed(52), device=dev)
+        logits = {}
+        with torch.inference_mode():
+            for dtype in (torch.float32, torch.bfloat16):
+                reset_counts()
+                logits[dtype, True] = model(ids, dtype=dtype)["logits"].float()
+                torch.cuda.synchronize()
+                c = counts()
+                if c != only(scan_fwd=nl, scan_fwd_combine=nl):
+                    fail(f"phase 5b {dtype} forward launched {c}; expected scan_fwd={nl}, "
+                         f"scan_fwd_combine={nl}")
+                total = {k: total[k] + v for k, v in c.items()}
+                logits[dtype, False] = model(ids, dtype=dtype, use_kernels=False)["logits"].float()
+        del model
+        want = logits[torch.float32, False]
+        scale = want.abs().max().item()
+        d32 = (logits[torch.float32, True] - want).abs().max().item()
+        d16 = (logits[torch.bfloat16, True] - want).abs().max().item()
+        gap = (logits[torch.bfloat16, False] - want).abs().max().item()
+        log(f"  fp32 logits (16 x 512): max_abs_err={d32:.3e} (max |logit| {scale:.3e}, tol "
+            f"{FORWARD_TOL:.0e} rel); bf16: {d16:.3e} from plain fp32, the plain bf16 path's "
+            f"own gap {gap:.3e} (tol 2x)")
+        if not (math.isfinite(d32) and d32 <= FORWARD_TOL * scale):
+            fail("phase 5b: the gated route's fp32 logits disagree with the plain path")
+        if not (math.isfinite(d16) and d16 <= 2 * gap):
+            fail(f"phase 5b: the gated route's bf16 logits {d16:.3e} from fp32, past 2 x the "
+                 f"plain path's {gap:.3e}")
+        small = dataclasses.replace(cfg, n_layer=2)
+        seqs = data_lib.sequence_source("synthetic", window=512, synthetic_n=8, seed=53)
+        batch = to_device(data_lib.PretrainDataset(seqs, DnaTokenizer(), 4, seed=53)
+                          .batch_at(0), dev)
+        params = caduceus.init_params(small, seed=54)
+        grads = {}
+        for use_kernels in (True, False):
+            model = caduceus.Caduceus(small, params).requires_grad_().to(dev)
+            reset_counts()
+            out = caduceus.forward(model, batch["input_ids"], dtype=torch.float32,
+                                   use_kernels=use_kernels)["logits"]
+            caduceus.mlm_loss(out, batch["labels"], batch["loss_weights"]).backward()
+            torch.cuda.synchronize()
+            c = counts()
+            expect = only(scan_fwd_hb=4, scan_bwd=4) if use_kernels else only()
+            if c != expect:
+                fail(f"phase 5b step (kernels={use_kernels}) launched {c}; expected {expect}")
+            total = {k: total[k] + v for k, v in c.items()}
+            grads[use_kernels] = {n: q.grad for n, q in model.named_parameters()}
+            del model
+        worst, worst_name = grads_agree("phase 5b", grads[True], grads[False])
+        log(f"  one fp32 step (2 layers, 4 x 512): {len(grads[False])} gradients, worst "
+            f"{worst_name} at {worst:.3e} of its max |grad| (tol {GRAD_TOL:.0e}); launches "
+            f"per forward K1 {nl}, K1 combine {nl}; per step K1-hb 4, K3 4")
+    finally:
+        caduceus._USE_GATED_KERNEL = False
     return total
 
 
@@ -1168,8 +1366,8 @@ def phase_cli(cfg, dev):
         f"({n_valid / secs:.1f} windows/s incl. model build and file I/O); launches {c}")
     if len(got.rows) != n_valid or not np.isfinite(scores).all():
         fail("TSV scoring: wrong row count or non-finite scores")
-    if c != only(mixer_fwd=2 * cfg.n_layer * n_batches):
-        fail(f"TSV scoring launched {c}; expected mixer_fwd={2 * cfg.n_layer * n_batches}")
+    if c != only(mixer_fwd_x=2 * cfg.n_layer * n_batches):
+        fail(f"TSV scoring launched {c}; expected mixer_fwd_x={2 * cfg.n_layer * n_batches}")
 
     # Steady-state scoring rate of the engine at batch 128 (model resident).
     model, _, tok = load_model_and_tokenizer("l20")
@@ -1207,7 +1405,7 @@ def phase_cli(cfg, dev):
         f"alt), {sum(v == '.' for v in vals)} non-SNV alts as '.'")
     if len(recs) != n_snv or not finite:
         fail("VCF scoring: wrong record count or non-finite scores")
-    return c["mixer_fwd"], wps, n_valid / secs, tsv, n_valid
+    return c["mixer_fwd_x"], wps, n_valid / secs, tsv, n_valid
 
 
 def phase_profile(cfg, dev):
@@ -1218,9 +1416,12 @@ def phase_profile(cfg, dev):
 
     from plantcaduceus_tpu_torch.models.caduceus import Caduceus, init_params
 
+    from plantcaduceus_tpu_torch.models import caduceus
+
     log("phase 7: profile one l20 bf16 batch (torch.profiler)")
     model = Caduceus(cfg, init_params(cfg, seed=0)).to(dev).eval()
     ids = torch.randint(7, 11, (128, 512), device=dev)
+    peak = {}
     with torch.inference_mode():
         model(ids)
         torch.cuda.synchronize()
@@ -1229,7 +1430,28 @@ def phase_profile(cfg, dev):
             model(ids)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
+        # the batch's peak memory with K2 fuse_in, and with xi written first
+        # (the same call with the fuse_in threshold set to 0)
+        threshold = caduceus.FUSE_IN_MAX_D_INNER
+        for name, limit in (("fuse_in", threshold), ("xi first", 0)):
+            caduceus.FUSE_IN_MAX_D_INNER = limit
+            try:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                model(ids)
+                torch.cuda.synchronize()
+                peak[name] = torch.cuda.max_memory_allocated(dev) - base
+            finally:
+                caduceus.FUSE_IN_MAX_D_INNER = threshold
     report_profile(prof, wall, 10)
+    k2 = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("conv_xproj_kernel" in e.key or "MixConvSrc" in e.key)) / 1e3
+    log(f"  K2 (fuse_in, both kernels) {k2:.2f} ms of the batch (PR 9's run, xi given: busy "
+        f"158.35 ms, K2 79.6 ms); the batch's peak memory above the model: fuse_in "
+        f"{peak['fuse_in']} bytes ({peak['fuse_in'] / 2**30:.2f} GiB), xi written first "
+        f"{peak['xi first']} bytes ({peak['xi first'] / 2**30:.2f} GiB)")
 
 
 def report_profile(prof, wall, top):
@@ -1528,7 +1750,7 @@ TRAIN_ARGS = ["--dataset", "synthetic", "--batch-size", "32", "--window", "512",
 # Per preset: the phase, and the kernels a training run launches: the
 # inference variant (the final eval), the residual variant (forward and
 # remat recompute) and the adjoint.
-TRAIN_KERNELS = {"l20": ("9", "mixer_fwd", "mixer_fwd_res", "scan_bwd"),
+TRAIN_KERNELS = {"l20": ("9", "mixer_fwd_x", "mixer_fwd_res", "scan_bwd"),
                  "l20-ssd": ("9b", "mixer2_fwd", "mixer2_fwd_res", "ssd_bwd_pre_silu")}
 
 
@@ -1782,6 +2004,98 @@ def attn_other_head_dims(dev, slopes, gen):
         torch.cuda.empty_cache()
 
 
+# Above hd 128 the kernels take multiples of 128 in 128-wide slices; 160
+# reaches them through flash_attention zero-padded to 256. A small shape.
+ATTN_WIDE_HDS = (256, 160)
+ATTN_WIDE_SHAPE = (4, 512, 4)  # B, L, H
+
+
+def attn_wide_head_dims(dev, gen):
+    """K7 and K8 above hd 128, fp32 and bf16, ALiBi, 4 x 512, H 4, against
+    their plain versions, forward and backward: both wrappers at hd 256,
+    flash_attention (forward and autograd) at hd 160; at hd 256 each
+    kernel's time beside the plain version's, SDPA's (the ALiBi bias
+    materialised) and the bound. Then the path: a 2-layer BERT with 3 heads
+    of 256 (d_model 768), one bf16 forward and mlm_loss backward through
+    the model, counted (the wide K7 and K8 once a layer). Returns (the
+    results by kernel, the path's launches)."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models import bert
+    from plantcaduceus_tpu_torch.models.caduceus import mlm_loss
+    from plantcaduceus_tpu_torch.ops import cuda_attention as ca
+    from plantcaduceus_tpu_torch.ops import flash_plain as fp
+    from plantcaduceus_tpu_torch.ops.attention import alibi_bias, alibi_slopes
+    from plantcaduceus_tpu_torch.train.step import to_device
+
+    B, L, H = ATTN_WIDE_SHAPE
+    slopes = alibi_slopes(H, dev)
+    res = {k: {"err": 0.0, "ms": {}, "plain_ms": {}, "library_ms": {}, "bound": {}}
+           for k in ("attn_fwd_hd256", "attn_bwd_hd256")}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for hd in ATTN_WIDE_HDS:
+            q, k, v, do = attn_inputs(B, L, H, hd, dtype, dev, gen)
+            o_w, lse_w = fp.flash_fwd_plain(q, k, v, slopes)
+            want = fp.flash_bwd_plain(q, k, v, o_w, do, lse_w, slopes)
+            if hd % 128 == 0:
+                o, lse = ca.flash_fwd(q, k, v, slopes)
+                got = ca.flash_bwd(q, k, v, o, do, lse, slopes)
+                torch.cuda.synchronize()
+                compare(f"K7 wide hd {hd} {dn} lse", lse, lse_w, dn, tol=F32_TOL)
+            else:
+                ins = [t.clone().requires_grad_() for t in (q, k, v)]
+                o = ca.flash_attention(*ins, alibi_slopes=slopes)
+                got = torch.autograd.grad(o, ins, do)
+                torch.cuda.synchronize()
+            res["attn_fwd_hd256"]["err"] = max(res["attn_fwd_hd256"]["err"], compare(
+                f"K7 wide hd {hd} {dn} o", o, o_w, dn))
+            for n, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                res["attn_bwd_hd256"]["err"] = max(res["attn_bwd_hd256"]["err"], compare(
+                    f"K8 wide hd {hd} {dn} {n}", g_, w_, dn))
+            if hd % 128 == 0:
+                bias = alibi_bias(H, L, dev).to(dtype)
+                for name, kern, fn, plain, lib in (
+                        ("attn_fwd_hd256", "attn_fwd", lambda: ca.flash_fwd(q, k, v, slopes),
+                         lambda: fp.flash_fwd_plain(q, k, v, slopes),
+                         sdpa_fn(q, k, v, bias, False)),
+                        ("attn_bwd_hd256", "attn_bwd",
+                         lambda: ca.flash_bwd(q, k, v, o, do, lse, slopes),
+                         lambda: fp.flash_bwd_plain(q, k, v, o, do, lse, slopes),
+                         sdpa_fn(q, k, v, bias, True))):
+                    r = res[name]
+                    r["ms"][dn] = time_ms(fn, 5)
+                    r["plain_ms"][dn] = time_ms(plain, 1, warmup=1)
+                    r["library_ms"][dn] = time_ms(lib, 5)
+                    r["bound"][dn] = work_bound(attn_work(B, L, H, hd, dtype.itemsize, kern), dn)
+                    b, by, _ = r["bound"][dn]
+                    log(f"  {name} ({dn}, ALiBi, {B} x {L}, H {H}): {r['ms'][dn]:.3f} ms; plain "
+                        f"{r['plain_ms'][dn]:.2f} ms; SDPA {r['library_ms'][dn]:.3f} ms; bound "
+                        f"{b:.3f} ms by {by}")
+                del bias
+            del q, k, v, do, o, o_w, lse_w, got, want
+            torch.cuda.empty_cache()
+    # the path: BERT with heads of 256, a bf16 forward and backward
+    cfg = bert.BertConfig(**dict(BERT_BASE, n_layer=2, n_heads=3))
+    model = bert.build(cfg, seed=47, device=dev).requires_grad_()
+    batch = to_device(mlm_batches(B, 1, 48)[0], dev)
+    reset_counts()
+    logits = model(batch["input_ids"], dtype=torch.bfloat16)["logits"]
+    loss = mlm_loss(logits, batch["labels"], batch["loss_weights"])
+    loss.backward()
+    torch.cuda.synchronize()
+    c = counts()
+    if c != only(attn_fwd_wide=cfg.n_layer, attn_bwd_wide=cfg.n_layer) or \
+            not math.isfinite(loss.item()):
+        fail(f"phase 3e: BERT at hd {cfg.head_dim} launched {c} (expected the wide K7 and "
+             f"K8 {cfg.n_layer} each), loss {loss.item()}")
+    log(f"  BERT, {cfg.n_layer} layers of {cfg.n_heads} heads of {cfg.head_dim}, bf16, batch "
+        f"{B} x {L}: loss {loss.item():.4f}; launches wide K7 {c['attn_fwd_wide']}, wide K8 "
+        f"{c['attn_bwd_wide']}")
+    del model
+    return res, c
+
+
 def phase_attn_kernels(dev):
     """K7 and K8 against their plain versions in four bias cases, fp32 and
     bf16: K7 at the forward shape (128 x 512, H 12, hd 64) and both at the
@@ -1863,6 +2177,7 @@ def phase_attn_kernels(dev):
                 f"{parts['sfu'] * 1e3:.3f}, bf16 tensor cores {parts['tc'] * 1e3:.3f} ms)")
 
     attn_other_head_dims(dev, slopes, gen)
+    res["wide"] = attn_wide_head_dims(dev, gen)
 
     # PlantCAD2's context: L 8192, one window, ALiBi, bf16
     B8, L8 = 1, LONG_L
@@ -2080,7 +2395,7 @@ def phase_bert_profile(dev):
 # The AR Mamba LM (models/mamba_lm.py, cli/ar_lm.py) at the l20 widths:
 # d_model 384, 20 layers, batch 32 x 512 tokens, byte-level (vocab 256).
 AR_WIDTHS = dict(d_model=384, n_layer=20, vocab_size=256)
-AR_BATCH, AR_L, AR_STEPS = 32, 512, 30
+AR_BATCH, AR_L, AR_STEPS = 32, 512, 20
 AR_PROMPT, AR_NEW = 32, 96  # decode: prompt and new tokens at batch 1 (the rate's sample)
 # Per variant: the phase, its config, the CLI's flags, and the kernels its
 # forward (no grad) and its training step launch, once per layer each.
@@ -2613,10 +2928,10 @@ def phase_xgboost(cfg, dev):
     reset_counts()
     emb32 = runner32.center_embeddings(ids, 255, progress=False)
     c = counts()
-    if c != only(mixer_fwd=per_batch * n_test_batches):
+    if c != only(mixer_fwd_x=per_batch * n_test_batches):
         fail(f"phase 13a fp32 embeddings launched {c}; expected "
-             f"mixer_fwd={per_batch * n_test_batches}")
-    k2 += c["mixer_fwd"]
+             f"mixer_fwd_x={per_batch * n_test_batches}")
+    k2 += c["mixer_fwd_x"]
     plain = []
     with torch.inference_mode():
         for i in range(0, len(ids), 128):
@@ -2629,7 +2944,7 @@ def phase_xgboost(cfg, dev):
     err = float(np.abs(emb32 - plain).max())
     scale = float(np.abs(plain).max())
     log(f"  fp32 center_embeddings {emb32.shape}: max_abs_err={err:.3e} (max |embedding| "
-        f"{scale:.3e}, tol {FORWARD_TOL:.0e} rel); mixer_fwd {c['mixer_fwd']}")
+        f"{scale:.3e}, tol {FORWARD_TOL:.0e} rel); mixer_fwd_x {c['mixer_fwd_x']}")
     if not (np.isfinite(emb32).all() and err <= FORWARD_TOL * scale):
         fail("phase 13a: fp32 embeddings with the kernels disagree with the plain path")
     clf = tmp / "classifier.json"
@@ -2645,9 +2960,9 @@ def phase_xgboost(cfg, dev):
     predict_xgboost.main([*args, "-output", str(out)])
     pred_s = time.perf_counter() - t
     c = counts()
-    if c != only(mixer_fwd=per_batch * n_test_batches):
+    if c != only(mixer_fwd_x=per_batch * n_test_batches):
         fail(f"phase 13a predict_xgboost launched {c}")
-    k2 += c["mixer_fwd"]
+    k2 += c["mixer_fwd_x"]
     rows = read_predictions(out)
     runner16 = InferenceRunner(model, cfg, dtype=torch.bfloat16, batch_size=128, device=dev)
     emb16 = runner16.center_embeddings(ids, 255, progress=False)
@@ -2659,7 +2974,7 @@ def phase_xgboost(cfg, dev):
     spread = len(set(want))
     log(f"  predict_xgboost (in-process, bf16): {len(rows)} predictions ({spread} distinct) "
         f"in {pred_s:.2f} s end to end, equal to XgbJsonPredictor on the runner's bf16 "
-        f"embeddings; mixer_fwd {c['mixer_fwd']}")
+        f"embeddings; mixer_fwd_x {c['mixer_fwd_x']}")
     if spread < 3:
         fail("phase 13a: the classifier's trees do not split the windows")
     out2 = tmp / "pred_module.tsv"
@@ -2683,9 +2998,9 @@ def phase_xgboost(cfg, dev):
         want_k2 = per_batch * (n_test_batches if name == "plain"
                                else sum(math.ceil(min(100, len(ids) - i) / 128)
                                         for i in range(0, len(ids), 100)))
-        if c != only(mixer_fwd=want_k2):
-            fail(f"phase 13a -test_only {name} launched {c}; expected mixer_fwd={want_k2}")
-        k2 += c["mixer_fwd"]
+        if c != only(mixer_fwd_x=want_k2):
+            fail(f"phase 13a -test_only {name} launched {c}; expected mixer_fwd_x={want_k2}")
+        k2 += c["mixer_fwd_x"]
         preds[name] = np.load(d / "seed_42_xgb_test_predictions.npz")["predictions"]
         if not (d / "seed_42_xgb_test_metrics.txt").is_file():
             fail(f"phase 13a -test_only {name}: no metrics file")
@@ -2700,7 +3015,7 @@ def phase_xgboost(cfg, dev):
         fail(f"phase 13a: the rerun launched {c} or gave other predictions")
     log(f"  train_xgboost -test_only: plain {walls['plain']:.2f} s, -save_memory -chunk_size "
         f"100 {walls['chunked']:.2f} s, equal predictions; the rerun reads the caches, "
-        f"mixer_fwd 0")
+        f"mixer_fwd_x 0")
 
     # the fit: embeddings cached first, then sklearn/xgboost or JAX's ImportError
     fit = tmp / "fit"
@@ -2721,10 +3036,10 @@ def phase_xgboost(cfg, dev):
         raised = e
     c = counts()
     want_k2 = per_batch * sum(math.ceil(XGB_ROWS[k] / 128) for k in ("train", "valid"))
-    if c != only(mixer_fwd=want_k2) or not (fit / "train_valid_embeddings.npz").is_file():
-        fail(f"phase 13a fit: launched {c} (expected mixer_fwd={want_k2}) or no cached "
+    if c != only(mixer_fwd_x=want_k2) or not (fit / "train_valid_embeddings.npz").is_file():
+        fail(f"phase 13a fit: launched {c} (expected mixer_fwd_x={want_k2}) or no cached "
              "embeddings")
-    k2 += c["mixer_fwd"]
+    k2 += c["mixer_fwd_x"]
     if have:
         if raised is not None or not (fit / "seed_42_xgb_valid_metrics.txt").is_file():
             fail(f"phase 13a fit with {have}: {raised!r} or no valid metrics")
@@ -2734,7 +3049,7 @@ def phase_xgboost(cfg, dev):
         if raised is None or "sklearn" not in str(raised):
             fail(f"phase 13a fit without xgboost or sklearn: expected sklearn's ImportError, "
                  f"got {raised!r}")
-        log(f"  train_xgboost fit: embeddings cached ({want_k2} mixer_fwd), then {raised!r} "
+        log(f"  train_xgboost fit: embeddings cached ({want_k2} mixer_fwd_x), then {raised!r} "
             "as the JAX package raises without xgboost or sklearn")
 
     # steady embedding rate at batch 128, bf16
@@ -2832,16 +3147,16 @@ def phase_serve(cfg, dev, tsv, wps_inproc):
                 for i, scores in enumerate(got):
                     got_flat[i::SERVE_CLIENTS] = scores
                 d = float(np.abs(got_flat - want).max())
-                fwd = c["mixer_fwd"] // per_forward
+                fwd = c["mixer_fwd_x"] // per_forward
                 log(f"  fp32: {n} windows in {SERVE_CLIENTS} concurrent requests, all 200; "
                     f"max |server - score_table| {d:.3e} (tol 1e-4); the batcher ran {groups} "
-                    f"coalesced groups, {fwd} forwards of 128 rows (mixer_fwd "
-                    f"{c['mixer_fwd']})")
+                    f"coalesced groups, {fwd} forwards of 128 rows (mixer_fwd_x "
+                    f"{c['mixer_fwd_x']})")
                 if not (np.isfinite(got_flat).all() and d <= 1e-4):
                     fail("phase 13b: the server's fp32 scores differ from in-process scoring")
-                if c["mixer_fwd"] % per_forward or c != only(mixer_fwd=c["mixer_fwd"]):
+                if c["mixer_fwd_x"] % per_forward or c != only(mixer_fwd_x=c["mixer_fwd_x"]):
                     fail(f"phase 13b launched {c}")
-                k2 += c["mixer_fwd"]
+                k2 += c["mixer_fwd_x"]
                 figures.update(groups=groups, forwards=fwd, err=d)
             else:
                 serve_round(server.port, by_client)  # warm
@@ -2851,10 +3166,10 @@ def phase_serve(cfg, dev, tsv, wps_inproc):
                     serve_round(server.port, by_client)
                 secs = time.perf_counter() - t
                 c = counts()
-                k2 += c["mixer_fwd"]
+                k2 += c["mixer_fwd_x"]
                 figures.update(wps=SERVE_ROUNDS * n / secs,
                                rps=SERVE_ROUNDS * SERVE_CLIENTS / secs,
-                               bf16_forwards=c["mixer_fwd"] // per_forward)
+                               bf16_forwards=c["mixer_fwd_x"] // per_forward)
                 log(f"  bf16: {figures['wps']:.1f} windows/s, {figures['rps']:.2f} requests/s "
                     f"through the server ({SERVE_ROUNDS} rounds of {SERVE_CLIENTS} x "
                     f"{SERVE_WINDOWS}; {figures['bf16_forwards']} forwards); in-process steady "
@@ -2936,9 +3251,9 @@ def phase_tools(cfg, dev, fa, vcf):
     score(["-input-vcf", str(vcf), "-input-fasta", str(fa), "-output",
            str(tmp / "scored.vcf"), *fp32])
     c = counts()
-    if c != only(mixer_fwd=c["mixer_fwd"]) or not c["mixer_fwd"]:
+    if c != only(mixer_fwd_x=c["mixer_fwd_x"]) or not c["mixer_fwd_x"]:
         fail(f"phase 13c: the two fp32 scoring runs launched {c}")
-    k2 += c["mixer_fwd"]
+    k2 += c["mixer_fwd_x"]
     table = [float(ln.split("\t")[7])
              for ln in (tmp / "fmt_scores.tsv").read_text().splitlines()[1:]]
     from_vcf = [float(v) for ln in (tmp / "scored.vcf").read_text().splitlines()
@@ -2947,8 +3262,8 @@ def phase_tools(cfg, dev, fa, vcf):
                 if v != "."]
     d = max(abs(a - b) for a, b in zip(table, from_vcf)) if table else math.inf
     log(f"  format_vcf -> zero_shot_score -input-table (fp32): {len(table)} rows; VCF mode "
-        f"{len(from_vcf)} SNV alts; max |difference| {d:.3e} (tol 1e-4); mixer_fwd "
-        f"{c['mixer_fwd']}")
+        f"{len(from_vcf)} SNV alts; max |difference| {d:.3e} (tol 1e-4); mixer_fwd_x "
+        f"{c['mixer_fwd_x']}")
     if len(table) != len(from_vcf) or not d <= 1e-4:
         fail("phase 13c: format_vcf's table scores differ from the VCF mode's")
 
@@ -2971,7 +3286,7 @@ def phase_tools(cfg, dev, fa, vcf):
            str(tmp / "sim_scored.vcf"), "-model", "l20", "-no-progress"])
     secs = time.perf_counter() - t
     c = counts()
-    k2 += c["mixer_fwd"]
+    k2 += c["mixer_fwd_x"]
     recs = [ln.split("\t") for ln in (tmp / "sim_scored.vcf").read_text().splitlines()
             if not ln.startswith("#")]
     vals = np.array([float(r[7].split("plantCAD_zero_shot=")[1]) for r in recs])
@@ -2979,10 +3294,10 @@ def phase_tools(cfg, dev, fa, vcf):
     want_k2 = 2 * cfg.n_layer * math.ceil(windows / 128)
     log(f"  mutagenesis simulate (flank {flank}) -> zero_shot_score -input-vcf (bf16): "
         f"{len(recs)} SNPs scored (3 x {n_snps // 3} ACGT bases), {windows} windows in "
-        f"{secs:.2f} s end to end; mixer_fwd {c['mixer_fwd']}")
-    if len(recs) != n_snps or not np.isfinite(vals).all() or c != only(mixer_fwd=want_k2):
+        f"{secs:.2f} s end to end; mixer_fwd_x {c['mixer_fwd_x']}")
+    if len(recs) != n_snps or not np.isfinite(vals).all() or c != only(mixer_fwd_x=want_k2):
         fail(f"phase 13c: mutagenesis scoring gave {len(recs)} records (expected {n_snps}), "
-             f"finite {np.isfinite(vals).all()}, launches {c} (expected mixer_fwd={want_k2})")
+             f"finite {np.isfinite(vals).all()}, launches {c} (expected mixer_fwd_x={want_k2})")
     return k2
 
 
@@ -3219,7 +3534,7 @@ def phase_finetune_cli(dev, tmp):
         fail(f"phase 14a: bad step log {steps}")
     mb = FT_ACCUM * 2 * nl  # per step: microbatches x directions x layers
     n_eval = FT_STEPS // FT_SAVE * -(-FT_ROWS["valid"] // FT_EVAL_BATCH) * 2 * nl
-    want = only(scan_fwd_hb=FT_STEPS * 2 * mb, scan_bwd=FT_STEPS * mb, mixer_fwd=n_eval)
+    want = only(scan_fwd_hb=FT_STEPS * 2 * mb, scan_bwd=FT_STEPS * mb, mixer_fwd_x=n_eval)
     if c_train != want:
         fail(f"phase 14a train launched {c_train}; expected {want}")
     times = {s[0]: s[2] for s in steps}
@@ -3267,7 +3582,7 @@ def phase_finetune_cli(dev, tmp):
             and np.isfinite(probs).all() and (0 <= probs).all() and (probs <= 1).all()):
         fail(f"phase 14a evaluate/predict: {metrics}, {probs.shape}")
     per_pass = -(-FT_ROWS["valid"] // FT_EVAL_BATCH) * 2 * nl
-    if c_eval != only(mixer_fwd=2 * per_pass):
+    if c_eval != only(mixer_fwd_x=2 * per_pass):
         fail(f"phase 14a evaluate + predict launched {c_eval}")
     log(f"  evaluate: {', '.join(f'{k} {v:.4f}' for k, v in metrics.items())}; predict: "
         f"{len(probs)} probabilities in [0, 1]; display: {shown.getvalue().splitlines()[-1]}")
@@ -3395,7 +3710,7 @@ def phase_finetune_more(dev, tmp):
     cc = counts()
     n_eval = -(-FT_ROWS["valid"] // FT_EVAL_BATCH) * nl2
     if cc != only(mixer_fwd_res=3 * FT_ACCUM * 2 * nl2, scan_bwd=3 * FT_ACCUM * nl2,
-                  mixer_fwd=n_eval):
+                  mixer_fwd_x=n_eval):
         fail(f"phase 14c launched {cc}")
     add(cc)
     meta = json.loads((tmp / "full" / "final" / "adapter_config.json").read_text())
@@ -3614,7 +3929,7 @@ def phase_streaming(dev, tsv, n_valid):
     # once per direction and layer on each full batch of the eval shard (at
     # most 20 batches an evaluation).
     n_eval = (STREAM_STEPS // STREAM_SAVE + 1) * min(STREAM_SHARD_WINDOWS // 32, 20)
-    want = only(mixer_fwd=n_eval * 2 * nl, mixer_fwd_res=STREAM_STEPS * 4 * nl,
+    want = only(mixer_fwd_x=n_eval * 2 * nl, mixer_fwd_res=STREAM_STEPS * 4 * nl,
                 scan_bwd=STREAM_STEPS * 2 * nl)
     if c != want:
         fail(f"phase 15a launched {c}; expected exactly {want} ({n_eval} eval batches)")
@@ -3629,8 +3944,8 @@ def phase_streaming(dev, tsv, n_valid):
         f"{prof_ms:.2f} ms per step; peak memory allocated {peak} bytes "
         f"({peak / 2**30:.2f} GiB); launches {dict((k, v) for k, v in c.items() if v)}")
     path, names = trace_kernels(prof)
-    k2res = [k for k in names if re.search(r"scan_fwd_kernel<[^,]+, \d+, true, pc::MixConvSrc",
-                                           k)]
+    k2res = [k for k in names
+             if re.search(r"scan_fwd_kernel<[^,]+, \d+, true, false, pc::MixConvSrc", k)]
     xproj = [k for k in names if re.search(r"conv_xproj_kernel<[^,]+, true,", k)]
     k3 = [k for k in names if "scan_bwd_kernel<" in k]
     if not (k2res and xproj and k3):
@@ -3692,7 +4007,7 @@ def phase_distill(dev, tsv, n_valid):
         torch.cuda.synchronize()
         c = counts()
         nl2 = 2 * scfg.n_layer
-        want = only(mixer_fwd=2 * tcfg.n_layer, mixer2_fwd_res=2 * nl2,
+        want = only(mixer_fwd_x=2 * tcfg.n_layer, mixer2_fwd_res=2 * nl2,
                     ssd_bwd_pre_silu=nl2) if use_kernels else only()
         if c != want:
             fail(f"phase 15b gradient (kernels={use_kernels}) launched {c}; expected {want}")
@@ -3727,7 +4042,7 @@ def phase_distill(dev, tsv, n_valid):
     c = counts()
     peak = torch.cuda.max_memory_allocated(dev)
     nt, ns = tcfg.n_layer, scfg.n_layer
-    want = only(mixer_fwd=DISTILL_STEPS * 2 * nt, mixer2_fwd_res=DISTILL_STEPS * 4 * ns,
+    want = only(mixer_fwd_x=DISTILL_STEPS * 2 * nt, mixer2_fwd_res=DISTILL_STEPS * 4 * ns,
                 ssd_bwd_pre_silu=DISTILL_STEPS * 2 * ns)
     if c != want:
         fail(f"phase 15b cli.distill launched {c}; expected exactly {want}")
@@ -3854,7 +4169,7 @@ def phase_convergence(dev):
         want = forward(model, batch["input_ids"], dtype=torch.float32,
                        use_kernels=False)["logits"]
     d, scale = (got - want).abs().max().item(), want.abs().max().item()
-    if c != only(mixer_fwd=nl2) or not (torch.isfinite(got).all()
+    if c != only(mixer_fwd_x=nl2) or not (torch.isfinite(got).all()
                                         and d <= FORWARD_TOL * scale):
         fail(f"phase 15c probe forward: launched {c}; max_abs_err {d:.3e} of max |logit| "
              f"{scale:.3e} (tol {FORWARD_TOL:.0e} rel)")
@@ -3876,7 +4191,7 @@ def phase_convergence(dev):
             f"loss {m['repeat_loss']:.4f}")
     c = counts()
     total = sum(s for _, s, _ in CONVERGENCE_RUNS)
-    want = only(mixer_fwd=len(CONVERGENCE_RUNS) * nl2, mixer_fwd_res=total * nl2,
+    want = only(mixer_fwd_x=len(CONVERGENCE_RUNS) * nl2, mixer_fwd_res=total * nl2,
                 scan_bwd=total * nl2)
     if c != want:
         fail(f"phase 15c launched {c}; expected {want}")
@@ -4044,8 +4359,8 @@ def phase_format_checkpoints(dev, tsv, n_valid):
         score(["-input-table", str(tsv), "-model", str(d), "-output", str(out[name]),
                "-no-progress"])
         got = counts()
-        if got != only(mixer_fwd=2 * nl * n_batches):
-            fail(f"phase 16a scoring {name} launched {got}; expected mixer_fwd="
+        if got != only(mixer_fwd_x=2 * nl * n_batches):
+            fail(f"phase 16a scoring {name} launched {got}; expected mixer_fwd_x="
                  f"{2 * nl * n_batches}")
         c = {k: c[k] + got[k] for k in c}
     sizes = {k: sum(f.stat().st_size for f in d.iterdir()) for k, d in dirs.items()}
@@ -4226,7 +4541,7 @@ def phase_format_finetune(dev, base):
             mb = 2 * nl  # a microbatch: both directions of every layer
             n_eval = -(-len(ids) // FORMAT_FT_EVAL) * 2 * nl
             want = only(scan_fwd_hb=FORMAT_FT_STEPS * 2 * mb, scan_bwd=FORMAT_FT_STEPS * mb,
-                        mixer_fwd=n_eval)
+                        mixer_fwd_x=n_eval)
             if got != want:
                 fail(f"phase 16c {name} from {fmt} launched {got}; expected {want}")
             c = {k: c[k] + got[k] for k in c}
@@ -4285,8 +4600,8 @@ def phase_format_finetune(dev, base):
     got_c = counts()
     ids, labels = ft._load_data(table)
     n_eval = -(-len(ids) // FORMAT_FT_EVAL) * 2 * nl
-    if got_c != only(mixer_fwd=n_eval):
-        fail(f"phase 16c evaluate launched {got_c}; expected mixer_fwd={n_eval}")
+    if got_c != only(mixer_fwd_x=n_eval):
+        fail(f"phase 16c evaluate launched {got_c}; expected mixer_fwd_x={n_eval}")
     c = {k: c[k] + got_c[k] for k in c}
     ns = argparse.Namespace(model_name=str(base), lora_r=cfg_l.r, lora_alpha=cfg_l.alpha,
                             lora_dropout=cfg_l.dropout, learning_rate=1e-3, warmup_steps=50,
@@ -4339,7 +4654,7 @@ def phase_formats(dev, tsv, n_valid):
 # sharing it, not a scaling result. First K3's g0 / emit_dh0 at the seq
 # path's local shape (pc2-small, 4 windows + their RC stream = 8 rows x 2048
 # x 1536, R 48) against the plain version, and chained over two halves
-# against one call; then pc2-small and pc2-small-ssd at 6 of their 24
+# against one call; then pc2-small and pc2-small-ssd at 4 of their 24
 # layers (full widths; the depth cut to fit the script's time) at 8192 bp
 # (scoring at seq 4; pre-training at data 2 x seq 2, global batch 4, remat:
 # 3 fp32 steps, every step's gradients and the weights after them gated, and
@@ -4349,7 +4664,7 @@ def phase_formats(dev, tsv, n_valid):
 # same card with the same weights and inputs.
 PAR_L, PAR_WINDOWS, PAR_STEPS, PAR_BF16_STEPS = 8192, 4, 3, 2
 PAR_MODELS = ("pc2-small", "pc2-small-ssd")
-PAR_LAYERS = 6   # of pc2-small's 24: full widths and L, the depth cut to fit the time limit
+PAR_LAYERS = 4   # of pc2-small's 24: full widths and L, the depth cut to fit the time limit
 DP_L, DP_WINDOWS, DP_BATCH, DP_ROWS = 512, 64, 16, 8
 PAR_SEED = 17
 PAR_TIMEOUT_S = 150   # the 2- and 4-rank jobs' cap, clipped to the deadline
@@ -4832,9 +5147,10 @@ def par_checks(dev, inp, workdir, jobs, k3, k3_err, t0):
         torch.cuda.empty_cache()
     single["l20"] = dp_run(dev, inp, None)
     torch.cuda.empty_cache()
+    l20_want = {"scoring": only(mixer_fwd_x=2 * 20 * DP_WINDOWS // (DP_BATCH // 2)),
+                "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)}
     for preset, want in (*((p, par_expected(p, PAR_LAYERS, False)) for p in PAR_MODELS),
-                         ("l20", {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // (DP_BATCH // 2)),
-                                  "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})):
+                         ("l20", l20_want)):
         if single[preset]["counts"] != want:
             fail(f"phase 17 one-process {preset} launched {single[preset]['counts']}; "
                  f"expected {want}")
@@ -4851,7 +5167,7 @@ def par_checks(dev, inp, workdir, jobs, k3, k3_err, t0):
                 fail(f"phase 17 {job} rank {r} ran on {rr['device']} over {rr['backend']}")
             for preset, parts in rr["counts"].items():
                 want = (par_expected(preset, PAR_LAYERS, True) if job == "pc2" else
-                        {"scoring": only(mixer_fwd=2 * 20 * DP_WINDOWS // DP_BATCH),
+                        {"scoring": only(mixer_fwd_x=2 * 20 * DP_WINDOWS // DP_BATCH),
                          "step": only(mixer_fwd_res=2 * 80, scan_bwd=2 * 40)})
                 if parts != want:
                     fail(f"phase 17 {job} rank {r} {preset} launched {parts}; expected {want}")
@@ -5344,8 +5660,8 @@ def p18_checks(dev, workdir, serve, ranks_job, t0):
             for k, v in c.items():
                 total[k] += v
     path = {"train": ("mixer_fwd_res", "scan_bwd"),
-            "distill": ("mixer_fwd", "mixer2_fwd_res", "ssd_bwd_pre_silu"),
-            "lora": ("scan_fwd_hb", "scan_bwd", "mixer_fwd"), "embed": ("mixer_fwd",)}
+            "distill": ("mixer_fwd_x", "mixer2_fwd_res", "ssd_bwd_pre_silu"),
+            "lora": ("scan_fwd_hb", "scan_bwd", "mixer_fwd_x"), "embed": ("mixer_fwd_x",)}
     for part, names in path.items():
         if not all(one_cnt[part][k] for k in names):
             fail(f"phase 18 {part}: a kernel of its path did not launch: {one_cnt[part]}")
@@ -5815,6 +6131,7 @@ def main():
     run_phase("4", phase_forward, cfg, dev)
     run_phase("4b", phase_forward2, dev)
     k1_launches = run_phase("5", phase_general, dev)
+    gc5 = run_phase("5b", phase_gated, cfg, dev)
     k2_launches, wps, wps_e2e, tsv, n_valid = run_phase("6", phase_cli, cfg, dev)
     k5_launches, wps2, wps2_e2e = run_phase("6b", phase_cli2, dev, tsv, n_valid)
     run_phase("7", phase_profile, cfg, dev)
@@ -5906,9 +6223,16 @@ def main():
     meta = {
         "mixer_fwd": dict(source=src + "mixer_fwd.cu",
                           replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
-                          launches=k2_launches + ek2 + xk2 + sk2 + tk2 + fc["mixer_fwd"]
-                          + rc["mixer_fwd"] + gc16["mixer_fwd"] + pc17["mixer_fwd"]
-                          + pc18["mixer_fwd"]),
+                          launches=ek2 + fc["mixer_fwd"] + rc["mixer_fwd"] + gc16["mixer_fwd"]
+                          + pc17["mixer_fwd"] + pc18["mixer_fwd"]),
+        "mixer_fwd_x": dict(source=src + "mixer_fwd.cu",
+                            replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
+                            launches=k2_launches + xk2 + sk2 + tk2 + fc["mixer_fwd_x"]
+                            + rc["mixer_fwd_x"] + gc16["mixer_fwd_x"] + pc17["mixer_fwd_x"]
+                            + pc18["mixer_fwd_x"]),
+        "scan_fwd_combine": dict(source=src + "scan_fwd.cu",
+                                 replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
+                                 launches=gc5["scan_fwd_combine"]),
         "mixer_fwd_res": dict(source=src + "mixer_fwd.cu",
                               replaces="plantcaduceus_tpu/ops/pallas_mixer.py:49",
                               launches=tc["mixer_fwd_res"] + fc["mixer_fwd_res"]
@@ -5917,15 +6241,18 @@ def main():
                               + pc19["mixer_fwd_res"]),
         "scan_fwd": dict(source=src + "scan_fwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
-                         launches=k1_launches + ar1["scan_fwd"] + pc17["scan_fwd"]),
+                         launches=k1_launches + gc5["scan_fwd"] + ar1["scan_fwd"]
+                         + pc17["scan_fwd"]),
         "scan_fwd_hb": dict(source=src + "scan_fwd.cu",
                             replaces="plantcaduceus_tpu/ops/pallas_scan.py:76",
-                            launches=hb_launches + ar1["scan_fwd_hb"] + fc["scan_fwd_hb"]
+                            launches=hb_launches + gc5["scan_fwd_hb"] + ar1["scan_fwd_hb"]
+                            + fc["scan_fwd_hb"]
                             + gc16["scan_fwd_hb"] + pc17["scan_fwd_hb"]
                             + pc18["scan_fwd_hb"] + pc19["scan_fwd_hb"]),
         "scan_bwd": dict(source=src + "scan_bwd.cu",
                          replaces="plantcaduceus_tpu/ops/pallas_scan.py:310",
-                         launches=tc["scan_bwd"] + ar1["scan_bwd"] + fc["scan_bwd"]
+                         launches=tc["scan_bwd"] + gc5["scan_bwd"] + ar1["scan_bwd"]
+                         + fc["scan_bwd"]
                          + rc["scan_bwd"] + gc16["scan_bwd"] + pc17["scan_bwd"]
                          + pc18["scan_bwd"] + pc19["scan_bwd"]),
         "ssd_fwd": dict(source=src + "ssd_fwd.cu",
@@ -5952,10 +6279,14 @@ def main():
                                  + rc["ssd_bwd_pre_silu"] + pc18["ssd_bwd_pre_silu"]),
     }
     kernels = []
-    for name in ("mixer_fwd", "scan_fwd"):
+    for name in ("mixer_fwd", "mixer_fwd_x", "scan_fwd", "scan_fwd_combine"):
         r = kres[name]
         b, by, _ = r["bound"]
         extra = {}
+        if "float32" in r:  # the new variants' fp32 times beside their bf16 ones
+            f = r["float32"]
+            extra["float32"] = dict(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound"][0],
+                                    bound_by=f["bound"][1])
         if "dt_given" in r:  # K1 with dt given at full width, beside the fused mode
             g = r["dt_given"]
             extra["dt_given"] = dict(ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound"][0],
@@ -6009,6 +6340,24 @@ def main():
             **({"split_ms": r["split_ms"]} if "split_ms" in r else {}),
             **{k: "plantcaduceus_tpu/ops/pallas_attention.py" + v for k, v in also.items()},
             **extra))
+    # K7 and K8 above hd 128 (128-wide slices): bf16 at hd 256, 4 x 512, H 4
+    # in the contract's keys, fp32 beside; launches from phase 3e's BERT at
+    # heads of 256.
+    wide, wide_c = ares["wide"]
+    for name, replaces, counter in (("attn_fwd_hd256", ":63", "attn_fwd_wide"),
+                                    ("attn_bwd_hd256", ":103", "attn_bwd_wide")):
+        r = wide[name]
+        b, by, _ = r["bound"]["bfloat16"]
+        b32, by32, _ = r["bound"]["float32"]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + name[:8] + ".cu",
+            replaces="plantcaduceus_tpu/ops/pallas_attention.py" + replaces,
+            launches=wide_c[counter], max_abs_err=r["err"], ms=r["ms"]["bfloat16"],
+            plain_ms=r["plain_ms"]["bfloat16"], bound_ms=b, bound_by=by,
+            library_ms=r["library_ms"]["bfloat16"],
+            float32=dict(ms=r["ms"]["float32"], plain_ms=r["plain_ms"]["float32"],
+                         library_ms=r["library_ms"]["float32"], bound_ms=b32, bound_by=by32),
+            shape=dict(zip(("B", "L", "H"), ATTN_WIDE_SHAPE), hd=256)))
     # K3 with g0 / emit_dh0 (the context-parallel backward): bf16 at the seq
     # path's local shape in the contract's keys, fp32 beside; launches from
     # phase 17's ranks.

@@ -16,6 +16,15 @@
 // exponential; a masked score is the sentinel itself in either base. lse
 // leaves the kernels in natural log.
 //
+// Head dims above 128 (a multiple of 128: flash_attention pads to one, as
+// pallas_attention.py:184 does) run in 128-wide slices: NS = hd / 128
+// blocks per tile, block z (blockIdx.z) owning the outputs' columns 128 z
+// .. 128 z + 127. Each block sums the score-type products over the NS
+// slices in slice order with hd 128's routines, so the NS blocks of a tile
+// compute the same scores bit for bit, then accumulates its own slice of
+// the outputs; the scores are recomputed once per slice. No ring: every
+// tile is copied, waited for and used (the "wide" kernels).
+//
 // Masking by tile class: a (query tile, key tile) pair wholly inside L and
 // inside the window/causal span (AttnMask::interior) takes only the ALiBi
 // term, from the tile's offset; only the pairs on an edge (the ragged end,
@@ -232,12 +241,14 @@ __device__ __forceinline__ void attn_scores(float (&s)[8][4], const AttnLane& ln
 // ---- bfloat16: wgmma -------------------------------------------------------
 
 // s = A . B^T over hd, A and B [64][HD] tiles at shared addresses a and b
-// (issued; the caller fences, commits and waits).
+// (issued; the caller fences, commits and waits); s += A . B^T with
+// `accumulate` (the head-dim slices after the first, above hd 128).
 template <int HD>
-__device__ __forceinline__ void wg_scores(float (&s)[8][4], uint32_t a, uint32_t b) {
+__device__ __forceinline__ void wg_scores(float (&s)[8][4], uint32_t a, uint32_t b,
+                                          bool accumulate = false) {
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks)
-    wgmma_ss(s, WgTile<HD>::desc_k(a, ks), WgTile<HD>::desc_k(b, ks), ks > 0);
+    wgmma_ss(s, WgTile<HD>::desc_k(a, ks), WgTile<HD>::desc_k(b, ks), accumulate || ks > 0);
 }
 
 // The score tile as wgmma A fragments (bf16), one per 16 columns.

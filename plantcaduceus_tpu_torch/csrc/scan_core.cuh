@@ -42,7 +42,13 @@
 // processing order) when p % hbc == 0 to hb[row][p / hbc][d][:] (the
 // layout of pallas_scan.py's emit_hb, which K3 recomputes from); h0
 // [rows, D, N] seeds the states before the first processed step, and hfin
-// [rows, D, N] receives them after the last (pallas_scan.py:93-95, 179).
+// [rows, D, N] receives them after the last (pallas_scan.py:93-95, 179);
+// combine (yprev and z, [rows, L, D] in the input dtype; K1's only,
+// pallas_scan.py:78, 82-83, 213-221), the bidirectional epilogue
+// y = (y + yprev) * z * sigmoid(z), all in float32 (y with its D-skip, the
+// sigmoid of the raw gate z), stored in the input dtype. A chunk's yprev
+// and z are loaded before its recurrence runs, so their latency hides
+// under it.
 //
 // What bounds it on an H100: one exp2 per (row, step, channel, state) on
 // the special-function units (1.6e9 at the l20 scoring shape 256 x 512 x
@@ -118,6 +124,8 @@ struct ScanFwdArgs {
   float* hb;             // [rows, ceil(L/hbc), D, N] chunk-entry states, or null
   const float* h0;       // [rows, D, N] initial states, or null (zeros)
   float* hfin;           // [rows, D, N] final states, or null
+  const void* yprev = nullptr;  // [rows, L, D] the other direction's y (combine), or null
+  const void* z = nullptr;      // [rows, L, D] the raw gate (combine), or null
   int L, D, R, reverse, hbc;  // R = 0 when dt is given per channel
 };
 
@@ -142,10 +150,17 @@ inline size_t fwd_smem_bytes(int N, int R) {
 //                              L), called once a chunk, in order;
 //   dt_chunk(p0, dv)           dt of those steps (unfused), likewise;
 //   prefetch(p0)               start loading what x_chunk / dt_chunk of the
-//                              chunk at p0 (the next one) need.
-// HB: the training variant, chosen at launch, so the inference kernel
-// carries no per-step test for it.
-template <typename T, int N, bool HB, class Src>
+//                              chunk at p0 (the next one) need;
+//   kHb, kCombine              whether the policy runs the training
+//                              variant, and whether it runs the combine
+//                              epilogue (then only that: a policy's
+//                              combine kernel builds in a unit of its own,
+//                              PC_SCAN_COMBINE in scan_fwd.cu);
+//   kSmemFloats, bind_smem(p)  shared memory the policy uses, after the
+//                              kernel's own (16-byte aligned), if any.
+// HB: the training variant, COMB: the combine epilogue, each chosen at
+// launch, so the inference kernel carries no per-step test for them.
+template <typename T, int N, bool HB, bool COMB, class Src>
 __global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlocks)
     scan_fwd_kernel(ScanFwdArgs a, typename Src::Args sa) {
   // Row values a thread prefetches: all of them (16N) when dt is given; with
@@ -163,7 +178,10 @@ __global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlo
   const int d0 = blockIdx.x * kFwdThreads, d = d0 + tid;
   const bool live = d < D;
   Src src(sa, a, row, d, live);
+  if constexpr (Src::kSmemFloats > 0) src.bind_smem(sW + R * kFwdThreads);
   T* y = static_cast<T*>(a.y) + row * (long long)L * D;
+  const T* yprev = COMB ? static_cast<const T*>(a.yprev) + row * (long long)L * D + d : nullptr;
+  const T* zg = COMB ? static_cast<const T*>(a.z) + row * (long long)L * D + d : nullptr;
   auto time_of = [&](int p) { return a.reverse ? L - 1 - p : p; };
   for (int i = tid; i < R * kFwdThreads; i += kFwdThreads) {
     const int c = d0 + i % kFwdThreads;
@@ -253,6 +271,16 @@ __global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlo
       dv[k] = p0 + k < L ? softplus(dv[k] + bias) : 0.f;
       dtmax = fmaxf(dtmax, dv[k]);
     }
+    float yp[COMB ? TC : 1], zz[COMB ? TC : 1];  // combine: the chunk's yprev and z
+    if constexpr (COMB) {
+#pragma unroll
+      for (int k = 0; k < TC; ++k) {
+        const bool ok = live && p0 + k < L;
+        const long long t = time_of(p0 + k);
+        yp[k] = ok ? to_f(yprev[t * D]) : 0.f;
+        zz[k] = ok ? to_f(zg[t * D]) : 0.f;
+      }
+    }
     int kh = 0;  // the chunk's first step that stores hb
     if constexpr (HB) {
       kh = p0 % a.hbc;
@@ -283,7 +311,11 @@ __global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlo
             acc = fmaf(cv[e], h[n + e], acc);
           }
         }
-        if (live && p < L) y[(long long)time_of(p) * D + d] = from_f<T>(fmaf(xv[k], dsk, acc));
+        if (live && p < L) {
+          float yv = fmaf(xv[k], dsk, acc);
+          if constexpr (COMB) yv = (yv + yp[k]) * (zz[k] * (1.f / (1.f + expf(-zz[k]))));
+          y[(long long)time_of(p) * D + d] = from_f<T>(yv);
+        }
       }
     };
     // One path for the whole warp (every thread of the block reaches here).
@@ -299,8 +331,16 @@ __global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlo
 template <typename T, int N, class Src>
 cudaError_t launch_scan_fwd_n(const ScanFwdArgs& a, const typename Src::Args& sa, int rows,
                               cudaStream_t s) {
-  const size_t smem = fwd_smem_bytes(N, Src::kFuse ? a.R : 0);
-  auto kern = a.hb ? scan_fwd_kernel<T, N, true, Src> : scan_fwd_kernel<T, N, false, Src>;
+  const size_t smem =
+      fwd_smem_bytes(N, Src::kFuse ? a.R : 0) + sizeof(float) * (size_t)Src::kSmemFloats;
+  // a combine policy takes yprev and z and never hb; the others neither
+  if ((a.yprev != nullptr) != Src::kCombine || (a.z != nullptr) != Src::kCombine ||
+      (a.hb && !Src::kHb))
+    return cudaErrorInvalidValue;
+  auto kern = scan_fwd_kernel<T, N, false, Src::kCombine, Src>;
+  if constexpr (Src::kHb) {
+    if (a.hb) kern = scan_fwd_kernel<T, N, true, false, Src>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -4,9 +4,16 @@
 // pallas_scan.py:293 through _pallas_scan_group / selective_scan_pallas):
 // the `reverse` flag, both dt modes (dt given per channel, or dt_lr
 // projected up by W_dt inside the kernel), the carry options h0 and
-// emit_hfin (pallas_scan.py:93-95, 179) and, for training, emit_hb
-// (chunk-entry states every `hbc` steps, pallas_scan.py:120-122, 286-288).
-// The TPU kernel's `combine` epilogue is not ported.
+// emit_hfin (pallas_scan.py:93-95, 179), for training emit_hb (chunk-entry
+// states every `hbc` steps, pallas_scan.py:120-122, 286-288), and the
+// `combine` epilogue y = (y + y_prev) * silu(z) (pallas_scan.py:78, 82-83,
+// 195-201, 213-221), which bimamba_scan_gated's reverse direction runs
+// (pallas_scan.py:743-835, under PCAD_GATED_KERNEL=1). combine reads two
+// more [rows, L, D] tensors and saves the separate sum-and-gate pass's
+// reads of both directions' y and z and its write; the exp2 per state
+// still bounds the kernel (scan_core.cuh). The combine kernels build in a
+// unit of their own (this file with PC_SCAN_COMBINE: pc_scan_fwd_combine),
+// beside the others (pc_scan_fwd), which they would otherwise lengthen.
 //
 // This file holds K1's input policy and entry point only: the kernel is
 // scan_core.cuh's scan_fwd_kernel, the forward scan K2 also runs. K1's
@@ -30,11 +37,13 @@ struct ScanLoadArgs {
 };
 
 // x and dt from device memory, B | C | dt_lr rows for the kernel's staging.
-template <typename T, bool FUSE>
+// COMB: the combine kernel's policy (scan_core.cuh).
+template <typename T, bool FUSE, bool COMB>
 struct ScanLoadSrc {
   using Args = ScanLoadArgs;
   using Raw = T;
-  static constexpr bool kFuse = FUSE;
+  static constexpr bool kFuse = FUSE, kHb = !COMB, kCombine = COMB;
+  static constexpr int kSmemFloats = 0;
   const T *x, *dt, *B, *C;
   int L, D, R, N, reverse;
   bool live;
@@ -71,27 +80,49 @@ struct ScanLoadSrc {
   }
 };
 
-template <typename T>
+template <typename T, bool COMB>
 cudaError_t launch_k1(const ScanFwdArgs& a, const ScanLoadArgs& s, int rows, cudaStream_t st) {
-  if (a.R > 0) return launch_scan_fwd<T, ScanLoadSrc<T, true>>(a, s, s.N, rows, st);
-  return launch_scan_fwd<T, ScanLoadSrc<T, false>>(a, s, s.N, rows, st);
+  if (a.R > 0) return launch_scan_fwd<T, ScanLoadSrc<T, true, COMB>>(a, s, s.N, rows, st);
+  return launch_scan_fwd<T, ScanLoadSrc<T, false, COMB>>(a, s, s.N, rows, st);
+}
+
+template <bool COMB>
+int run_k1(const void* x, const void* dt, const void* B, const void* C, const float* A,
+           const float* Dskip, const float* dt_bias, const float* wdt, void* y, float* hb,
+           const float* h0, float* hfin, const void* yprev, const void* z, int rows, int L,
+           int D, int N, int R, int reverse, int bf16, int hbc, void* stream) {
+  ScanFwdArgs a;
+  a.y = y; a.A = A; a.Dskip = Dskip; a.dt_bias = dt_bias; a.wdt = wdt;
+  a.hb = hb; a.h0 = h0; a.hfin = hfin; a.yprev = yprev; a.z = z;
+  a.L = L; a.D = D; a.R = R; a.reverse = reverse; a.hbc = hbc > 0 ? hbc : 1;
+  const ScanLoadArgs s{x, dt, B, C, N};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) return launch_k1<__nv_bfloat16, COMB>(a, s, rows, st);
+  return launch_k1<float, COMB>(a, s, rows, st);
 }
 
 }  // namespace pc
 
 // R > 0: dt is dt_lr [rows, L, R] projected by wdt [R, D]; R == 0: dt is
-// [rows, L, D]. hb (hbc >= 1), h0 and hfin are optional (null).
+// [rows, L, D]. h0 and hfin are optional (null).
+#ifndef PC_SCAN_COMBINE
+// hb (hbc >= 1) is optional (null).
 extern "C" int pc_scan_fwd(const void* x, const void* dt, const void* B, const void* C,
                            const float* A, const float* Dskip, const float* dt_bias,
                            const float* wdt, void* y, float* hb, const float* h0, float* hfin,
                            int rows, int L, int D, int N, int R, int reverse, int bf16, int hbc,
                            void* stream) {
-  pc::ScanFwdArgs a;
-  a.y = y; a.A = A; a.Dskip = Dskip; a.dt_bias = dt_bias; a.wdt = wdt;
-  a.hb = hb; a.h0 = h0; a.hfin = hfin;
-  a.L = L; a.D = D; a.R = R; a.reverse = reverse; a.hbc = hbc > 0 ? hbc : 1;
-  const pc::ScanLoadArgs s{x, dt, B, C, N};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return pc::launch_k1<__nv_bfloat16>(a, s, rows, st);
-  return pc::launch_k1<float>(a, s, rows, st);
+  return pc::run_k1<false>(x, dt, B, C, A, Dskip, dt_bias, wdt, y, hb, h0, hfin, nullptr,
+                           nullptr, rows, L, D, N, R, reverse, bf16, hbc, stream);
 }
+#else
+// The combine epilogue: yprev and z [rows, L, D] in x's dtype.
+extern "C" int pc_scan_fwd_combine(const void* x, const void* dt, const void* B, const void* C,
+                                   const float* A, const float* Dskip, const float* dt_bias,
+                                   const float* wdt, void* y, const float* h0, float* hfin,
+                                   const void* yprev, const void* z, int rows, int L, int D,
+                                   int N, int R, int reverse, int bf16, void* stream) {
+  return pc::run_k1<true>(x, dt, B, C, A, Dskip, dt_bias, wdt, y, nullptr, h0, hfin, yprev, z,
+                          rows, L, D, N, R, reverse, bf16, 0, stream);
+}
+#endif

@@ -16,8 +16,17 @@ presets. The same flattened formulation:
 Mixer paths:
 
 * tied in/out projections with the ``add`` combine (the released models):
-  in_proj with ``torch.matmul``, then kernel K2 (``ops.cuda_mixer``) once
-  per direction, the fp32 gate, out_proj;
+  at d_inner <= 768 (JAX's threshold, ``caduceus.py:455``) kernel K2's
+  ``fuse_in`` variant (``ops.cuda_mixer.bimamba_mixer_fused_x``: in_proj's
+  x half inside the kernel, xi kept in float32 and never in device memory)
+  once per direction; above it in_proj with ``torch.matmul``, then K2 with
+  xi given; then the gate, out_proj;
+* the same configs with ``PCAD_GATED_KERNEL=1`` in the environment at
+  import (JAX's switch, ``caduceus.py:59``; not under ``sp``): in_proj,
+  conv and x_proj in plain PyTorch (with any adapters, summed over
+  ``tp``), then ``ops.cuda_scan.bimamba_scan_gated`` (K1 forward, K1
+  reverse with the ``combine`` epilogue; K1-hb and K3 under training),
+  out_proj;
 * everything else (untied, ``ew_multiply``, unidirectional): conv and
   x_proj in plain PyTorch, then kernel K1 (``ops.cuda_scan``) per
   direction, with dt projected inside the kernel when G=2 and outside when
@@ -57,9 +66,11 @@ Mixer paths:
 
 Under training (grad enabled, and the input or a weight requiring it) the
 same paths go through autograd Functions: ``BimambaMixerFn`` (K2's residual
-variant, K3 in the backward), ``SelectiveScanFn`` (K1 with chunk-entry
-states, K3) and ``Mamba2InteriorFn`` (K5's residual variant, K6 in
-``pre_silu`` mode in the backward).
+variant, K3 in the backward; the ``fuse_in`` route takes it after an
+in_proj in the compute dtype, as JAX's VJP does), ``SelectiveScanFn`` (K1
+with chunk-entry states, K3), ``BimambaScanGatedFn`` (K1-hb, K3) and
+``Mamba2InteriorFn`` (K5's residual variant, K6 in ``pre_silu`` mode in the
+backward).
 Under ``no_grad``/``inference_mode`` the inference kernels run. Weights are
 float32 master copies; compute runs in the forward's ``dtype`` with a
 float32 residual stream, as in the JAX package. On CPU tensors the kernel
@@ -70,6 +81,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Dict, Optional
 
 import torch
@@ -79,17 +91,25 @@ from torch.utils.checkpoint import checkpoint
 
 from plantcaduceus_tpu_torch.models.config import CaduceusConfig
 from plantcaduceus_tpu_torch.ops.conv import causal_conv1d, halo_depthwise_conv_silu
-from plantcaduceus_tpu_torch.ops.cuda_mixer import bimamba_mixer, bimamba_mixer_fused
+from plantcaduceus_tpu_torch.ops.cuda_mixer import (bimamba_mixer, bimamba_mixer_fused,
+                                                    bimamba_mixer_fused_x)
 from plantcaduceus_tpu_torch.ops.cuda_mixer2 import (mamba2_mixer_interior,
                                                      mamba2_mixer_interior_plain,
                                                      mamba2_mixer_interior_train)
-from plantcaduceus_tpu_torch.ops.cuda_scan import scan_fwd, scan_fwd_plain, selective_scan
+from plantcaduceus_tpu_torch.ops.cuda_scan import (bimamba_scan_gated, scan_fwd,
+                                                   scan_fwd_plain, selective_scan)
 from plantcaduceus_tpu_torch.ops.norms import layer_norm, rms_norm
 from plantcaduceus_tpu_torch.ops.seq_parallel import scan_seq_sharded
 from plantcaduceus_tpu_torch.ops.ssd_seq_parallel import ssd_dir_seq_sharded
 from plantcaduceus_tpu_torch.ops.cuda_ssd import ssd_dir, ssd_dir_plain, ssd_dir_train
 from plantcaduceus_tpu_torch.parallel.collectives import (ppermute, psum_id_bwd, psum_psum_bwd,
                                                           tp_boundary)
+
+# JAX's PCAD_GATED_KERNEL switch (caduceus.py:59), read once at import.
+_USE_GATED_KERNEL = os.environ.get("PCAD_GATED_KERNEL") == "1"
+# The widest d_inner whose tied + add mixer fuses in_proj into K2 (JAX
+# caduceus.py:455, measured there on a TPU v5e; kept as it is).
+FUSE_IN_MAX_D_INNER = 768
 
 LAYER_KEYS = ("norm_weight", "in_proj_x", "in_proj_z", "out_proj", "conv_w",
               "conv_b", "x_proj_dt", "x_proj_B", "x_proj_C", "dt_proj_w",
@@ -403,11 +423,21 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
     ``use_kernels=False`` runs the kernels' plain versions on any device,
     differentiated by autograd.
 
+    The tied + add config, without LoRA, ``sp``, ``tp`` or
+    ``PCAD_GATED_KERNEL``, is K2's route: at d_inner <= 768 the ``fuse_in``
+    variant from x (``bimamba_mixer_fused_x``), above it K2 on in_proj's
+    output (JAX ``caduceus.py:430-466``).
+
     With ``lora`` (activation-path adapters) the tied + add config leaves K2,
     whose fused interior hides the x_proj sites, for the decomposed route:
     in_proj, conv, x_proj with their deltas, then K1 (K1-hb and K3 under
     training) with dt_proj fused, both directions, and one out_proj on the
     summed, gated streams (JAX ``caduceus.py:572-578``).
+
+    With ``PCAD_GATED_KERNEL=1`` the tied + add config outside ``sp`` takes
+    the decomposed route up to x_proj (LoRA deltas and the ``tp`` sum
+    included), then ``bimamba_scan_gated`` and out_proj, where JAX's
+    ``elif fused`` branch does (``caduceus.py:535-551``).
 
     With ``sp`` (context parallelism; ``x`` holds this rank's chunk of L)
     the tied + add config runs the same decomposed route with the halo conv
@@ -430,14 +460,21 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
     if tp is not None:
         x = tp_boundary(x, tp)
 
-    if tied_add and lora is None and sp is None and tp is None:
+    gated = _USE_GATED_KERNEL and tied_add and sp is None
+    if tied_add and lora is None and sp is None and tp is None and not gated:
         # Released-model path: K2 once per direction (K2-res and K3 under training).
-        xi = x @ p["in_proj_x"][0].to(cdtype)
         z = x @ p["in_proj_z"][0].to(cdtype)
-        args = (xi, z, p["conv_w"], p["conv_b"], p["x_proj_dt"], p["x_proj_B"],
-                p["x_proj_C"], p["dt_proj_w"], p["dt_proj_b"], A, p["D"])
-        y_gated = (bimamba_mixer(*args) if train
-                   else bimamba_mixer_fused(*args, use_kernels=use_kernels))
+        args = (p["conv_w"], p["conv_b"], p["x_proj_dt"], p["x_proj_B"], p["x_proj_C"],
+                p["dt_proj_w"], p["dt_proj_b"], A, p["D"])
+        if not train and p["in_proj_x"].shape[-1] <= FUSE_IN_MAX_D_INNER:
+            # in_proj inside K2 (under grad with the plain versions, the
+            # function takes JAX's decomposition itself)
+            y_gated = bimamba_mixer_fused_x(x, z, p["in_proj_x"][0], *args,
+                                            use_kernels=use_kernels)
+        else:
+            xi = x @ p["in_proj_x"][0].to(cdtype)
+            y_gated = (bimamba_mixer(xi, z, *args) if train
+                       else bimamba_mixer_fused(xi, z, *args, use_kernels=use_kernels))
         return y_gated @ p["out_proj"][0].to(cdtype)
 
     scan = selective_scan if train else (scan_fwd if use_kernels else scan_fwd_plain)
@@ -463,6 +500,13 @@ def mamba_mixer(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: CaduceusConfig
         sizes = [t.shape[-1] for t in projs[0]]
         summed = psum_psum_bwd(torch.stack([torch.cat(pr, -1) for pr in projs]), tp)
         projs = [list(summed[g].split(sizes, -1)) for g in range(G)]
+    if gated:
+        # JAX's PCAD_GATED_KERNEL route: both scans, the sum and the gate in one op
+        dt_lr, Bm, Cm = (torch.stack([pr[i] for pr in projs]) for i in range(3))
+        y_gated = bimamba_scan_gated(torch.stack(xgs), dt_lr, A, Bm, Cm, p["D"], p["dt_proj_b"],
+                                     p["dt_proj_w"], z[0], use_kernels=use_kernels)
+        return psum_id_bwd(_add_lora(y_gated @ p["out_proj"][0].to(cdtype), lora, "out_proj",
+                                     y_gated, g=0), tp)
     ys = []
     for g in range(G):
         xg, (dt_lr, Bm, Cm) = xgs[g], projs[g]

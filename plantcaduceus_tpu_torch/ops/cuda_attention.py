@@ -10,12 +10,14 @@ autograd as ``_flash``'s custom VJP does (``pallas_attention.py:295-318``).
 
 The wrappers take the plain versions for tensors on the CPU only. For CUDA
 tensors they launch the kernel or raise ``ValueError``; they never fall
-back. The kernels take float32 or bfloat16, head dim 32, 64 or 128, and any
+back. The kernels take float32 or bfloat16, head dim 32, 64, 128 or a
+multiple of 128 above it (the "wide" kernels, in 128-wide slices), and any
 sequence length (the TPU kernel needs L tileable by 128; the card's kernel
 masks the ragged last tile). q, k and v are read through their strides:
 views of one fused qkv projection need no copy. :func:`flash_attention`
-takes any head dim up to 128: it zero-pads q, k and v to the next kernel
-width, as the TPU path's ``_pad_heads`` pads to 128, which is exact.
+takes any head dim: it zero-pads q, k and v to the next kernel width (32,
+64 or 128, and above 128 the next multiple of 128, as the TPU path's
+``_pad_heads`` pads, ``pallas_attention.py:172-186``), which is exact.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from plantcaduceus_tpu_torch.ops.flash_plain import (default_scale, flash_bwd_pl
                                                      flash_fwd_plain)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)  # and the multiples of WIDE_SLICE above them
+WIDE_SLICE = 128
 MAX_ROWS = 65535  # grid.y = B * H
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -57,7 +60,8 @@ def _check_args(what, q, k, v, slopes, window):
     _require(q.device.type == "cuda", what, f"tensors on {q.device}; need cuda or cpu")
     _require(q.dim() == 4, what, f"q must be [B, L, H, hd], got shape {tuple(q.shape)}")
     B, L, H, hd = q.shape
-    _require(hd in HEAD_DIMS, what, f"head dim {hd} not in {HEAD_DIMS}")
+    _require(kernel_head_dim(hd), what,
+             f"head dim {hd} not in {HEAD_DIMS} nor a multiple of {WIDE_SLICE} above them")
     _require(q.dtype in KERNEL_DTYPES, what, f"dtype {q.dtype} not in {KERNEL_DTYPES}")
     _require(0 < B * H <= MAX_ROWS and L > 0, what, f"B*H {B * H} outside 1..{MAX_ROWS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -75,6 +79,18 @@ def _check_args(what, q, k, v, slopes, window):
                  f"slopes must be contiguous float32 [{H}] on {q.device}")
     _require(window is None or int(window) >= 0, what, f"window {window} < 0")
     return B, L, H, hd
+
+
+def kernel_head_dim(hd: int) -> bool:
+    """Whether K7 and K8 take head dim ``hd`` as it is."""
+    return hd in HEAD_DIMS or (hd > WIDE_SLICE and hd % WIDE_SLICE == 0)
+
+
+def _count(fn, hd: int) -> None:
+    if hd > WIDE_SLICE:
+        fn.wide_launches += 1
+    else:
+        fn.launches += 1
 
 
 def _check_contiguous(what, q, others):
@@ -102,7 +118,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``-slope * |i - j|``, or ``(i - j)`` when not ``symmetric``);
     ``window`` keeps ``|i - j| <= window``; ``scale`` defaults to
     ``1/sqrt(hd)``. Returns ``(o [B, L, H, hd] contiguous in q's dtype, lse
-    [B*H, L] float32)``. ``launches`` counts kernel launches."""
+    [B*H, L] float32)``. ``launches`` counts kernel launches at hd <= 128,
+    ``wide_launches`` those above."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, slopes, causal, window, symmetric, scale)
     B, L, H, hd = _check_args("flash_fwd", q, k, v, slopes, window)
@@ -114,11 +131,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lse.data_ptr(), *_tail(q, B, L, H, hd, slopes, causal, window,
                                                  symmetric, scale))
     cuda_build.check(lib, rc, "flash_fwd")
-    flash_fwd.launches += 1
+    _count(flash_fwd, hd)
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.wide_launches = 0
 
 
 def flash_bwd(q, k, v, o, do, lse, slopes=None, causal: bool = False,
@@ -129,7 +147,7 @@ def flash_bwd(q, k, v, o, do, lse, slopes=None, causal: bool = False,
     bias arguments as :func:`flash_fwd`, its ``o`` and ``lse`` and the
     cotangent ``do`` (contiguous, in q's dtype). ``launches`` counts kernel
     launches (one call: the dq kernel, which computes delta first, and the
-    dk/dv kernel)."""
+    dk/dv kernel) at hd <= 128, ``wide_launches`` those above."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse, slopes, causal, window, symmetric, scale)
     B, L, H, hd = _check_args("flash_bwd", q, k, v, slopes, window)
@@ -146,11 +164,12 @@ def flash_bwd(q, k, v, o, do, lse, slopes=None, causal: bool = False,
                          dk.data_ptr(), dv.data_ptr(),
                          *_tail(q, B, L, H, hd, slopes, causal, window, symmetric, scale))
     cuda_build.check(lib, rc, "flash_bwd")
-    flash_bwd.launches += 1
+    _count(flash_bwd, hd)
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.wide_launches = 0
 
 
 def _fit(q, k, v):
@@ -186,12 +205,12 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def padded_head_dim(hd: int) -> int:
     """The kernel width that head dim ``hd`` runs at: the next of
-    :data:`HEAD_DIMS`. Raises ``ValueError`` above the widest."""
+    :data:`HEAD_DIMS` up to 128, above it the next multiple of 128 (JAX
+    ``pallas_attention._common``'s ``hd_pad``, ``:184``)."""
     for width in HEAD_DIMS:
         if hd <= width:
             return width
-    raise ValueError(f"flash_attention: head dim {hd} > {HEAD_DIMS[-1]}, the widest the "
-                     f"K7/K8 kernels take (zero-padding goes up to {HEAD_DIMS[-1]} only)")
+    return -(-hd // WIDE_SLICE) * WIDE_SLICE
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -203,10 +222,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``alibi_slopes`` ``[H]``: bias ``-slope * |i - j|`` (``(i - j)`` with
     ``alibi_symmetric=False``); ``local_window`` keeps ``|i - j| <=
     window``; ``sm_scale`` defaults to ``1/sqrt(hd)``. K7 and K8 on the
-    card, their plain versions on the CPU. A head dim below 128 that is not
-    32, 64 or 128 runs zero-padded to the next of them, on every device
-    (zero columns add nothing to q.k and give zero output columns; the
-    scale stays that of the true hd); above 128 it raises ``ValueError``."""
+    card, their plain versions on the CPU. A head dim that the kernels do
+    not take runs zero-padded to :func:`padded_head_dim`'s width, on every
+    device (zero columns add nothing to q.k and give zero output columns;
+    the scale stays that of the true hd)."""
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     sm_scale = default_scale(hd, sm_scale)  # the true hd's, not the padded one's

@@ -2,11 +2,14 @@
 
 Counterpart of ``plantcaduceus_tpu.ops.pallas_scan``. K1 (``scan_fwd``,
 ``csrc/scan_fwd.cu``, device code in ``csrc/scan_core.cuh``) is the forward;
-with ``hb_chunk`` it also emits the chunk-entry states the backward needs.
-K3 (``scan_bwd``, ``csrc/scan_bwd.cu``) is the adjoint of one direction.
-``scan_fwd_plain`` and ``scan_bwd_plain`` are the plain PyTorch versions of
-the same functions, and :class:`SelectiveScanFn` ties them into autograd as
-JAX's ``_scan_op`` custom VJP does.
+with ``hb_chunk`` it also emits the chunk-entry states the backward needs,
+and with ``y_prev``/``z`` it runs the bidirectional epilogue ``(y + y_prev)
+* silu(z)``. K3 (``scan_bwd``, ``csrc/scan_bwd.cu``) is the adjoint of one
+direction. ``scan_fwd_plain`` and ``scan_bwd_plain`` are the plain PyTorch
+versions of the same functions, :class:`SelectiveScanFn` ties them into
+autograd as JAX's ``_scan_op`` custom VJP does, and
+:func:`bimamba_scan_gated` (:class:`BimambaScanGatedFn` under grad) is JAX's
+``bimamba_scan_gated``, the route of ``PCAD_GATED_KERNEL=1``.
 
 The wrappers take the plain versions for tensors on the CPU only. For CUDA
 tensors they launch the kernel or raise; they never fall back.
@@ -18,6 +21,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from plantcaduceus_tpu_torch.ops import cuda_build
 from plantcaduceus_tpu_torch.ops.selective_scan import (HB_CHUNK, scan_direction,
@@ -30,13 +34,29 @@ BWD_THREADS = 512  # threads per block of K3, one a (channel, state) (kBwdThread
 MAX_HB_CHUNK = 16   # steps a K3 lane keeps in registers (kMaxHbChunk, scan_bwd.cu)
 
 
+def _check_combine(y_prev, z, hb_chunk) -> bool:
+    if (y_prev is None) != (z is None):
+        raise ValueError("scan_fwd: y_prev and z come together (the combine epilogue)")
+    if y_prev is not None and hb_chunk:
+        raise ValueError("scan_fwd: combine (y_prev, z) is inference-only: it does not take "
+                         "hb_chunk")
+    return y_prev is not None
+
+
 def scan_fwd_plain(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w=None,
                    reverse: bool = False, hb_chunk: Optional[int] = None,
-                   h0: Optional[torch.Tensor] = None, emit_hfin: bool = False):
+                   h0: Optional[torch.Tensor] = None, emit_hfin: bool = False,
+                   y_prev: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None):
     """Plain version of :func:`scan_fwd`: same arguments, same result."""
+    combine = _check_combine(y_prev, z, hb_chunk)
     if dt_proj_w is not None:
         dt = dt.float() @ dt_proj_w.float()
     out = scan_direction(x, dt, A, Bm, Cm, Dskip, dt_bias, reverse, hb_chunk, h0, emit_hfin)
+    if combine:
+        y = out[0] if isinstance(out, tuple) else out
+        zf = z.float()
+        y = (y + y_prev.float()) * (zf * torch.sigmoid(zf))
+        out = (y,) + out[1:] if isinstance(out, tuple) else y
     if isinstance(out, tuple):
         return (out[0].to(x.dtype),) + out[1:]
     return out.to(x.dtype)
@@ -49,6 +69,7 @@ scan_bwd_plain = scan_direction_bwd
 _require, _lib = cuda_build.require, cuda_build.bind
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = [_P] * 12 + [_I] * 8 + [_P]
+_COMBINE_ARGS = [_P] * 13 + [_I] * 7 + [_P]  # combine: its own build unit
 _BWD_ARGS = [_P] * 18 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P]
 
 
@@ -77,7 +98,7 @@ def _check_scan_args(what, x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, others=(
     _require(x.dtype in KERNEL_DTYPES, what, f"x dtype {x.dtype} not in {KERNEL_DTYPES}")
     for t in others:
         _require(t.dtype == x.dtype and t.shape == x.shape, what,
-                 "gy must match x in dtype and shape")
+                 "gy (K3), y_prev and z (K1's combine) must match x in dtype and shape")
     _require(dt.dtype in KERNEL_DTYPES and Bm.dtype == dt.dtype == Cm.dtype, what,
              "dt, Bm and Cm must share one dtype (float32 or bfloat16)")
     for name in ("A", "Dskip", "dt_bias") + (("dt_proj_w",) if fuse else ()):
@@ -109,7 +130,8 @@ def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, Dskip: torch.Tensor,
              dt_bias: torch.Tensor, dt_proj_w: Optional[torch.Tensor] = None,
              reverse: bool = False, hb_chunk: Optional[int] = None,
-             h0: Optional[torch.Tensor] = None, emit_hfin: bool = False):
+             h0: Optional[torch.Tensor] = None, emit_hfin: bool = False,
+             y_prev: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None):
     """One scan direction over rows (K1).
 
     x: [rows, L, D]; dt: [rows, L, D], or the low-rank ``dt_lr [rows, L, R]``
@@ -123,13 +145,19 @@ def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``hb [rows, ceil(L/hb_chunk), D, N]`` in processing order; with
     ``emit_hfin`` also the float32 states after the last processed step,
     ``hfin [rows, D, N]``: ``(y, hb, hfin)`` in that order, JAX
-    ``_pallas_scan_group``'s. ``launches`` counts the calls without hb,
-    ``hb_launches`` those with."""
+    ``_pallas_scan_group``'s. With ``y_prev`` and ``z`` (``[rows, L, D]``
+    in x's dtype; JAX's ``combine``) y is ``(y + y_prev) * silu(z)``, all
+    in float32 (y with its D-skip, the raw gate's sigmoid) and stored in
+    x's dtype; it does not take ``hb_chunk``. ``launches`` counts the calls
+    without hb or combine, ``hb_launches`` those with hb,
+    ``combine_launches`` those with combine."""
+    combine = _check_combine(y_prev, z, hb_chunk)
     if x.device.type == "cpu":
         return scan_fwd_plain(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, reverse, hb_chunk,
-                              h0, emit_hfin)
+                              h0, emit_hfin, y_prev, z)
     fuse, rows, L, D, N, R = _check_scan_args("scan_fwd", x, dt, A, Bm, Cm, Dskip,
-                                              dt_bias, dt_proj_w)
+                                              dt_bias, dt_proj_w,
+                                              others=(y_prev, z) if combine else ())
     _require(dt.is_contiguous() and Bm.is_contiguous() and Cm.is_contiguous(), "scan_fwd",
              "dt, Bm and Cm must be contiguous")
     # one template type reads all four (K3 takes dt's dtype apart)
@@ -137,21 +165,27 @@ def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              f"x ({x.dtype}) and dt, Bm, Cm ({dt.dtype}) must share one dtype")
     if h0 is not None:
         _check_state("scan_fwd", "h0", h0, x, rows, D, N)
-    lib = _lib("scan_fwd", "pc_scan_fwd", _FWD_ARGS)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     hb = torch.empty((rows, -(-L // hb_chunk), D, N), **f32) if hb_chunk else None
     hfin = torch.empty((rows, D, N), **f32) if emit_hfin else None
     ptr = lambda t: t.data_ptr() if t is not None else None
-    rc = lib.pc_scan_fwd(
-        x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
-        Dskip.data_ptr(), dt_bias.data_ptr(), ptr(dt_proj_w), y.data_ptr(), ptr(hb), ptr(h0),
-        ptr(hfin), rows, L, D, N, R if fuse else 0, int(reverse),
-        int(x.dtype == torch.bfloat16), hb_chunk or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    head = (x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
+            Dskip.data_ptr(), dt_bias.data_ptr(), ptr(dt_proj_w), y.data_ptr())
+    dims = (rows, L, D, N, R if fuse else 0, int(reverse), int(x.dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if combine:
+        lib = _lib("scan_fwd_combine", "pc_scan_fwd_combine", _COMBINE_ARGS)
+        rc = lib.pc_scan_fwd_combine(*head, ptr(h0), ptr(hfin), y_prev.data_ptr(), z.data_ptr(),
+                                     *dims, stream)
+    else:
+        lib = _lib("scan_fwd", "pc_scan_fwd", _FWD_ARGS)
+        rc = lib.pc_scan_fwd(*head, ptr(hb), ptr(h0), ptr(hfin), *dims, hb_chunk or 0, stream)
     cuda_build.check(lib, rc, "scan_fwd")
     if hb_chunk:
         scan_fwd.hb_launches += 1
+    elif combine:
+        scan_fwd.combine_launches += 1
     else:
         scan_fwd.launches += 1
     out = (y,) + ((hb,) if hb_chunk else ()) + ((hfin,) if emit_hfin else ())
@@ -160,6 +194,7 @@ def scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 scan_fwd.launches = 0
 scan_fwd.hb_launches = 0
+scan_fwd.combine_launches = 0
 
 
 def scan_bwd(x: torch.Tensor, gy: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -267,3 +302,69 @@ class SelectiveScanFn(torch.autograd.Function):
 def selective_scan(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w=None, reverse=False):
     """Differentiable one-direction scan (:class:`SelectiveScanFn`)."""
     return SelectiveScanFn.apply(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, reverse)
+
+
+class BimambaScanGatedFn(torch.autograd.Function):
+    """:func:`bimamba_scan_gated` under differentiation, JAX
+    ``_bimamba_op``'s custom VJP (``pallas_scan.py:761-806``). Forward
+    (``_bimamba_op_fwd``): K1-hb in both directions, uncombined; ``y_sum``
+    is their sum in x's dtype cast to float32, the output ``y_sum *
+    silu(z)`` in x's dtype. Backward (``_bimamba_op_bwd``): dz, then the
+    scan cotangent ``gy * silu(z)`` in x's dtype for both directions, then
+    K3 per direction with the dt projection fused. On CPU tensors K1 and K3
+    run their plain versions. Gradients of x, dt_lr, Bm, Cm and z come in
+    their dtypes, of A, Dskip, dt_bias and dt_proj_w in float32."""
+
+    @staticmethod
+    def forward(ctx, x, dt_lr, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, z):
+        x, dt_lr, Bm, Cm = (t.contiguous() for t in (x, dt_lr, Bm, Cm))
+        ys, hbs = [], []
+        for g in range(2):
+            y, hb = scan_fwd(x[g], dt_lr[g], A[g], Bm[g], Cm[g], Dskip[g], dt_bias[g],
+                             dt_proj_w[g], reverse=(g == 1), hb_chunk=HB_CHUNK)
+            ys.append(y)
+            hbs.append(hb)
+        y_sum = (ys[0] + ys[1]).float()
+        ctx.save_for_backward(x, dt_lr, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, z, y_sum, *hbs)
+        return (y_sum * F.silu(z.float())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, dt_lr, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, z, y_sum, hb0, hb1 = ctx.saved_tensors
+        gy = gy.float()
+        zf = z.float()
+        sig = torch.sigmoid(zf)
+        silu = zf * sig
+        dz = (gy * y_sum * (sig + silu * (1 - sig))).to(z.dtype)
+        gy_scan = (gy * silu).to(x.dtype).contiguous()
+        parts = [scan_bwd(x[g], gy_scan, dt_lr[g], A[g], Bm[g], Cm[g], Dskip[g], dt_bias[g], hb,
+                          dt_proj_w[g], reverse=(g == 1))
+                 for g, hb in ((0, hb0), (1, hb1))]
+        dx, ddt, dB, dC, dA, ddtb, dD, dW = (torch.stack([p[i] for p in parts])
+                                             for i in range(8))
+        return (dx.to(x.dtype), ddt.to(dt_lr.dtype), dA, dB.to(Bm.dtype), dC.to(Cm.dtype), dD,
+                ddtb, dW, dz)
+
+
+def bimamba_scan_gated(x, dt_lr, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, z,
+                       use_kernels: bool = True) -> torch.Tensor:
+    """Fused bidirectional scan, direction sum and SiLU gate (JAX
+    ``pallas_scan.bimamba_scan_gated``, ``:808-835``): ``x [2, B, L, D]``,
+    ``dt_lr [2, B, L, R]``, ``Bm, Cm [2, B, L, N]`` in one dtype, in natural
+    time order (direction 1's conv anticausal); ``A [2, D, N]``, ``Dskip,
+    dt_bias [2, D]``, ``dt_proj_w [2, R, D]`` (cast to float32, as JAX
+    does); ``z [B, L, D]`` the raw gate. Returns ``(scan_fwd + scan_rev) *
+    silu(z)`` ``[B, L, D]`` in x's dtype. Without a gradient to take, K1
+    forward, then K1 reverse with the ``combine`` epilogue (JAX
+    ``_bimamba_op``); when one is needed (grad enabled and an input
+    requiring it), :class:`BimambaScanGatedFn`. ``use_kernels=False`` runs
+    the plain versions on any device, differentiated by autograd."""
+    A, Dskip, dt_bias, dt_proj_w = (t.float() for t in (A, Dskip, dt_bias, dt_proj_w))
+    args = (x, dt_lr, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, z)
+    if use_kernels and torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return BimambaScanGatedFn.apply(*args)
+    fn = scan_fwd if use_kernels else scan_fwd_plain
+    x, dt_lr, Bm, Cm = (t.contiguous() for t in (x, dt_lr, Bm, Cm))
+    one = lambda g: (x[g], dt_lr[g], A[g], Bm[g], Cm[g], Dskip[g], dt_bias[g], dt_proj_w[g])
+    y0 = fn(*one(0), reverse=False)
+    return fn(*one(1), reverse=True, y_prev=y0, z=z.contiguous())

@@ -293,7 +293,7 @@ def test_autograd_functions_match_plain_autograd(cuda):
 
 
 @pytest.mark.parametrize("overrides, k2, k1", [
-    ({}, 2, 0),                                    # tied + add: K2 per direction
+    ({}, 2, 0),                                    # tied + add: K2 fuse_in per direction
     (dict(bidirectional_weight_tie=False), 0, 2),  # general path, dt in the kernel
     (dict(bidirectional=False, rcps=False), 0, 1),  # general path, dt outside
 ])
@@ -307,11 +307,11 @@ def test_model_forward_kernels_match_plain_path(cuda, overrides, k2, k1):
     cfg = CaduceusConfig(d_model=64, n_layer=2, **overrides)
     model = Caduceus(cfg, init_params(cfg, seed=4)).to(cuda)
     ids = torch.from_numpy(np.random.default_rng(2).integers(7, 11, (4, 96))).to(cuda)
-    before = (cuda_mixer.mixer_fwd.launches, cuda_scan.scan_fwd.launches)
+    before = (cuda_mixer.mixer_fwd.x_launches, cuda_scan.scan_fwd.launches)
     with torch.inference_mode():
         got = model(ids, dtype=torch.float32)["logits"]
         torch.cuda.synchronize()
-        after = (cuda_mixer.mixer_fwd.launches, cuda_scan.scan_fwd.launches)
+        after = (cuda_mixer.mixer_fwd.x_launches, cuda_scan.scan_fwd.launches)
         want = model(ids, dtype=torch.float32, use_kernels=False)["logits"]
     assert (after[0] - before[0], after[1] - before[1]) == (k2 * 2, k1 * 2)
     scale = want.abs().max().item()
@@ -1079,9 +1079,9 @@ def test_center_embeddings_kernels_match_plain_path(cuda):
     model = Caduceus(cfg, init_params(cfg, seed=6))
     runner = InferenceRunner(model, cfg, dtype=torch.float32, batch_size=8, device=cuda)
     ids = np.random.default_rng(6).integers(7, 11, (12, 256))
-    before = cuda_mixer.mixer_fwd.launches
+    before = cuda_mixer.mixer_fwd.x_launches
     got = runner.center_embeddings(ids, 127, progress=False)
-    assert cuda_mixer.mixer_fwd.launches == before + 2 * cfg.n_layer * 2
+    assert cuda_mixer.mixer_fwd.x_launches == before + 2 * cfg.n_layer * 2
     with torch.inference_mode():
         h = model(torch.from_numpy(ids).to(cuda), dtype=torch.float32, output_hidden_states=True,
                   use_kernels=False)["hidden_states"][:, 127, :]
@@ -1117,7 +1117,7 @@ def test_server_on_the_card_matches_in_process_scores(cuda):
     server = ScoringServer(ScoringService(runner, tok), port=0)
     server.start_background()
     got = [None] * 4
-    before = cuda_mixer.mixer_fwd.launches
+    before = cuda_mixer.mixer_fwd.x_launches
 
     def one(i):
         body = {"items": [{"sequence": r["sequences"], "ref": r["ref"], "alt": r["alt"]}
@@ -1136,7 +1136,7 @@ def test_server_on_the_card_matches_in_process_scores(cuda):
             t.join()
     finally:
         server.shutdown()
-    assert cuda_mixer.mixer_fwd.launches > before
+    assert cuda_mixer.mixer_fwd.x_launches > before
     flat = np.empty(len(rows))
     for i in range(4):
         flat[i::4] = got[i]
@@ -1254,10 +1254,10 @@ def test_merged_infer_runs_k2_and_equals_the_activation_path(cuda):
                                          dtype=torch.float32, device=cuda)
     state = lora.LoraTrainState(lora.trainable_copy(adapters, cuda),
                                 lora.trainable_copy(head, cuda), None, 0)
-    k2, k1 = cuda_mixer.mixer_fwd.launches, cuda_scan.scan_fwd.launches
+    k2, k1 = cuda_mixer.mixer_fwd.x_launches, cuda_scan.scan_fwd.launches
     merged = infer(state, model, {"input_ids": ids.cpu().numpy()})
     torch.cuda.synchronize()
-    assert cuda_mixer.mixer_fwd.launches - k2 == 2 * cfg.n_layer
+    assert cuda_mixer.mixer_fwd.x_launches - k2 == 2 * cfg.n_layer
     with torch.no_grad():
         act = heads.sequence_logits(model, state.head, ids, cfg, dtype=torch.float32,
                                     lora=lora.lora_ctx(state.adapters, cfg_l))
@@ -1308,9 +1308,9 @@ def test_convergence_shape_kernels_match_plain_path(cuda, dtype):
     for k, w in grads[False, dtype].items():
         _close_to_scale(grads[True, dtype][k], w, tol, k)
     with torch.inference_mode():
-        k2 = cuda_mixer.mixer_fwd.launches
+        k2 = cuda_mixer.mixer_fwd.x_launches
         got = forward(model, batch["input_ids"], dtype=torch.float32)["logits"]
-        assert cuda_mixer.mixer_fwd.launches - k2 == 2 * cfg.n_layer
+        assert cuda_mixer.mixer_fwd.x_launches - k2 == 2 * cfg.n_layer
         want = forward(model, batch["input_ids"], dtype=torch.float32, use_kernels=False)
     _close_to_scale(got, want["logits"], 1e-3, "logits")
 
@@ -1335,7 +1335,7 @@ def test_distill_gradients_match_plain_path(cuda):
     batch = to_device(data_lib.PretrainDataset(seqs, DnaTokenizer(), 2, seed=2).batch_at(0),
                       cuda)
     sp = init_params(scfg, seed=3)
-    counters = ((cuda_mixer.mixer_fwd, "launches"), (cuda_mixer.mixer_fwd, "res_launches"),
+    counters = ((cuda_mixer.mixer_fwd, "x_launches"), (cuda_mixer.mixer_fwd, "res_launches"),
                 (cuda_mixer2.mamba2_mixer_interior, "res_launches"),
                 (cuda_ssd.ssd_dir_bwd, "pre_silu_launches"))
     grads = {}
@@ -1375,11 +1375,11 @@ def test_safetensors_checkpoint_scores_on_the_card(cuda, tmp_path):
     logits = {}
     for name in ("bin", "st"):
         model = load_model_and_tokenizer(str(tmp_path / name))[0].to(cuda)
-        before = cuda_mixer.mixer_fwd.launches
+        before = cuda_mixer.mixer_fwd.x_launches
         with torch.inference_mode():
             logits[name] = model(ids, dtype=torch.float32)["logits"]
         torch.cuda.synchronize()
-        assert cuda_mixer.mixer_fwd.launches - before == 2 * cfg.n_layer
+        assert cuda_mixer.mixer_fwd.x_launches - before == 2 * cfg.n_layer
     assert torch.isfinite(logits["st"]).all() and torch.equal(logits["st"], logits["bin"])
 
 
