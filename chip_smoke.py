@@ -13,12 +13,16 @@ and training of the ALiBi attention baseline:
 3. each kernel against its plain PyTorch version at the main paths' shapes,
    both directions, fp32 and bf16, with its time on the card, the plain
    version's time and its bound: K1 (fused dt and dt given), K2 with xi
-   given, K2's fuse_in variant (x [256, 512, 384] and in_proj's x half;
-   one call's allocations beside an xi's size) and K1's combine epilogue
-   at the scoring shape (l20: 256 rows x 512 x 768, N=16, R=24), and K1's
-   h0/hfin options (two half-length calls chained give one call's bits);
-   then (3b) K1's hb variant, K2's residual variant and K3 (fused and
-   full-width dt) at the training shape (64 rows);
+   given, K2's fuse_in variant (x [256, 512, 384] and in_proj's x half,
+   and at the fine-tuning window, 8 x 600; two launches equal bit for bit;
+   one call's allocations beside an xi's size; timed beside the decomposed
+   route, torch.matmul for xi then K2 with xi given) and K1's combine
+   epilogue at the scoring shape (l20: 256 rows x 512 x 768, N=16, R=24),
+   and K1's h0/hfin options (two half-length calls chained give one call's
+   bits); then (3b) K1's hb variant, K2's residual variant and K3 (fused
+   and full-width dt) at the training shape (64 rows); the outputs of K2
+   with xi given, K2-res, K1 and K1c at these inputs must have the SHA-256
+   of the kernels before K2 fuse_in's Hopper redesign (PARENT_SHA256);
 4. the full l20 forward (batch 128 windows of 512 bp, seeded weights) with
    the kernels against the plain path in fp32; K2 fuse_in launches = 2 *
    n_layer (l20's d_inner 768 takes in_proj into K2, as JAX does at d_inner
@@ -266,6 +270,7 @@ no result. The last two lines of standard output are the
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -300,6 +305,36 @@ F32_TOL = 1e-3
 # gradient within this fraction of its max |gradient|.
 GRAD_TOL = 1e-3
 TRAIN_ROWS = 64  # l20 training batch: 32 windows plus their RC stream
+FT_WINDOW = (8, 600)  # fine-tuning's microbatch rows and window (phase 14)
+
+# SHA-256 (first 16 hex digits) of the outputs of K2 with xi given, K2-res,
+# K1 and K1c at phases 3 and 3b's seeded inputs, as the kernels gave them
+# before K2 fuse_in's Hopper redesign (that tree's kernels under this
+# script's record_digest, on an NVIDIA H100 80GB HBM3 with torch 2.11.0+cu128,
+# whose seeded randn makes the inputs): the redesign leaves these kernels'
+# code paths, and so their bits, as they were.
+PARENT_SHA256 = {
+    "K1 bfloat16 fuse=0 fwd": "ffc239117c3d5f53",
+    "K1 bfloat16 fuse=0 rev": "4cd18206532fa9b5",
+    "K1 bfloat16 fuse=1 fwd": "1685ab6e9f22a51b",
+    "K1 bfloat16 fuse=1 rev": "f85f0ecd90814442",
+    "K1 float32 fuse=0 fwd": "e5b78278ebd4ba8d",
+    "K1 float32 fuse=0 rev": "755570c6d87499b6",
+    "K1 float32 fuse=1 fwd": "890539cb13462471",
+    "K1 float32 fuse=1 rev": "b1dadb8bf2b5d4af",
+    "K1c bfloat16 fwd": "e50de71ac1b822ab",
+    "K1c bfloat16 rev": "e5d7331e80ac3dd0",
+    "K1c float32 fwd": "4953125d3d66fe2f",
+    "K1c float32 rev": "2c363cd9234402ad",
+    "K2 bfloat16 fwd": "17e454efe8acef26",
+    "K2 bfloat16 rev": "f10981be48982165",
+    "K2 float32 fwd": "cd4df3e6742ca1bd",
+    "K2 float32 rev": "4d37886018d29725",
+    "K2-res bfloat16 fwd": "bc83edb8b1937d76",
+    "K2-res bfloat16 rev": "f473b6e8e489ac81",
+    "K2-res float32 fwd": "ba4b89d052a11987",
+    "K2-res float32 rev": "49d907fe019eda5a",
+}
 
 
 def fail(msg: str) -> None:
@@ -378,6 +413,33 @@ def bound_ms(nbytes, flops, sfu_ops, tc_flops=0.0):
     return t[kind] * 1e3, ("bytes" if kind == "bytes" else "operations"), t
 
 
+_digests = {}
+
+
+def record_digest(name, out):
+    """Keep the SHA-256 (first 16 hex digits) of the bytes of every tensor
+    of ``out`` under ``name``, for the parent-bits check."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy())
+    _digests[name] = h.hexdigest()[:16]
+
+
+def check_parent_digests():
+    """K2 (xi given), K2-res, K1 and K1c at phases 3 and 3b's inputs give
+    the parent tree's bits."""
+    got = _digests
+    differ = sorted(k for k in PARENT_SHA256 if got.get(k) != PARENT_SHA256[k])
+    missing = sorted(set(got) ^ set(PARENT_SHA256))
+    log(f"  parent bits: {len(got)} outputs of K2 (xi given), K2-res, K1 and K1c hashed; "
+        f"{len(got) - len(differ)} equal the parent's SHA-256")
+    if differ or missing or not got:
+        fail(f"outputs differ from the parent's bits: {differ or missing or 'none hashed'} "
+             f"(got {got})")
+
+
 def layer_weights(cfg, seed, dev):
     """One layer's weights from the model's own initialiser, on the card."""
     import dataclasses
@@ -448,6 +510,8 @@ def phase_kernels(cfg, dev):
             torch.cuda.synchronize()
             res["mixer_fwd"]["err"] = max(res["mixer_fwd"]["err"], compare(
                 f"K2 mixer_fwd {dn} {'rev' if g else 'fwd'}", got, want, dn))
+            record_digest(f"K2 {dn} {'rev' if g else 'fwd'}", got)
+            del got, want
             if dtype == torch.bfloat16 and g == 1:
                 res["mixer_fwd"]["ms"] = time_ms(
                     lambda: cuda_mixer.mixer_fwd(*args, reverse=True), 10)
@@ -474,6 +538,8 @@ def phase_kernels(cfg, dev):
                 res["scan_fwd"]["err"] = max(res["scan_fwd"]["err"], compare(
                     f"K1 scan_fwd {dn} fuse={int(fuse)} {'rev' if rev else 'fwd'}",
                     got, want, dn))
+                record_digest(f"K1 {dn} fuse={int(fuse)} {'rev' if rev else 'fwd'}", got)
+                del got, want
                 if dtype == torch.bfloat16 and rev:
                     # fused dt in the contract's keys, dt given beside it
                     r = res["scan_fwd"] if fuse else res["scan_fwd"].setdefault("dt_given", {})
@@ -493,15 +559,19 @@ def phase_kernels(cfg, dev):
         if "float32" in r:
             f = r["float32"]
             log(f"    {name} fp32: {f['ms']:.3f} ms; plain {f['plain_ms']:.1f} ms; bound "
-                f"{f['bound'][0]:.3f} ms by {f['bound'][1]}")
+                f"{f['bound'][0]:.3f} ms by {f['bound'][1]}"
+                + (f"; decomposed {f['decomposed_ms']:.3f} ms" if "decomposed_ms" in f else ""))
     return res
 
 
 def kernel_options_fuse_in(cfg, w, A, rows, L, dtype, dev, gen, res):
     """K2's fuse_in variant at the l20 scoring shape (x [rows, L, d_model],
-    in_proj's x half [d_model, d_inner]), both directions, against its plain
-    version; in bf16 (and fp32 beside it) its time, the plain version's and
-    the bound; the call's allocations beside one [rows, L, d_inner] xi."""
+    in_proj's x half [d_model, d_inner]) and at the fine-tuning window (8 x
+    600, its own generator), both directions, against its plain version,
+    two launches equal bit for bit; in bf16 (and fp32 beside it) its time
+    beside the decomposed route's (torch.matmul for xi in x's dtype, then K2
+    with xi given), the plain version's and the bound; the call's
+    allocations beside one [rows, L, d_inner] xi."""
     import torch
 
     from plantcaduceus_tpu_torch.ops import cuda_mixer
@@ -510,23 +580,39 @@ def kernel_options_fuse_in(cfg, w, A, rows, L, dtype, dev, gen, res):
     D, N, R, K, Dm = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv, cfg.d_model
     w_in = w["in_proj_x"][0]
     r = res.setdefault("mixer_fwd_x", {"err": 0.0})
+
+    def check(x, tag):
+        for g in (0, 1):
+            args = (x, w["conv_w"][g], w["conv_b"][g], w["x_proj_dt"][g], w["x_proj_B"][g],
+                    w["x_proj_C"][g], w["dt_proj_w"][g], w["dt_proj_b"][g], A[g], w["D"][g])
+            got = cuda_mixer.mixer_fwd(*args, reverse=g == 1, w_in=w_in)
+            again = cuda_mixer.mixer_fwd(*args, reverse=g == 1, w_in=w_in)
+            want = cuda_mixer.mixer_fwd_plain(*args, reverse=g == 1, w_in=w_in)
+            torch.cuda.synchronize()
+            name = f"K2 fuse_in {dn} {tag}{'rev' if g else 'fwd'}"
+            r["err"] = max(r["err"], compare(name, got, want, dn))
+            if not torch.equal(got, again):
+                fail(f"{name}: two launches differ")
+            del got, again, want
+        return args
+
+    ft = torch.Generator(device=dev).manual_seed(20)
+    check(torch.randn(FT_WINDOW + (Dm,), generator=ft, device=dev).to(dtype),
+          f"{FT_WINDOW[0]}x{FT_WINDOW[1]} ")
     x = torch.randn((rows, L, Dm), generator=gen, device=dev).to(dtype)
-    for g in (0, 1):
-        args = (x, w["conv_w"][g], w["conv_b"][g], w["x_proj_dt"][g], w["x_proj_B"][g],
-                w["x_proj_C"][g], w["dt_proj_w"][g], w["dt_proj_b"][g], A[g], w["D"][g])
-        got = cuda_mixer.mixer_fwd(*args, reverse=g == 1, w_in=w_in)
-        want = cuda_mixer.mixer_fwd_plain(*args, reverse=g == 1, w_in=w_in)
-        torch.cuda.synchronize()
-        r["err"] = max(r["err"], compare(f"K2 fuse_in {dn} {'rev' if g else 'fwd'}", got, want,
-                                         dn))
-        del got, want
+    args = check(x, "")
     t = r if dtype == torch.bfloat16 else r.setdefault("float32", {})
     t["ms"] = time_ms(lambda: cuda_mixer.mixer_fwd(*args, reverse=True, w_in=w_in), 5)
+    w_x = w_in.to(dtype)
+    t["decomposed_ms"] = time_ms(
+        lambda: cuda_mixer.mixer_fwd(torch.matmul(x, w_x), *args[1:], reverse=True), 5)
     t["plain_ms"] = time_ms(lambda: cuda_mixer.mixer_fwd_plain(*args, reverse=True, w_in=w_in),
                             1, warmup=1)
     work = mixer_fwd_x_work(rows, L, Dm, D, N, R, K, x.element_size())
     t["bound"] = (bound_ms(*work) if dtype == torch.bfloat16
                   else bound_ms(work[0], work[1] + work[3], work[2]))
+    log(f"  K2 fuse_in {dn}: {t['ms']:.3f} ms; decomposed route (torch.matmul for xi, then K2 "
+        f"with xi given) {t['decomposed_ms']:.3f} ms in the same call")
     # what one call allocates: y, the x_proj rows, the weights' copies; no xi
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
@@ -566,6 +652,7 @@ def kernel_options_combine(x, Bm, Cm, A, w, rows, L, R, dtype, dev, gen, res):
         torch.cuda.synchronize()
         r["err"] = max(r["err"], compare(f"K1 combine {dn} {'rev' if rev else 'fwd'}", got,
                                          want, dn))
+        record_digest(f"K1c {dn} {'rev' if rev else 'fwd'}", got)
         del got, want
     t = r if dtype == torch.bfloat16 else r.setdefault("float32", {})
     t["ms"] = time_ms(lambda: cuda_scan.scan_fwd(*args, reverse=True, y_prev=y_prev, z=z), 5)
@@ -683,6 +770,7 @@ def phase_train_kernels(cfg, dev):
             for n, g_, w_ in zip(("y", "acc", "dt_lr", "B", "C", "hb"), got, want):
                 cmp("mixer_fwd_res", f"K2-res {n} {dn} {d}", g_, w_,
                     TOL[dn] if n in ("y", "acc") else F32_TOL)
+            record_digest(f"K2-res {dn} {d}", got)
             if g == 1:
                 timed("mixer_fwd_res", dn,
                       lambda: cuda_mixer.mixer_fwd(*margs, emit_res=True),
@@ -1447,9 +1535,10 @@ def phase_profile(cfg, dev):
     report_profile(prof, wall, 10)
     k2 = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and ("conv_xproj_kernel" in e.key or "MixConvSrc" in e.key)) / 1e3
-    log(f"  K2 (fuse_in, both kernels) {k2:.2f} ms of the batch (PR 9's run, xi given: busy "
-        f"158.35 ms, K2 79.6 ms); the batch's peak memory above the model: fuse_in "
+             and ("conv_xproj" in e.key or "MixConvSrc" in e.key)) / 1e3
+    log(f"  K2 (fuse_in, both kernels) {k2:.2f} ms of the batch (on an NVIDIA H100 80GB HBM3 "
+        f"at 700 W, fuse_in's first design: busy 246.50 ms, K2 180.32 ms; xi given: busy 158.35 "
+        f"ms, K2 79.6 ms); the batch's peak memory above the model: fuse_in "
         f"{peak['fuse_in']} bytes ({peak['fuse_in'] / 2**30:.2f} GiB), xi written first "
         f"{peak['xi first']} bytes ({peak['xi first'] / 2**30:.2f} GiB)")
 
@@ -6126,6 +6215,7 @@ def main():
     cfg = CaduceusConfig.preset("l20")
     kres = run_phase("3", phase_kernels, cfg, dev)
     tres = run_phase("3b", phase_train_kernels, cfg, dev)
+    check_parent_digests()
     sres, k4_launches = run_phase("3c", phase_ssd_kernels, dev)
     s2res = run_phase("3d", phase_ssd_train_kernels, dev)
     run_phase("4", phase_forward, cfg, dev)
@@ -6287,6 +6377,9 @@ def main():
             f = r["float32"]
             extra["float32"] = dict(ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound"][0],
                                     bound_by=f["bound"][1])
+        if "decomposed_ms" in r:  # K2 fuse_in's yardstick: matmul, then K2 with xi given
+            extra["decomposed_ms"] = r["decomposed_ms"]
+            extra["float32"]["decomposed_ms"] = r["float32"]["decomposed_ms"]
         if "dt_given" in r:  # K1 with dt given at full width, beside the fused mode
             g = r["dt_given"]
             extra["dt_given"] = dict(ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound"][0],

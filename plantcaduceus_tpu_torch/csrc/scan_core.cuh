@@ -127,7 +127,29 @@ struct ScanFwdArgs {
   const void* yprev = nullptr;  // [rows, L, D] the other direction's y (combine), or null
   const void* z = nullptr;      // [rows, L, D] the raw gate (combine), or null
   int L, D, R, reverse, hbc;  // R = 0 when dt is given per channel
+  int rows = 0;               // set by the launcher
 };
+
+// A policy's rows a block (Src::kRows where it has one, else 1).
+template <class S, class = void>
+struct RowsOf {
+  static constexpr int v = 1;
+};
+template <class S>
+struct RowsOf<S, std::void_t<decltype(S::kRows)>> {
+  static constexpr int v = S::kRows;
+};
+
+// The barrier of a block's row group: the whole block when it holds one
+// row, else the group's kFwdThreads threads on named barrier 1 + grp.
+template <int RG>
+__device__ __forceinline__ void group_sync(int grp) {
+  if constexpr (RG == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "n"(kFwdThreads) : "memory");
+  }
+}
 
 // A chunk's shared rows: B [kFwdT][N], C [kFwdT][N], dt_lr^T [R][kFwdT].
 __host__ __device__ inline int fwd_row_floats(int N, int R) { return kFwdT * (2 * N + R); }
@@ -157,35 +179,52 @@ inline size_t fwd_smem_bytes(int N, int R) {
 //                              combine kernel builds in a unit of its own,
 //                              PC_SCAN_COMBINE in scan_fwd.cu);
 //   kSmemFloats, bind_smem(p)  shared memory the policy uses, after the
-//                              kernel's own (16-byte aligned), if any.
+//                              kernel's own (16-byte aligned), if any;
+//   kRows (optional, default 1) rows a block: kRows groups of kFwdThreads
+//                              threads, each its own row with its own
+//                              staged rows and named barrier (id 1 + group)
+//                              in place of __syncthreads; the policy then
+//                              sizes its shared memory at run time
+//                              (smem_bytes(args), bound by bind_smem(p) for
+//                              the whole block) and stages what its groups
+//                              share in stage_block(), which every thread
+//                              calls before one __syncthreads.
 // HB: the training variant, COMB: the combine epilogue, each chosen at
 // launch, so the inference kernel carries no per-step test for them.
 template <typename T, int N, bool HB, bool COMB, class Src>
-__global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlocks)
+__global__ void __launch_bounds__(kFwdThreads * RowsOf<Src>::v,
+                                  RowsOf<Src>::v > 1 ? 1 : HB ? kFwdMinBlocksHb : kFwdMinBlocks)
     scan_fwd_kernel(ScanFwdArgs a, typename Src::Args sa) {
   // Row values a thread prefetches: all of them (16N) when dt is given; with
   // fused dt those of 2N + R <= 64 (N <= 16) or <= 128 columns, the rest
   // loaded as they are stored.
   constexpr int TC = kFwdT;
   constexpr int NR = !Src::kFuse ? (N >= 8 ? N / 8 : 1) : N <= 16 ? 4 : 8;
+  constexpr int RG = RowsOf<Src>::v;
   extern __shared__ float4 fwd_smem4[];
   const int L = a.L, D = a.D, R = Src::kFuse ? a.R : 0;
   const int RW = fwd_row_floats(N, R);
-  float* sbuf = reinterpret_cast<float*>(fwd_smem4);  // [2][RW]
-  float* sW = sbuf + 2 * RW;                          // [R][kFwdThreads]
-  const int tid = threadIdx.x;
-  const long long row = blockIdx.y;
+  const int grp = RG > 1 ? threadIdx.x / kFwdThreads : 0;
+  float* sbuf = reinterpret_cast<float*>(fwd_smem4) + grp * 2 * RW;  // [2][RW] a row
+  float* sW = reinterpret_cast<float*>(fwd_smem4) + RG * 2 * RW;     // [R][kFwdThreads]
+  const int tid = RG > 1 ? threadIdx.x % kFwdThreads : threadIdx.x;
+  const long long row = RG > 1 ? (long long)blockIdx.y * RG + grp : blockIdx.y;
   const int d0 = blockIdx.x * kFwdThreads, d = d0 + tid;
   const bool live = d < D;
   Src src(sa, a, row, d, live);
-  if constexpr (Src::kSmemFloats > 0) src.bind_smem(sW + R * kFwdThreads);
+  if constexpr (Src::kSmemFloats > 0 || RG > 1) src.bind_smem(sW + R * kFwdThreads);
   T* y = static_cast<T*>(a.y) + row * (long long)L * D;
   const T* yprev = COMB ? static_cast<const T*>(a.yprev) + row * (long long)L * D + d : nullptr;
   const T* zg = COMB ? static_cast<const T*>(a.z) + row * (long long)L * D + d : nullptr;
   auto time_of = [&](int p) { return a.reverse ? L - 1 - p : p; };
-  for (int i = tid; i < R * kFwdThreads; i += kFwdThreads) {
+  for (int i = threadIdx.x; i < R * kFwdThreads; i += RG * kFwdThreads) {
     const int c = d0 + i % kFwdThreads;
     sW[i] = c < D ? a.wdt[(long long)(i / kFwdThreads) * D + c] : 0.f;
+  }
+  if constexpr (RG > 1) {
+    src.stage_block();
+    __syncthreads();  // sW and the policy's shared tiles; groups run apart from here
+    if (row >= a.rows) return;
   }
   float A[N], h[N];
   float amin = 0.f;  // min(A[d, :], 0): dtl * amin is the chunk's smallest exponent
@@ -239,7 +278,7 @@ __global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlo
     const float* sB = sbuf + (ci & 1) * RW;  // [TC][N]
     const float* sC = sB + TC * N;           // [TC][N]
     const float* sdt = sC + TC * N;          // [R][TC]
-    __syncthreads();  // this chunk's rows are staged; the other buffer is free
+    group_sync<RG>(grp);  // this chunk's rows are staged; the other buffer is free
     if (ci + 1 < nchunks) load_rows(p0 + TC);
     float xv[TC], dv[TC];
     src.x_chunk(p0, xv);
@@ -329,10 +368,16 @@ __global__ void __launch_bounds__(kFwdThreads, HB ? kFwdMinBlocksHb : kFwdMinBlo
 }
 
 template <typename T, int N, class Src>
-cudaError_t launch_scan_fwd_n(const ScanFwdArgs& a, const typename Src::Args& sa, int rows,
+cudaError_t launch_scan_fwd_n(const ScanFwdArgs& a0, const typename Src::Args& sa, int rows,
                               cudaStream_t s) {
-  const size_t smem =
+  constexpr int RG = RowsOf<Src>::v;
+  ScanFwdArgs a = a0;
+  a.rows = rows;
+  size_t smem =
       fwd_smem_bytes(N, Src::kFuse ? a.R : 0) + sizeof(float) * (size_t)Src::kSmemFloats;
+  if constexpr (RG > 1)
+    smem += sizeof(float) * (RG - 1) * 2 * fwd_row_floats(N, Src::kFuse ? a.R : 0) +
+            Src::smem_bytes(sa);
   // a combine policy takes yprev and z and never hb; the others neither
   if ((a.yprev != nullptr) != Src::kCombine || (a.z != nullptr) != Src::kCombine ||
       (a.hb && !Src::kHb))
@@ -346,7 +391,8 @@ cudaError_t launch_scan_fwd_n(const ScanFwdArgs& a, const typename Src::Args& sa
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3((a.D + kFwdThreads - 1) / kFwdThreads, rows), kFwdThreads, smem, s>>>(a, sa);
+  kern<<<dim3((a.D + kFwdThreads - 1) / kFwdThreads, (rows + RG - 1) / RG), kFwdThreads * RG,
+         smem, s>>>(a, sa);
   return cudaGetLastError();
 }
 

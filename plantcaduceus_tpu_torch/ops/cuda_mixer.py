@@ -40,6 +40,28 @@ MAX_PROJ = 128  # R + 2N: the widest register tiling of K2's x_proj
 MAX_TAPS = 8
 FUSE_IN_K = 16  # d_model must be a multiple of the in_proj products' depth (mma k16)
 FUSE_IN_RES_MSG = "w_in fusion is inference-path only"  # pallas_mixer.py:223-224
+SMEM_MAX = 232_448  # bytes of shared memory one block may take on an H100
+
+
+def fuse_in_smem(d_model: int, d_state: int, dt_rank: int, bf16: bool = True):
+    """Shared memory (bytes) a block of each of K2 ``fuse_in``'s two
+    kernels takes, ``(conv_xproj, scan)``, as ``csrc/mixer_fwd.cu`` sizes
+    it. bf16: the conv + x_proj block holds its x window (72 rows) and one
+    pass's 32 w_in^T rows at ``d_model + 8`` elements a row; the scan block
+    holds four rows' staged B | C | dt_lr chunks, the W_dt columns, its 128
+    channels' w_in^T rows (resident) and four 32-step float32 xi tiles.
+    float32 stages w_in^T in chunks of 64 of d_model, so its sizes do not
+    grow with d_model."""
+    J = dt_rank + 2 * d_state
+    # xg^T [32][68] and the x_proj's W rows [32][64 or 128], float32
+    conv = 4 * (32 * 68 + 32 * (64 if J <= 64 else MAX_PROJ))
+    chunk_rows = 8 * J  # one 8-step chunk of dt_lr | B | C, float32
+    if bf16:
+        ld = d_model + 8
+        return (conv + 4 * 71 * 40 + 2 * (72 + 32) * ld,
+                4 * (4 * 2 * chunk_rows + dt_rank * 128) + 2 * 128 * ld + 4 * 4 * 32 * 136)
+    return (conv + 4 * 71 * 32 + 4 * (32 + 80) * 68,
+            4 * (2 * chunk_rows + dt_rank * 128 + 32 * 136 + 128 * 68))
 
 
 def in_proj_f32(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
@@ -115,6 +137,9 @@ def mixer_fwd(xi: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
         _require(w_in.device == xi.device, f"w_in on {w_in.device}, x on {xi.device}")
         _require(Dm % FUSE_IN_K == 0, f"d_model {Dm} is not a multiple of {FUSE_IN_K}")
         _require(xi.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+        smem = max(fuse_in_smem(Dm, w_B.shape[-1], w_dtlr.shape[-1], xi.dtype == torch.bfloat16))
+        _require(smem <= SMEM_MAX, f"d_model {Dm} too wide for fuse_in: its blocks would take "
+                                   f"{smem} bytes of shared memory, more than {SMEM_MAX}")
     K = conv_w.shape[-1]
     R, N = w_dtlr.shape[-1], w_B.shape[-1]
     weights = dict(conv_w=(conv_w, (D, K)), conv_b=(conv_b, (D,)),

@@ -51,19 +51,28 @@ def _mixer_args(rng, dev, D, N=16, R=8, K=4):
             -torch.abs(f(D, N)) - 0.3, f(D))
 
 
-@pytest.mark.parametrize("L", [200, 512])
+# (rows, d_model, d_conv): three rows in one four-row scan block, one row
+# with l20's d_model and a shorter conv, five rows over two blocks
+FUSE_IN_SHAPES = [(3, 64, 4), (1, 384, 2), (5, 384, 4)]
+
+
+@pytest.mark.parametrize("shape", FUSE_IN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("L", [1, 37, 200, 512, 600])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_mixer_fuse_in_matches_plain(cuda, dtype, reverse, L):
+def test_mixer_fuse_in_matches_plain(cuda, dtype, reverse, L, shape):
     """K2 fuse_in (x and w_in in, xi computed inside both kernels) against
-    its plain version: L 200 ends in a ragged time block and a ragged
-    64-step projection tile, D 160 in a ragged channel block; one launch
+    its plain version at the edges of its tiling: L 1, 37, 200 and 600 end
+    in a ragged 64-step block and a ragged 32-step xi tile (L 1 and 37 stop
+    inside the first tile of every staggered row), D 160 in a ragged channel
+    block, rows 1, 3 and 5 fill four-row scan blocks in part; one launch
     counted as x_launches; two launches give equal bits."""
     rng = np.random.default_rng(11)
-    B, Dm, D = 3, 64, 160
+    B, D = shape[0], 160
+    Dm, K = shape[1], shape[2]
     x = _t(rng.standard_normal((B, L, Dm)), cuda, dtype)
-    w_in = _t(rng.standard_normal((Dm, D)) * 0.2, cuda)
-    args = _mixer_args(rng, cuda, D)
+    w_in = _t(rng.standard_normal((Dm, D)) * (0.2 * (64 / Dm) ** 0.5), cuda)
+    args = _mixer_args(rng, cuda, D, K=K)
     before = (cuda_mixer.mixer_fwd.x_launches, cuda_mixer.mixer_fwd.launches)
     got = cuda_mixer.mixer_fwd(x, *args, reverse=reverse, w_in=w_in)
     again = cuda_mixer.mixer_fwd(x, *args, reverse=reverse, w_in=w_in)
@@ -85,6 +94,15 @@ def test_mixer_fuse_in_refusals(cuda):
     x = _t(rng.standard_normal((1, 64, 32)), cuda)
     with pytest.raises(ValueError, match="inference-path only"):
         cuda_mixer.mixer_fwd(x, *args, emit_res=True, w_in=_t(np.ones((32, 32)), cuda))
+    # bf16 keeps a scan block's w_in^T rows resident: at N 16, R 8 d_model
+    # 576 needs more shared memory than a block has; float32 streams them
+    x = _t(rng.standard_normal((1, 64, 576)), cuda)
+    w_in = _t(rng.standard_normal((576, 32)) * 0.05, cuda)
+    with pytest.raises(ValueError, match="too wide for fuse_in"):
+        cuda_mixer.mixer_fwd(x.bfloat16(), *args, w_in=w_in)
+    got = cuda_mixer.mixer_fwd(x, *args, w_in=w_in)
+    want = cuda_mixer.mixer_fwd_plain(x, *args, w_in=w_in)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32][0], atol=TOL[torch.float32][1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

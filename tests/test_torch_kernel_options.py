@@ -392,6 +392,25 @@ def test_fuse_in_route_matches_jax_forward(rng, monkeypatch):
 
 # ---------------------------------------------------------------------------
 # Attention above head dim 128
+def test_fuse_in_smem_sizes():
+    """K2 fuse_in's shared memory a block, as the wrapper checks it before
+    a launch: at l20 (d_model 384, N 16, R 24) in bf16 the conv + x_proj
+    block fits twice on an SM and the four-row scan block once; bf16 grows
+    with d_model (an x window of 72 rows and 32 w_in^T rows; 128 resident
+    w_in^T rows), float32 does not; the widest bf16 d_model at l20's N, R."""
+    conv, scan = cuda_mixer.fuse_in_smem(384, 16, 24)
+    assert (conv, scan) == (109_792, 196_608)
+    assert 2 * (conv + 1024) <= 233_472 and scan <= cuda_mixer.SMEM_MAX
+    assert cuda_mixer.fuse_in_smem(400, 16, 24) == (conv + 2 * 104 * 16, scan + 2 * 128 * 16)
+    assert cuda_mixer.fuse_in_smem(384, 16, 24, bf16=False) == \
+        cuda_mixer.fuse_in_smem(768, 16, 24, bf16=False) == (56_448, 68_096)
+    fits = [dm for dm in range(16, 1024, 16)
+            if max(cuda_mixer.fuse_in_smem(dm, 16, 24)) <= cuda_mixer.SMEM_MAX]
+    assert fits[-1] == 512 and fits == list(range(16, 528, 16))
+    # the x_proj's wider register tiling past R + 2N = 64
+    assert cuda_mixer.fuse_in_smem(384, 32, 24)[0] == conv + 4 * 32 * 64
+
+
 # ---------------------------------------------------------------------------
 
 

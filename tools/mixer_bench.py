@@ -3,8 +3,9 @@
 the scoring rates and training steps they carry, for one checkout.
 
     python3 tools/mixer_bench.py [--repo DIR] [--label NAME] [--skip-steps]
-                                 [--only k1,k2,k4,k5] [--variant NAME] [--sass]
-                                 [--sass-of SRC,...] [--no-ptxas]
+                                 [--no-train] [--only k1,k2,k2x,k4,k5]
+                                 [--variant NAME] [--sass] [--sass-of SRC,...]
+                                 [--no-ptxas]
 
 Imports ``plantcaduceus_tpu_torch`` from DIR (default: the checkout this
 script sits in), builds its sources and measures, on one CUDA card (CUDA
@@ -21,12 +22,19 @@ torch.profiler over 10 calls, each kernel's device time per call):
 * K2 (``mixer_fwd``) at ``chip_smoke.py`` phase 3's shape (256 rows x 512 x
   768, N 16, R 24) and K2-res (``emit_res``) at phase 3b's (64 rows), both
   directions, bf16 and fp32, each beside its bound;
+* K2's ``fuse_in`` variant (``--only k2x``: ``mixer_fwd(w_in=)``, x [256,
+  512, 384] and l20's in_proj x half) at the same shape, both directions,
+  bf16 and fp32, beside its bound, the decomposed route (``torch.matmul``
+  for xi, then K2 with xi given) in the same process, its largest error
+  against the plain version, and its build unit's ``-Xptxas -v`` (when
+  this process built it);
 * K5 (``mamba2_mixer_interior``) at phase 3c's shape (256 rows x 512, H 6,
   P = N = chunk = 128) and K5-res (``emit_residuals``) at phase 3d's (64
   rows), likewise;
 * the l20 and l20-ssd scoring rates (bf16, batch 128 x 512 bp, model
   resident, 1536 windows after a warm batch: phases 6 and 6b's steady
-  state);
+  state), and one profiled batch of each (phases 7 and 7b: the device's
+  busy ms and its mixer kernels', K2's or K5's);
 * the l20 and l20-ssd training steps (bf16, batch 32 x 512, remat; the
   mean of 8 and one profiled step, as ``tools/scan_bench.py``);
 * ``nvcc -Xptxas -v`` of ``scan_fwd.cu``, ``mixer_fwd.cu``, ``ssd_fwd.cu``
@@ -117,11 +125,38 @@ VARIANTS = {
                       "if (live && p < L && acc == -1.2345e-30f) y[")],
     "fwd_nohbstore": [("scan_core.cuh", "if (p < L && live) store_state<N>(hb",
                        "if (false) store_state<N>(hb")],
+    # K2 fuse_in (bf16) without its products: the scan's tiles and the conv
+    # window's xi left as they are (zeros or stale), to show what the
+    # products cost in each kernel
+    "x_noproj": [("mixer_fwd.cu", "for (int k0 = 0; k0 < Dm; k0 += 4 * 16) {",
+                  "for (int k0 = 0; k0 < 0; k0 += 4 * 16) {")],
+    "x_nomma": [("mixer_fwd.cu", "for (int k0 = 0; k0 < Dm; k0 += 16) {\n        uint32_t an[2][4]",
+                 "for (int k0 = 0; k0 < 0; k0 += 16) {\n        uint32_t an[2][4]")],
+    # the conv kernel's products on its first k-step's fragments (no later
+    # ldmatrix), or its ldmatrix without the products; the scan's products
+    # on constant x fragments (no x loads), or its loads without products
+    "x_noldsm": [("mixer_fwd.cu", "        if (k0 + 16 < Dm) frags(an, bn, k0 + 16);",
+                  "        if (k0 < 0) frags(an, bn, k0 + 16);")],
+    "x_noprod": [("mixer_fwd.cu",
+                  "            mma_bf16(v[m][2 * j], fa[m], fb[j][0], fb[j][1]);\n"
+                  "            mma_bf16(v[m][2 * j + 1], fa[m], fb[j][2], fb[j][3]);",
+                  "            v[m][2 * j][0] += __uint_as_float(fa[m][0] ^ fb[j][0] ^ fb[j][3]);")],
+    "x_noxload": [("mixer_fwd.cu",
+                   "        a[s][0] = xa && in ? ld_u32(xa + k) : 0u;\n"
+                   "        a[s][1] = xb && in ? ld_u32(xb + k) : 0u;\n"
+                   "        a[s][2] = xa && in ? ld_u32(xa + k + 8) : 0u;\n"
+                   "        a[s][3] = xb && in ? ld_u32(xb + k + 8) : 0u;",
+                   "        a[s][0] = k; a[s][1] = k + 1; a[s][2] = k + 2; a[s][3] = k + 3;")],
+    "x_noprodb": [("mixer_fwd.cu",
+                   "          mma_bf16(v[2 * j], a[s], bb[0], bb[1]);\n"
+                   "          mma_bf16(v[2 * j + 1], a[s], bb[2], bb[3]);",
+                   "          v[2 * j][0] += __uint_as_float(a[s][0] ^ a[s][1] ^ a[s][2] ^ a[s][3]"
+                   " ^ bb[0] ^ bb[3]);")],
 }
 
 
-# The source of each kernel's library.
-SOURCE = dict(k1="scan_fwd", k2="mixer_fwd", k4="ssd_fwd", k5="mixer2_fwd")
+# The build unit of each kernel's library.
+SOURCE = dict(k1="scan_fwd", k2="mixer_fwd", k2x="mixer_fwd_x", k4="ssd_fwd", k5="mixer2_fwd")
 
 
 def make_variant(repo: Path, name: str) -> Path:
@@ -395,6 +430,51 @@ def k2(cs, dev):
     return out
 
 
+def k2x(cs, dev):
+    """K2 fuse_in at phase 3's shape, both directions, beside the decomposed
+    route and against the plain version."""
+    import torch
+
+    from plantcaduceus_tpu_torch.models.config import CaduceusConfig
+    from plantcaduceus_tpu_torch.ops import cuda_build, cuda_mixer
+
+    cfg = CaduceusConfig.preset("l20")
+    D, N, R, K, Dm = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv, cfg.d_model
+    rows, L = 256, 512
+    w = cs.layer_weights(cfg, 1, dev)
+    A = -torch.exp(w["A_log"])
+    w_in = w["in_proj_x"][0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        x = torch.randn((rows, L, Dm), generator=gen, device=dev).to(dtype)
+        w_x = w_in.to(dtype)
+        work = cs.mixer_fwd_x_work(rows, L, Dm, D, N, R, K, dtype.itemsize)
+        bound = (cs.bound_ms(*work) if dtype == torch.bfloat16
+                 else cs.bound_ms(work[0], work[1] + work[3], work[2]))
+        for g in (0, 1):
+            args = (x, w["conv_w"][g], w["conv_b"][g], w["x_proj_dt"][g], w["x_proj_B"][g],
+                    w["x_proj_C"][g], w["dt_proj_w"][g], w["dt_proj_b"][g], A[g], w["D"][g])
+
+            def fn(a=args, r=g == 1):
+                return cuda_mixer.mixer_fwd(*a, reverse=r, w_in=w_in)
+
+            def decomposed(a=args, r=g == 1):
+                return cuda_mixer.mixer_fwd(torch.matmul(x, w_x), *a[1:], reverse=r)
+
+            res = timed(cs, fn, bound)
+            res["decomposed_ms"] = cs.time_ms(decomposed, 10)
+            want = cuda_mixer.mixer_fwd_plain(*args, reverse=g == 1, w_in=w_in).float()
+            res["max_rel_err"] = ((fn().float() - want).abs().max() / want.abs().max()).item()
+            out.setdefault(dn, {})["rev" if g else "fwd"] = res
+            del want
+        del x
+        torch.cuda.empty_cache()
+    out["ptxas"] = cuda_build.ptxas_reports.get("mixer_fwd_x", "")
+    return out
+
+
 def k5(cs, dev):
     """K5 at phase 3c's shape, K5-res at phase 3d's; both directions."""
     import torch
@@ -453,9 +533,13 @@ def scoring_rate(preset, dev, n=1536, bs=128, L=512, seed=0):
     wps = n / (time.perf_counter() - t)
     if not np.isfinite(probs).all():
         raise RuntimeError(f"{preset} scoring produced non-finite probabilities")
+    split = split_per_call(lambda: runner.masked_probs(ids[:bs], nucleotide_ids(tok),
+                                                       L // 2 - 1, progress=False), iters=2)
+    mixer = sum(v for k, v in split.items() if "conv_xproj" in k or "scan_fwd_kernel" in k
+                or "mamba2" in k or "ssd" in k)
     del runner, model
     torch.cuda.empty_cache()
-    return wps
+    return dict(wps=wps, busy_ms=sum(split.values()), mixer_ms=mixer)
 
 
 def main():
@@ -464,6 +548,8 @@ def main():
     ap.add_argument("--label", default="", help="name of this run in the JSON line")
     ap.add_argument("--skip-steps", action="store_true",
                     help="kernel timings only (no scoring rates or training steps)")
+    ap.add_argument("--no-train", action="store_true",
+                    help="the scoring rates without the training steps")
     ap.add_argument("--only", default="k1,k2,k4,k5", help="kernels to time, comma-separated")
     ap.add_argument("--variant", choices=sorted(VARIANTS), help="measure a diagnostic copy")
     ap.add_argument("--sass", action="store_true", help="count the forward scans' SASS")
@@ -497,7 +583,8 @@ def main():
     cuda_build.build_all(tuple(dict.fromkeys(sources)) if a.skip_steps else cuda_build.SOURCES)
     build_s = time.perf_counter() - t
     ptxas = {} if a.no_ptxas else sb.ptxas_reports(
-        cuda_build, tuple(dict.fromkeys([SOURCE[k] for k in only] + sass_of)))
+        cuda_build, tuple(dict.fromkeys([cuda_build.UNITS[SOURCE[k]][0] for k in only]
+                                        + sass_of)))
     dev = torch.device("cuda")
     res = dict(label=a.label, repo=str(repo), variant=a.variant, card=card, build_s=build_s,
                ptxas=ptxas)
@@ -505,12 +592,13 @@ def main():
         res["sass"] = sass_loops(cuda_build)
     if sass_of:
         res["sass_kernels"] = sass_kernels(cuda_build, sass_of)
-    benches = dict(k1=k1, k2=k2, k4=k4, k5=k5)
+    benches = dict(k1=k1, k2=k2, k2x=k2x, k4=k4, k5=k5)
     for k in only:
         res[k] = benches[k](cs, dev)
     if not a.skip_steps:
         res["scoring_wps"] = {p: scoring_rate(p, dev) for p in ("l20", "l20-ssd")}
-        res["steps"] = {p: sb.train_step(cs, p, dev) for p in ("l20", "l20-ssd")}
+        if not a.no_train:
+            res["steps"] = {p: sb.train_step(cs, p, dev) for p in ("l20", "l20-ssd")}
     print(json.dumps(res))
 
 
